@@ -1,0 +1,741 @@
+"""The user-facing Rii engine in PyTorch (counterpart of ``rii_tpu.rii``).
+
+This layer owns policy, as in the JAX package: codec management, default
+nlist and L, the linear-versus-IVF choice, argument validation and posting
+list bookkeeping. Mechanism lives in ``rii_tpu_torch.ops`` and works on a
+cache of padded tensors on ``device``.
+
+Canonical state is host-side numpy (uint8 codes, int32 assignments, uint8
+coarse centers); the device tensors are a derived cache, rebuilt lazily when
+the index changes. Routing keeps every threshold of the JAX package: the
+kernel tiers run where the engine's device is CUDA (the JAX package's "the
+backend is not the CPU"), the IVF window kernel fires from a 2048-window
+union up, a batch whose union covers half the capacity goes to the linear
+scan, and the replica and windows are held to ``decoded_cache_budget``.
+Tiers whose kernels are not ported (int8, and pq on the kernel path) raise
+``NotImplementedError`` naming the missing kernel.
+"""
+
+import copy
+import threading
+
+import numpy as np
+import torch
+
+from rii_tpu_torch._device import resolve_device
+from rii_tpu_torch.models.ivf import (
+    build_virtual_layout,
+    code_norms_np,
+    posting_lists_from_assignments,
+)
+from rii_tpu_torch.models.pq import PQ
+from rii_tpu_torch.models.pqkmeans import pqkmeans_fit, pqkmeans_predict
+from rii_tpu_torch.ops.decode import build_decoded_cache
+from rii_tpu_torch.ops.hopper_scan import (
+    _TN_MIN_Q,
+    prepare_replica_t,
+    replica_scan_topk_t,
+)
+from rii_tpu_torch.ops.ivf import ivf_union_scan_topk, ivf_union_scan_topk_pq
+from rii_tpu_torch.ops.scan import (
+    linear_scan_topk,
+    linear_scan_topk_decoded,
+    subset_scan_topk,
+    subset_scan_topk_decoded,
+)
+
+_RECONFIGURE_SAMPLE_SEED = 123  # mirrors std::default_random_engine(123)
+_PQKMEANS_SEED = 0  # mirrors mt19937(0) in the reference's PQk-means
+_PAD_SENTINEL = 1e15  # bf16 value of padding rows in the IVF windows
+
+_MISSING_INT8 = ("the int8 tier is not ported: it needs the int8 replica and "
+                 "window kernels K4-K6 (rii_tpu/ops/pallas_scan.py "
+                 "_replica_i8t_kernel, _replica_i8tn_kernel, "
+                 "_ivf_i8_window_multi_kernel)")
+_MISSING_PQ_LINEAR = ("the pq tier on the kernel path is not ported: it needs "
+                      "kernel K7 (rii_tpu/ops/pallas_scan.py _pq_t_kernel); "
+                      "use scan_mode='bf16' or topk_recall=None")
+_MISSING_PQ_IVF = ("IVF over uint8 code windows on the kernel path is not "
+                   "ported: it needs kernels K8/K9 (rii_tpu/ops/pallas_scan.py "
+                   "_ivf_pq_window_kernel, _ivf_dt_window_kernel); raise "
+                   "decoded_cache_budget or use topk_recall=None")
+
+
+def require_dtype(arr, dtype, name):
+    """Strict input contract (the reference binding's ``.noconvert()``): an
+    array of the wrong dtype is rejected with TypeError, never cast."""
+    arr = np.asarray(arr)
+    if arr.dtype != dtype:
+        raise TypeError(
+            f"{name} must be {np.dtype(dtype).name} (got {arr.dtype.name}); "
+            f"cast explicitly with .astype(np.{np.dtype(dtype).name})")
+    return arr
+
+
+def _pow2_at_least(n, lo=1):
+    v = max(1, lo)
+    while v < n:
+        v *= 2
+    return v
+
+
+def _pad_queries(queries, lo=1):
+    """Pad the query batch to a power-of-two bucket >= lo (repeat row 0)."""
+    qn = queries.shape[0]
+    bucket = _pow2_at_least(qn, lo)
+    if bucket == qn:
+        return queries, qn
+    pad = np.broadcast_to(queries[:1], (bucket - qn, queries.shape[1]))
+    return np.concatenate([queries, pad], axis=0), qn
+
+
+class _RWLock:
+    """Many concurrent readers (queries) or one exclusive writer (mutation).
+
+    Writer preference: a waiting writer blocks new readers, so a saturated
+    query stream cannot starve mutations; a thread already holding the read
+    side re-enters freely (counted per thread), so nested reads cannot
+    deadlock."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._readers = 0
+        self._writing = False
+        self._writers_waiting = 0
+        self._tl = threading.local()  # per-thread read-hold count
+
+    class _ReadSide:
+        def __init__(self, lock):
+            self._lock = lock
+
+        def __enter__(self):
+            lk = self._lock
+            held = getattr(lk._tl, "reads", 0)
+            if held:  # re-entrant read: already counted, never waits
+                lk._tl.reads = held + 1
+                return
+            with lk._cond:
+                while lk._writing or lk._writers_waiting:
+                    lk._cond.wait()
+                lk._readers += 1
+                lk._tl.reads = 1
+
+        def __exit__(self, *exc):
+            lk = self._lock
+            held = lk._tl.reads = getattr(lk._tl, "reads", 1) - 1
+            if held:  # inner of a re-entrant read: nothing to release
+                return
+            with lk._cond:
+                lk._readers -= 1
+                lk._cond.notify_all()
+
+    class _WriteSide:
+        """Registers intent before blocking so new readers yield."""
+
+        def __init__(self, lock):
+            self._lock = lock
+
+        def __enter__(self):
+            lk = self._lock
+            with lk._cond:
+                lk._writers_waiting += 1
+                try:
+                    while lk._writing or lk._readers:
+                        lk._cond.wait()
+                    lk._writing = True
+                finally:
+                    lk._writers_waiting -= 1
+
+        def __exit__(self, *exc):
+            lk = self._lock
+            with lk._cond:
+                lk._writing = False
+                lk._cond.notify_all()
+
+    def read(self):
+        return self._ReadSide(self)
+
+    def write(self):
+        return self._WriteSide(self)
+
+
+class Rii:
+    """Reconfigurable inverted index over PQ codes.
+
+    Args:
+        fine_quantizer: a fitted :class:`rii_tpu_torch.PQ`.
+        device: where the cache lives and the scans run; defaults to the
+            codec's device. Never detected.
+
+    Attributes (as in ``rii_tpu.Rii``): ``threshold``, ``scan_mode``,
+    ``decoded_cache_budget``, ``topk_recall``, ``probe_recall``,
+    ``exact_rescore``. ``force_kernel_routing`` is a test hook: on the CPU it
+    makes the engine take the routes it takes on CUDA, through the kernels'
+    plain twins (the counterpart of the JAX engine's ``pallas_interpret``).
+    """
+
+    def __init__(self, fine_quantizer, device=None):
+        assert isinstance(fine_quantizer, PQ)
+        assert fine_quantizer.codewords is not None, "Please fit the PQ instance first"
+        assert fine_quantizer.Ks <= 256, "Ks must be <= 256 so that each code is uint8"
+        self.device = (fine_quantizer.device if device is None
+                       else resolve_device(device))
+        self.fine_quantizer = copy.deepcopy(fine_quantizer)
+        self.fine_quantizer.device = self.device
+        self.threshold = None
+        self.scan_mode = "auto"
+        self.decoded_cache_budget = 2 << 30
+        self.topk_recall = 0.99
+        self.probe_recall = "inherit"
+        self.exact_rescore = "auto"
+        self.force_kernel_routing = False
+        self._verbose = bool(fine_quantizer.verbose)
+        self._code_chunks = []  # list of (n_i, M) uint8
+        self._assign_chunks = []  # list of (n_i,) int32; -1 = in no posting list
+        self._n = 0
+        self._centers = None  # (nlist, M) uint8
+        self._version = 0
+        self._codes_cache = None  # consolidated (N, M) uint8
+        self._dc = None  # device cache dict
+        self._cache_lock = threading.Lock()  # one thread builds the cache
+        self._state_lock = _RWLock()  # queries shared, mutations exclusive
+
+    # ------------------------------------------------------------------ #
+    # properties
+    # ------------------------------------------------------------------ #
+
+    @property
+    def M(self):
+        """int: number of PQ sub-spaces."""
+        return self.fine_quantizer.M
+
+    @property
+    def Ks(self):
+        """int: codewords per sub-space."""
+        return self.fine_quantizer.Ks
+
+    @property
+    def N(self):
+        """int: number of stored PQ codes."""
+        return self._n
+
+    @property
+    def nlist(self):
+        """int: number of posting lists (0 before the first reconfigure)."""
+        return 0 if self._centers is None else int(self._centers.shape[0])
+
+    @property
+    def codewords(self):
+        """np.ndarray: (M, Ks, Ds) float32 codewords."""
+        return self.fine_quantizer.codewords
+
+    @property
+    def coarse_centers(self):
+        """np.ndarray: (nlist, M) uint8 coarse centers (PQ codes), or None."""
+        if self.nlist == 0:
+            return None
+        return np.array(self._centers, dtype=self.fine_quantizer.code_dtype)
+
+    @property
+    def codes(self):
+        """np.ndarray: (N, M) uint8 stored PQ codes, or None if empty."""
+        if self._n == 0:
+            return None
+        return np.array(self._consolidated_codes(), copy=True)
+
+    @property
+    def posting_lists(self):
+        """list[list[int]]: ids per coarse center, ascending within each list."""
+        if self.nlist == 0:
+            return []
+        return posting_lists_from_assignments(self._assignments(), self.nlist)
+
+    @property
+    def verbose(self):
+        """bool: verbose flag (rewritable)."""
+        return self._verbose
+
+    @verbose.setter
+    def verbose(self, v):
+        self._verbose = bool(v)
+        self.fine_quantizer.verbose = bool(v)
+
+    @property
+    def L0(self):
+        """int: average posting-list length round(N / nlist), or None."""
+        if self.nlist == 0:
+            return None
+        return int(np.round(self._n / self.nlist))
+
+    # ------------------------------------------------------------------ #
+    # mutation
+    # ------------------------------------------------------------------ #
+
+    def reconfigure(self, nlist=None, iter=5, calibrate=False):
+        """Re-cluster the stored codes into nlist coarse centers and rebuild
+        the posting lists: samples min(N, nlist*100) codes with a fixed seed,
+        runs PQk-means, then assigns all N codes. ``threshold`` is refreshed
+        from the analytic cost model."""
+        if calibrate:
+            raise NotImplementedError(
+                "reconfigure(calibrate=True) (the timed threshold sweep) is "
+                "not ported; use the analytic threshold (calibrate=False)")
+        if nlist is None:
+            nlist = int(np.sqrt(self._n))
+        assert 0 < nlist, "nlist must be positive"
+        assert nlist <= self._n, "nlist must be <= N"
+        iter = max(1, int(iter))
+        with self._state_lock.write():
+            codes = self._consolidated_codes()
+            n_train = min(self._n, nlist * 100)
+            pick = np.random.RandomState(
+                _RECONFIGURE_SAMPLE_SEED).permutation(self._n)[:n_train]
+            if self._verbose:
+                print(f"Training coarse centers on {n_train} codes (nlist={nlist})")
+            centers, _ = pqkmeans_fit(self.codewords, codes[pick], k=nlist,
+                                      iters=iter, seed=_PQKMEANS_SEED,
+                                      device=self.device, verbose=self._verbose)
+            assign = pqkmeans_predict(self.codewords, centers, codes,
+                                      device=self.device)
+            self._centers = centers
+            self._assign_chunks = [assign.astype(np.int32)]
+            self._bump()
+        self.threshold = self._analytic_threshold()
+        return self
+
+    def add(self, vecs, update_posting_lists="auto"):
+        """Encode and append new (N, D) float32 vectors."""
+        vecs = np.asarray(vecs)
+        assert vecs.ndim == 2
+        assert vecs.dtype == np.float32
+        codes = self.fine_quantizer.encode(vecs)
+        self._add_codes(codes, self._resolve_update_posting_lists_flag(
+            update_posting_lists))
+
+    def add_codes(self, codes, update_posting_lists="auto"):
+        """Append pre-encoded (N, M) uint8 PQ codes. Returns self."""
+        codes = np.ascontiguousarray(require_dtype(codes, np.uint8, "codes"))
+        if codes.size and self.Ks < 256:
+            # an out-of-range code would index past its codebook on the card
+            assert int(codes.max()) < self.Ks, (
+                f"code values must be < Ks={self.Ks} (got max {int(codes.max())})")
+        self._add_codes(codes, self._resolve_update_posting_lists_flag(
+            update_posting_lists))
+        return self
+
+    def add_configure(self, vecs, nlist=None, iter=5):
+        """add(update_posting_lists=False) then reconfigure. Returns self."""
+        self.add(vecs=vecs, update_posting_lists=False)
+        self.reconfigure(nlist=nlist, iter=iter)
+        return self
+
+    def _add_codes(self, codes, update_flag):
+        """Append a code batch. The device cache is dropped and rebuilt on
+        the next query (an O(batch) append into the cache is not ported)."""
+        codes = np.ascontiguousarray(codes, dtype=np.uint8)
+        assert codes.ndim == 2 and codes.shape[1] == self.M
+        msg = ("reconfigure() must be called before add(vecs=X, "
+               "update_posting_lists=True). If this is the first addition, "
+               "please call add_configure(vecs=X)")
+        if update_flag and self._centers is None:
+            raise RuntimeError(msg)
+
+        def _predict():
+            if not update_flag:
+                return np.full(codes.shape[0], -1, dtype=np.int32)
+            return pqkmeans_predict(self.codewords, self._centers, codes,
+                                    device=self.device)
+
+        # predict outside the exclusive section; redo it if a reconfigure
+        # replaced the centers meanwhile
+        c0 = self._centers
+        assign = _predict()
+        with self._state_lock.write():
+            if self._centers is not c0:
+                assign = _predict()
+            self._code_chunks.append(codes)
+            self._codes_cache = None
+            self._assign_chunks.append(assign)
+            self._n += codes.shape[0]
+            self._bump()
+        if self._verbose:
+            print(f"{codes.shape[0]} new vectors are added. Total: {self._n}")
+
+    # ------------------------------------------------------------------ #
+    # query
+    # ------------------------------------------------------------------ #
+
+    def query(self, q, topk=1, L=None, target_ids=None, sort_target_ids=True,
+              method="auto"):
+        """Single-query search. Returns (ids (topk,) int64, dists (topk,)
+        float64), dists ascending."""
+        q = np.asarray(q)
+        assert q.ndim == 1
+        ids, dists = self.query_batch(
+            q[None, :], topk=topk, L=L, target_ids=target_ids,
+            sort_target_ids=sort_target_ids, method=method)
+        return ids[0], dists[0]
+
+    def query_batch(self, queries, topk=1, L=None, target_ids=None,
+                    sort_target_ids=True, method="auto"):
+        """Batched search of (Q, D) float32 queries sharing one target-id
+        set. Returns (ids (Q, topk) int64, dists (Q, topk) float64)."""
+        with self._state_lock.read():
+            return self._query_batch_impl(queries, topk, L, target_ids,
+                                          sort_target_ids, method)
+
+    def _query_batch_impl(self, queries, topk, L, target_ids,
+                          sort_target_ids, method):
+        assert 0 < self._n, "No codes to be searched"
+        assert 0 < self.nlist, "Posting lists are not available; call reconfigure first"
+        assert method in ("auto", "linear", "ivf")
+        queries = require_dtype(queries, np.float32, "queries")
+        queries = np.ascontiguousarray(np.atleast_2d(queries))
+        if topk is None:
+            topk = self._n
+        assert 1 <= topk <= self._n
+        if L is None:
+            L = self._multiple_of_L0_covering_topk(topk=topk)
+        assert topk <= L <= self._n, \
+            f"Make sure topk<=L<=N: topk={topk}, L={L}, N={self._n}"
+        if target_ids is None:
+            tids = None
+            len_target_ids = self._n
+        else:
+            assert isinstance(target_ids, np.ndarray)
+            target_ids = require_dtype(target_ids, np.int64, "target_ids")
+            assert target_ids.ndim == 1
+            tids = np.sort(target_ids) if sort_target_ids else target_ids
+            len_target_ids = len(tids)
+        assert topk <= len_target_ids <= self._n, \
+            f"Make sure topk<=len(target_ids)<=N: topk={topk}, " \
+            f"len(target_ids)={len_target_ids}, N={self._n}"
+        if method == "auto":
+            method = "linear" if self._use_linear(
+                len_target_ids, L, qn=queries.shape[0]) else "ivf"
+        if method == "linear":
+            ids, dists = self._query_linear_batch(queries, topk, tids)
+        else:
+            ids, dists = self._query_ivf_batch(queries, topk, tids, L)
+        return ids.astype(np.int64), dists.astype(np.float64)
+
+    def query_linear(self, q, topk, target_ids=None):
+        """Linear scan for one (D,) float32 query. Returns (ids, dists)."""
+        q = require_dtype(q, np.float32, "q")
+        with self._state_lock.read():
+            ids, dists = self._query_linear_batch(
+                np.ascontiguousarray(np.atleast_2d(q)), topk,
+                None if target_ids is None or len(target_ids) == 0
+                else require_dtype(target_ids, np.int64, "target_ids"))
+        return ids[0].astype(np.int64), dists[0].astype(np.float64)
+
+    def query_ivf(self, q, topk, target_ids, L):
+        """IVF scan for one (D,) float32 query. Returns (ids, dists)."""
+        q = require_dtype(q, np.float32, "q")
+        with self._state_lock.read():
+            ids, dists = self._query_ivf_batch(
+                np.ascontiguousarray(np.atleast_2d(q)), topk,
+                None if target_ids is None or len(target_ids) == 0
+                else require_dtype(target_ids, np.int64, "target_ids"), L)
+        return ids[0].astype(np.int64), dists[0].astype(np.float64)
+
+    def _resolve_rescore(self, qn):
+        """Exact-rescore policy of the bf16 tiers: "auto" rescores below
+        ``_TN_MIN_Q`` queries; True/False force it."""
+        if self.exact_rescore == "auto":
+            return qn < _TN_MIN_Q
+        return bool(self.exact_rescore)
+
+    def _subset_mask(self, dc, tids):
+        mask = torch.zeros(dc["cap"], dtype=torch.bool, device=self.device)
+        mask[torch.tensor(np.clip(tids, 0, dc["cap"] - 1),
+                          device=self.device)] = True
+        return mask
+
+    def _query_linear_batch(self, queries, topk, tids):
+        dc = self._ensure_cache()
+        qp, qn = _pad_queries(queries)
+        qd = torch.tensor(qp, device=self.device)
+        rs = self._resolve_rescore(qd.shape[0])
+        rs_codes = dc["codes_flat"] if rs else None
+        rs_cw = dc["codewords"] if rs else None
+        norms = dc["norms_flat"]
+        if tids is not None and len(tids) <= 4096:
+            s = len(tids)
+            tids_pad = np.zeros(_pow2_at_least(s, 16), dtype=np.int64)
+            tids_pad[:s] = tids
+            tt = torch.tensor(tids_pad, device=self.device)
+            if "decoded_flat" in dc:
+                d, i = subset_scan_topk_decoded(
+                    qd, dc["decoded_flat"], norms, tt, s, topk,
+                    codes=rs_codes, codewords=rs_cw)
+            else:
+                d, i = subset_scan_topk(qd, dc["codes_flat"], norms,
+                                        dc["codewords"], tt, s, topk)
+        else:
+            # mid/large subsets: a masked full scan (+inf norms exclude)
+            mask = None if tids is None else self._subset_mask(dc, tids)
+            if "decoded_t" in dc:
+                if mask is not None:
+                    norms = torch.where(mask, norms, float("inf"))
+                d, i = replica_scan_topk_t(qd, dc["decoded_t"], norms[None, :],
+                                           topk, codes=rs_codes,
+                                           codewords=rs_cw)
+            elif "decoded_flat" in dc:
+                d, i = linear_scan_topk_decoded(
+                    qd, dc["decoded_flat"], norms, topk, codes=rs_codes,
+                    codewords=rs_cw, mask=mask, block=dc["block_dec"])
+            else:
+                d, i = linear_scan_topk(qd, dc["codes_flat"], norms,
+                                        dc["codewords"], topk, mask=mask,
+                                        block=dc["block"])
+        return i[:qn].cpu().numpy(), d[:qn].cpu().numpy()
+
+    def _probe_width_virtual(self, L, s, dc):
+        """Probe width in virtual buckets, with the reference's candidate
+        budget: its +3 whole lists become +3 * (windows per list)."""
+        denom = self._n if s is None else s
+        slack = 3 * max(1, -(-dc["nlist_v"] // max(1, self.nlist)))
+        wv = int(np.round(float(L) * dc["nlist_v"] / denom)) + slack
+        return min(dc["nlist_v_pad"], _pow2_at_least(max(1, wv)))
+
+    def _query_ivf_batch(self, queries, topk, tids, L, force_full=False):
+        dc = self._ensure_cache()
+        use_kernels = self._use_kernels()
+        if use_kernels and dc["windows"] == "int8":
+            raise NotImplementedError(_MISSING_INT8)
+        if use_kernels and dc["windows"] == "pq":
+            raise NotImplementedError(_MISSING_PQ_IVF)
+        qp, qn = _pad_queries(queries, lo=8 if use_kernels else 1)
+        qd = torch.tensor(qp, device=self.device)
+        s = None if tids is None else len(tids)
+        rt = self.topk_recall
+        wv = dc["nlist_v_pad"] if force_full else self._probe_width_virtual(
+            L, s, dc)
+        probe_full = wv >= dc["nlist_v"]
+        union_slots = min(qd.shape[0] * wv, dc["nlist_v"]) * dc["cap_v"]
+        if probe_full or 2 * union_slots >= dc["cap"]:
+            # the union covers most of the database: the contiguous linear
+            # scan reads every row faster than the windows would
+            return self._query_linear_batch(queries, topk, tids)
+        tm = None
+        if tids is not None:
+            tm = self._subset_mask(dc, tids)[
+                dc["order_g"].clamp(0, dc["cap"] - 1).long()]
+        if dc["windows"] == "bf16":
+            # the window kernel pays off on big unions only (the JAX
+            # package's measured crossover, kept as is)
+            u_est = min(qd.shape[0] * wv, dc["nlist_v_pad"])
+            rs = self._resolve_rescore(qd.shape[0])
+            d, i = ivf_union_scan_topk(
+                qd, dc["decoded_g"], dc["norms_g"], dc["order_g"],
+                dc["centers_dec_v"], dc["centers_norms_v"], w=wv, topk=topk,
+                cap_u=dc["cap_v"], nlist_pad=dc["nlist_v_pad"],
+                target_mask=tm, recall_target=rt,
+                use_kernel=use_kernels and u_est >= 2048,
+                probe_recall=self.probe_recall,
+                codes=dc["codes_flat"] if rs else None,
+                codewords=dc["codewords"] if rs else None)
+        else:
+            d, i = ivf_union_scan_topk_pq(
+                qd, dc["codes_g"], dc["norms_g"], dc["order_g"],
+                dc["codewords"], dc["centers_dec_v"], dc["centers_norms_v"],
+                w=wv, topk=topk, cap_u=dc["cap_v"],
+                nlist_pad=dc["nlist_v_pad"], target_mask=tm,
+                recall_target=rt, probe_recall=self.probe_recall)
+        d = d[:qn].cpu().numpy()
+        i = i[:qn].cpu().numpy()
+        # fewer than topk candidates found: widen to full coverage (the
+        # reference keeps walking lists until it has L candidates)
+        if not force_full and not probe_full and not np.isfinite(d).all():
+            return self._query_ivf_batch(queries, topk, tids, L,
+                                         force_full=True)
+        return i, d
+
+    # ------------------------------------------------------------------ #
+    # policy helpers
+    # ------------------------------------------------------------------ #
+
+    def _multiple_of_L0_covering_topk(self, topk):
+        avglen = self.L0
+        return min((topk // avglen + 1) * avglen, self._n)
+
+    def _use_linear(self, len_target_ids, L, qn=1):
+        if len_target_ids <= self.threshold(L):
+            return True
+        # an IVF batch reads min(Q*wv, nlist_v)*cap_v window rows, the linear
+        # scan all cap rows once: prefer linear where the IVF path would
+        # switch to it anyway (2 * rows >= cap)
+        dc = self._ensure_cache()
+        s = None if len_target_ids >= self._n else len_target_ids
+        wv = self._probe_width_virtual(L, s, dc)
+        rows = min(qn * wv, dc["nlist_v"]) * dc["cap_v"]
+        return 2 * rows >= dc["cap"]
+
+    def _resolve_update_posting_lists_flag(self, flag):
+        assert flag in ("auto", True, False)
+        if flag == "auto":
+            return 0 < self.nlist
+        return flag
+
+    def _analytic_threshold(self):
+        """Cost-model threshold: IVF evaluates ~L candidates + nlist coarse
+        centers, linear evaluates |S|; crossover at |S| ~= L + nlist."""
+        return np.poly1d([1.0, float(self.nlist)])
+
+    # ------------------------------------------------------------------ #
+    # internal state
+    # ------------------------------------------------------------------ #
+
+    def _bump(self):
+        self._version += 1
+        self._dc = None
+
+    def _use_kernels(self):
+        """The kernel tiers: on when the engine's device is CUDA (or the
+        ``force_kernel_routing`` test hook is set), off in exact mode
+        (``topk_recall=None``), whose selection must be exact."""
+        if self.topk_recall is None:
+            return False
+        return self.force_kernel_routing or self.device.type == "cuda"
+
+    def _resolve_scan_mode(self, cap):
+        """scan_mode ('auto'|'pq'|'bf16'|'int8') -> the concrete tier."""
+        mode = self.scan_mode
+        if mode == "pq":
+            return "pq"
+        d = self.M * self.fine_quantizer.Ds
+        fits_bf16 = cap * d * 2 <= self.decoded_cache_budget
+        fits_i8 = cap * d <= self.decoded_cache_budget
+        if mode == "bf16":
+            return "bf16" if fits_bf16 else "pq"
+        if mode == "int8" and not (fits_i8 and self._use_kernels()):
+            return "bf16" if fits_bf16 else "pq"
+        if mode == "int8":
+            return "int8"
+        # auto: the replica pays off on the card only
+        if self.device.type != "cuda":
+            return "pq"
+        if fits_bf16:
+            return "bf16"
+        if fits_i8 and self._use_kernels():
+            return "int8"
+        return "pq"
+
+    def _consolidated_codes(self):
+        if self._codes_cache is None:
+            if not self._code_chunks:
+                self._codes_cache = np.zeros((0, self.M), dtype=np.uint8)
+            elif len(self._code_chunks) == 1:
+                self._codes_cache = self._code_chunks[0]
+            else:
+                self._codes_cache = np.concatenate(self._code_chunks, axis=0)
+                self._code_chunks = [self._codes_cache]
+        return self._codes_cache
+
+    def _assignments(self):
+        if not self._assign_chunks:
+            return np.zeros((0,), dtype=np.int32)
+        if len(self._assign_chunks) > 1:
+            self._assign_chunks = [np.concatenate(self._assign_chunks)]
+        return self._assign_chunks[0]
+
+    def _ensure_cache(self):
+        dc = self._dc
+        if dc is not None and dc["version"] == self._version:
+            return dc
+        with self._cache_lock:
+            dc = self._dc
+            if dc is not None and dc["version"] == self._version:
+                return dc
+            return self._build_cache()
+
+    def _tensor(self, arr):
+        return torch.tensor(arr, device=self.device)
+
+    def _build_cache(self):
+        codes = self._consolidated_codes()
+        cw = np.asarray(self.codewords, dtype=np.float32)
+        norms = code_norms_np(cw, codes)
+        cap = _pow2_at_least(max(self._n, 1), 1024)
+        codes_flat = np.zeros((cap, self.M), dtype=np.uint8)
+        codes_flat[: self._n] = codes
+        norms_flat = np.full(cap, np.inf, dtype=np.float32)
+        norms_flat[: self._n] = norms
+        dc = {
+            "version": self._version,
+            "cap": cap,
+            "block": min(8192, cap),  # pq tier: bounds the decode transient
+            "block_dec": min(262144, cap),
+            "codewords": self._tensor(cw),
+            "codes_flat": self._tensor(codes_flat),
+            "norms_flat": self._tensor(norms_flat),
+        }
+        resolved = self._resolve_scan_mode(cap)
+        dc["mode"] = resolved
+        if resolved == "int8":
+            raise NotImplementedError(_MISSING_INT8)
+        if resolved == "bf16":
+            decoded = build_decoded_cache(dc["codes_flat"], dc["codewords"])
+            if self._use_kernels():
+                # transposed replica (D, cap) for kernel A
+                dc["decoded_t"], dc["norms_rep"] = prepare_replica_t(
+                    decoded, dc["norms_flat"])
+                del decoded
+            else:
+                dc["decoded_flat"] = decoded
+        elif self._use_kernels():
+            raise NotImplementedError(_MISSING_PQ_LINEAR)
+        if self._centers is not None:
+            self._build_windows(dc, codes, norms, cw, resolved)
+        self._dc = dc
+        return dc
+
+    def _build_windows(self, dc, codes, norms, cw, resolved):
+        """The balanced virtual-bucket layout of the union IVF scan, with
+        bf16 windows when the replica and windows fit the budget together."""
+        nlist = self.nlist
+        nlist_pad = _pow2_at_least(nlist, 8)
+        dec = cw[np.arange(self.M)[None, :], self._centers.astype(np.int64)]
+        centers_dec = np.zeros((nlist_pad, self.M * cw.shape[2]), np.float32)
+        centers_dec[:nlist] = dec.reshape(nlist, -1)
+        centers_norms = np.full(nlist_pad, np.inf, dtype=np.float32)
+        centers_norms[:nlist] = (centers_dec[:nlist] ** 2).sum(axis=1)
+        # 12.5% per-bucket headroom, as in the JAX package, so both build
+        # the same layout
+        ul = build_virtual_layout(codes, norms, self._assignments(), nlist,
+                                  headroom=0.125)
+        vreal = ul["vreal"]
+        vr = np.clip(vreal, 0, nlist_pad - 1)
+        dc.update({
+            "nlist_pad": nlist_pad,
+            "cap_v": ul["cap_v"],
+            "nlist_v": ul["nlist_v"],
+            "nlist_v_pad": ul["nlist_v_pad"],
+            "order_g": self._tensor(ul["order"]),
+            "norms_g": self._tensor(ul["norms_grouped"]),
+            "centers_dec_v": self._tensor(centers_dec[vr]),
+            "centers_norms_v": self._tensor(np.where(
+                vreal >= 0, centers_norms[vr], np.inf).astype(np.float32)),
+        })
+        d_dim = self.M * cw.shape[2]
+        # gate the combined footprint of the replica and the windows
+        has_replica = "decoded_flat" in dc or "decoded_t" in dc
+        flat_bytes = dc["cap"] * (d_dim * 2 + 8 * 4) if has_replica else 0
+        budget = self.decoded_cache_budget
+        win_bf16 = (resolved == "bf16"
+                    and flat_bytes + ul["total"] * d_dim * 2 <= budget)
+        win_i8 = (not win_bf16 and self._use_kernels()
+                  and resolved in ("bf16", "int8")
+                  and flat_bytes + ul["total"] * d_dim <= budget)
+        if win_bf16:
+            dec_g = build_decoded_cache(self._tensor(ul["codes_grouped"]),
+                                        dc["codewords"])
+            # padding rows get a large sentinel so the window kernel's
+            # in-kernel norms put them behind every real row (in place)
+            dec_g[dc["order_g"] < 0] = _PAD_SENTINEL
+            dc["decoded_g"] = dec_g
+            dc["windows"] = "bf16"
+        else:
+            dc["codes_g"] = self._tensor(ul["codes_grouped"])
+            dc["windows"] = "int8" if win_i8 else "pq"
