@@ -12,13 +12,22 @@ Phases, each of which must pass (no exception is caught):
    card, at the main path's shapes, with the CPU tests' tolerances, timed
    with CUDA events (median of 7).
 4. Small reference: a CUDA engine against a CPU engine on the same codes.
-5. Engine: the main path through the public API at a SIFT-shaped config
+5. Engine: the bf16 path through the public API at a SIFT-shaped config
    (N=2,000,000, D=128, M=32, Ks=256, nlist=1000, topk=10): PQ fit,
    add_configure, linear query_batch at Q=1024 and Q=128, IVF query_batch
    at L=5000 and L=10000 with Q*wv = 2048 (so each batch reaches the window
    kernel) and at L=5000 in exact mode, one subset IVF query with
-   |S|=100k, recall against exact float32 ground truth, and the kernels'
-   launch counts during this phase.
+   |S|=100k, recall against exact float32 ground truth, and the launch
+   counts of kernels A and B during this phase.
+6. Engine, pq tier: the SIFT1B-shape lifecycle (the reference's billion-
+   scale config M=8, Ks=256, D=128, nlist=31623 on 2^25 synthetic codes, as
+   benchmarks/sift1b_shape.py runs it): add_codes ingest, reconfigure,
+   linear query_batch at Q=128 and 1024 (kernel C), IVF query_batch at
+   Q=8 and 64 (kernel E) and 512 (kernel D) against the exact-mode walk,
+   subset queries with |S|=1,000,000, add(+100k) scattered into the live
+   cache, queries again; recall and distances against exact ADC ground
+   truth computed on the card, and the launch counts of kernels C, D and E
+   during this phase.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -28,6 +37,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -76,6 +86,23 @@ def compare_keys(name, v_k, s_k, v_t, s_t):
     return err.max().item()
 
 
+def kernel_wrappers():
+    """The five kernels' wrappers by the names the JSON record uses."""
+    from rii_tpu_torch.ops import hopper_pq as HP
+    from rii_tpu_torch.ops import hopper_scan as H
+    return {"replica_tile_keys": H.replica_tile_keys,
+            "ivf_window_top2": H.ivf_window_tile_minima,
+            "pq_tile_keys": HP.pq_tile_keys,
+            "ivf_pq_window_top2": HP.ivf_pq_window_tile_minima,
+            "ivf_dt_window_top2": HP.ivf_dt_window_tile_minima}
+
+
+def reset_launch_counts():
+    """Every kernel's launch count to 0, just before a path is driven."""
+    for f in kernel_wrappers().values():
+        f.launches = 0
+
+
 def phase_card():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -90,8 +117,11 @@ def phase_card():
 
 def phase_build():
     from rii_tpu_torch.ops import _build
-    for name in ("replica_scan", "ivf_window"):
-        _build.load_library(name, verbose=True)
+    names = ("replica_scan", "ivf_window", "pq_scan", "ivf_pq_window")
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(lambda nm: _build.load_library(nm, verbose=True), names))
+    for name in names:
         log(f"build {name}: {_build.build_seconds[name]:.2f} s")
 
 
@@ -157,6 +187,108 @@ def phase_kernels(dev):
                                 ":1037 _ivf_window_kernel",
                     "max_abs_err": max(errs), "ms": ms_b, "plain_ms": plain_b,
                     "U": u, "Q": qn})
+    del dec_g, pen
+    records += phase_kernels_pq(dev, g)
+    return records
+
+
+def phase_kernels_pq(dev, g):
+    """Kernels C, D and E against their twins at the pq lifecycle's shapes
+    (M=8, Ks=256, D=128). Kernel C at Q=128 and 1024 over the engine's
+    cap=2^26 (reserve(2^25 + 100k)) with n_valid = 2^25 + 100k, as the
+    engine passes it after the add: slots past n_valid hold +inf norms, and
+    the tiles and runs of slots there take the kernel's padding branch.
+    Kernels D (Q=512) and E (Q=8, 64) over the union the engine builds
+    there (Q*32 windows of 256 rows out of ~191k), drawn from a pool four
+    times the union's size so that it holds duplicates, with vlen padding
+    and a pen stream. Codewords are scaled so that scores stay below 2 in
+    magnitude, as for kernels A and B."""
+    from rii_tpu_torch.ops import hopper_pq as HP
+    from rii_tpu_torch.ops import hopper_scan as H
+    m, ks, ds = 8, 256, 16
+    d = m * ds
+    records = []
+    cw = torch.rand((m, ks, ds), generator=g, device=dev) * 0.025
+    cw16 = cw.to(torch.bfloat16).float()
+    sub = torch.arange(m, device=dev)
+
+    cap, n_valid = 1 << 26, (1 << 25) + 100_000
+    codes_t = torch.randint(0, ks, (m, cap), generator=g, device=dev,
+                            dtype=torch.uint8)
+    norms = torch.empty(cap, device=dev)
+    for s0 in range(0, cap, 1 << 22):
+        dec = cw16[sub, codes_t[:, s0:s0 + (1 << 22)].T.long()].reshape(-1, d)
+        norms[s0:s0 + (1 << 22)] = (dec * dec).sum(1)
+    del dec
+    norms[n_valid:] = float("inf")  # padding slots
+    norms[n_valid - 5000:n_valid - 3000] = float("inf")  # excluded slots
+    ms, plain_ms, errs = {}, {}, []
+    for qn in (128, 1024):
+        q = torch.rand((qn, d), generator=g, device=dev) * 0.08
+        keys_k = HP.pq_tile_keys(q, codes_t, norms, cw, n_valid=n_valid)
+        keys_t = HP.pq_tile_keys_plain(q, codes_t, norms, cw)
+        torch.cuda.synchronize()
+        v_k, l_k = H._unpack(keys_k, 0x7F)
+        v_t, l_t = H._unpack(keys_t, 0x7F)
+        del keys_k, keys_t
+        errs.append(compare_keys(f"kernel C Q={qn} n_valid={n_valid}", v_k, l_k, v_t, l_t))
+        del v_k, l_k, v_t, l_t
+        ms[qn] = cuda_ms(lambda: HP.pq_tile_keys(q, codes_t, norms, cw, n_valid=n_valid))
+        plain_ms[qn] = cuda_ms(lambda: HP.pq_tile_keys_plain(q, codes_t, norms, cw))
+        log(f"  kernel C Q={qn} cap={cap} n_valid={n_valid}: kernel {ms[qn]:.3f} ms, "
+            f"plain {plain_ms[qn]:.3f} ms")
+    records.append({"name": "pq_tile_keys", "route": "cuda",
+                    "source": "rii_tpu_torch/csrc/pq_scan.cu",
+                    "replaces": "rii_tpu/ops/pallas_scan.py:856 _pq_t_kernel",
+                    "max_abs_err": max(errs), "ms": ms[1024],
+                    "plain_ms": plain_ms[1024], "ms_q128": ms[128],
+                    "plain_ms_q128": plain_ms[128], "cap": cap, "n_valid": n_valid})
+    del codes_t, norms
+
+    cap_v, nwin, wv = 256, 191_000, 32
+    codes_g = torch.randint(0, ks, (nwin * cap_v, m), generator=g, device=dev,
+                            dtype=torch.uint8)
+    vlen_w = torch.randint(cap_v // 2, cap_v + 1, (nwin,), generator=g,
+                           device=dev, dtype=torch.int32)
+    pen = torch.where(torch.rand(nwin * cap_v, generator=g, device=dev) < 0.3,
+                      float("inf"), 0.0).to(torch.float32)
+    for name, fn, twin, qns in (
+            ("ivf_dt_window_top2", HP.ivf_dt_window_tile_minima,
+             HP.ivf_dt_window_tile_minima_plain, (8, 64)),
+            ("ivf_pq_window_top2", HP.ivf_pq_window_tile_minima,
+             HP.ivf_pq_window_tile_minima_plain, (512,))):
+        errs, times = [], {}
+        for qn in qns:
+            u = qn * wv
+            pool = torch.randperm(nwin, generator=g, device=dev)[:4 * u]
+            flat = torch.sort(pool[torch.randint(0, 4 * u, (u,), generator=g,
+                                                 device=dev)]).values.to(torch.int32)
+            dup = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                             (flat[1:] == flat[:-1]).to(torch.int32)])
+            vl = vlen_w[flat.long()]
+            q = torch.rand((qn, d), generator=g, device=dev) * 0.08
+            for p, tag in ((None, "no pen"), (pen, "pen")):
+                v_k, a_k = fn(q, codes_g, cw, flat, dup, vl, cap_v, pen=p)
+                v_t, a_t = twin(q, codes_g, cw, flat, dup, vl, cap_v, pen=p)
+                torch.cuda.synchronize()
+                errs.append(compare_keys(
+                    f"{name} U={u} Q={qn} ({int(dup.sum())} duplicates) {tag}",
+                    v_k, a_k, v_t, a_t))
+            t_k = cuda_ms(lambda: fn(q, codes_g, cw, flat, dup, vl, cap_v))
+            t_t = cuda_ms(lambda: twin(q, codes_g, cw, flat, dup, vl, cap_v))
+            times[qn] = (t_k, t_t, u)
+            log(f"  {name} U={u} Q={qn}: kernel {t_k:.3f} ms, plain {t_t:.3f} ms")
+        q_main = qns[-1]
+        rec = {"name": name, "route": "cuda",
+               "source": "rii_tpu_torch/csrc/ivf_pq_window.cu",
+               "replaces": ("rii_tpu/ops/pallas_scan.py:1556 _ivf_dt_window_kernel"
+                            if name == "ivf_dt_window_top2" else
+                            "rii_tpu/ops/pallas_scan.py:1261 _ivf_pq_window_kernel"),
+               "max_abs_err": max(errs), "ms": times[q_main][0],
+               "plain_ms": times[q_main][1], "U": times[q_main][2], "Q": q_main}
+        for qn in qns[:-1]:
+            rec[f"ms_q{qn}"], rec[f"plain_ms_q{qn}"] = times[qn][:2]
+        records.append(rec)
     return records
 
 
@@ -224,8 +356,7 @@ def phase_engine(dev):
     torch.cuda.synchronize()
     stages["ground_truth_s"] = time.perf_counter() - t0
 
-    H.replica_tile_keys.launches = 0
-    H.ivf_window_tile_minima.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     pq = PQ(M=m, Ks=256, device="cuda").fit(x[:100000], iter=10)
     torch.cuda.synchronize()
@@ -320,6 +451,202 @@ def phase_engine(dev):
     return launches
 
 
+def exact_adc_topk(codes, cw, queries, k, chunk=1 << 21):
+    """Exact ADC top-k of each query over (N, M) uint8 codes on the card:
+    float32 decode and product with TF32 off, chunked; the winners'
+    distances are then taken directly as ||q - x||^2. Written apart from
+    the engine. Returns (ids (Q, k) int64, dists (Q, k) float32) numpy."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = codes.device
+    m = cw.shape[0]
+    sub = torch.arange(m, device=dev)
+    q = queries
+    qsq = (q * q).sum(1)
+    best_d, best_i = None, None
+    for s0 in range(0, codes.shape[0], chunk):
+        x = cw[sub, codes[s0:s0 + chunk].long()].reshape(-1, q.shape[1])
+        dist = qsq[:, None] + (x * x).sum(1)[None, :] - 2.0 * (q @ x.T)
+        dv, di = torch.topk(dist, k, dim=1, largest=False)
+        di = di + s0
+        if best_d is not None:
+            dv, di = torch.cat([best_d, dv], 1), torch.cat([best_i, di], 1)
+            dv, p = torch.topk(dv, k, dim=1, largest=False)
+            di = torch.gather(di, 1, p)
+        best_d, best_i = dv, di
+    x = cw[sub, codes[best_i.reshape(-1)].long()].reshape(q.shape[0], k, -1)
+    exact = ((x - q[:, None, :]) ** 2).sum(-1)
+    return best_i.cpu().numpy(), exact.cpu().numpy()
+
+
+def phase_engine_pq(dev):
+    """The SIFT1B-shape lifecycle through the public API at scan_mode
+    "auto" (see the module docstring). Returns the launch counts of kernels
+    C, D and E during the phase."""
+    from rii_tpu_torch import PQ, Rii
+    from rii_tpu_torch.ops import hopper_pq as HP
+    n, m, ks, d, nlist, topk = 1 << 25, 8, 256, 128, 31623, 10
+    n_add, n_subset, ivf_qs = 100_000, 1_000_000, (8, 64, 512)
+    kern = {k: f for k, f in kernel_wrappers().items()
+            if k in ("pq_tile_keys", "ivf_pq_window_top2", "ivf_dt_window_top2")}
+    torch.cuda.reset_peak_memory_stats()
+    stages = {}
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(0)
+    cw = rng.standard_normal((m, ks, d // m)).astype(np.float32)
+    crng = np.random.RandomState(1)
+    codes = crng.randint(0, ks, (n, m), dtype=np.uint8)
+    new_codes = crng.randint(0, ks, (n_add, m), dtype=np.uint8)
+    qidx = rng.choice(n, 1024, replace=False)
+    sub = np.arange(m)[None, :]
+    queries = (cw[sub, codes[qidx].astype(np.int64)].reshape(1024, d)
+               + rng.normal(0, 0.05, (1024, d))).astype(np.float32)
+    stages["data_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cw_d = torch.tensor(cw, device=dev)
+    codes_d = torch.tensor(codes, device=dev)
+    gt_ids, gt_d = exact_adc_topk(codes_d, cw_d, torch.tensor(queries[:128], device=dev), topk)
+    del codes_d
+    torch.cuda.synchronize()
+    stages["ground_truth_s"] = time.perf_counter() - t0
+    gt = gt_ids[:, 0]
+
+    reset_launch_counts()
+    e = Rii(PQ.from_codewords(cw, device=dev))
+    # room for the add below: without it cap = N = 2^25 and the add rebuilds
+    e.reserve(n + n_add)
+    t0 = time.perf_counter()
+    for s0 in range(0, n, 1 << 22):
+        e.add_codes(codes[s0:s0 + (1 << 22)])
+    stages["ingest_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    e.reconfigure(nlist=nlist)
+    torch.cuda.synchronize()
+    stages["reconfigure_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dc = e._ensure_cache()
+    torch.cuda.synchronize()
+    stages["cache_build_s"] = time.perf_counter() - t0
+    log(f"  engine pq: N={e.N} nlist={e.nlist} cap={dc['cap']} mode={dc['mode']} "
+        f"windows={dc['windows']} nlist_v={dc['nlist_v']} L0={e.L0} "
+        f"memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    if dc["mode"] != "pq" or dc["windows"] != "pq":
+        raise AssertionError("scan_mode='auto' did not pick the pq tier at this size")
+
+    def run(qs, method, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ids, dists = e.query_batch(qs, topk=topk, method=method, **kw)
+        torch.cuda.synchronize()
+        if ids.shape != (len(qs), topk) or not np.isfinite(dists).all():
+            raise AssertionError(f"{method} Q={len(qs)}: bad output")
+        return ids, dists, time.perf_counter() - t
+
+    results = {}
+    for qn in (128, 1024):
+        run(queries[:qn], "linear")  # warm
+        before = HP.pq_tile_keys.launches
+        ids, _, stages[f"linear_q{qn}_s"] = run(queries[:qn], "linear")
+        if HP.pq_tile_keys.launches == before:
+            raise AssertionError(f"linear Q={qn} did not launch kernel C")
+        results[f"linear_q{qn}"] = (recall(ids[:128], gt, 1), recall(ids[:128], gt, 10))
+
+    def ivf_pass(qn, tag):
+        """The 128 ground-truth queries in batches of qn (one batch of 512
+        at qn=512), method "auto"; with the kernels each batch must stay on
+        IVF and launch kernel E (Q < D) or D."""
+        win = kern["ivf_dt_window_top2" if qn < d else "ivf_pq_window_top2"]
+        ids_all, d_all, took = [], [], 0.0
+        for s0 in range(0, 128, min(qn, 128)):
+            c7, cw_ = HP.pq_tile_keys.launches, win.launches
+            ids, dists, t = run(queries[s0:s0 + qn], "auto")
+            took += t
+            if e.topk_recall is not None and (HP.pq_tile_keys.launches != c7
+                                              or win.launches == cw_):
+                raise AssertionError(f"IVF {tag} Q={qn}: the batch left the window kernel")
+            ids_all.append(ids[:128])
+            d_all.append(dists[:128])
+        return np.concatenate(ids_all), np.concatenate(d_all), took
+
+    walk, dist_err = {}, 0.0
+    for qn in ivf_qs:
+        ivf_pass(qn, "warm")
+        ids, dists, stages[f"ivf_q{qn}_s"] = ivf_pass(qn, "fast")
+        results[f"ivf_q{qn}"] = (recall(ids, gt, 1), recall(ids, gt, 10))
+        # returned distances of ground-truth ids are exact ADC
+        for r in range(128):
+            for i_, d_ in zip(ids[r], dists[r]):
+                hit = np.nonzero(gt_ids[r] == i_)[0]
+                if not hit.size:
+                    continue
+                err = abs(d_ - gt_d[r, hit[0]])
+                dist_err = max(dist_err, err)
+                if err > 1e-4 * abs(gt_d[r, hit[0]]) + 1e-3:
+                    raise AssertionError(f"IVF Q={qn}: distance {d_} of id {i_} vs "
+                                         f"exact {gt_d[r, hit[0]]}")
+        e.topk_recall = None  # the same candidate walk, exact and plain
+        ids_w, _, stages[f"ivf_exact_walk_q{qn}_s"] = ivf_pass(qn, "exact")
+        e.topk_recall = 0.99
+        walk[qn] = (recall(ids_w, gt, 1), recall(ids_w, gt, 10))
+        log(f"  IVF Q={qn} wv={e._probe_width_virtual(e.L0, None, dc)}: recall@1 "
+            f"{results[f'ivf_q{qn}'][0]:.4f} @10 {results[f'ivf_q{qn}'][1]:.4f}; "
+            f"exact walk @1 {walk[qn][0]:.4f} @10 {walk[qn][1]:.4f}; "
+            f"{stages[f'ivf_q{qn}_s']:.3f} s for 128 queries")
+
+    log(f"  IVF distances of ground-truth ids: max |diff| {dist_err:.3e} "
+        "against exact ADC")
+    tids = np.sort(np.random.RandomState(7).choice(n, n_subset, replace=False)).astype(np.int64)
+    for method, want in (("linear", "pq_tile_keys"), ("ivf", "ivf_dt_window_top2")):
+        before = {k: f.launches for k, f in kern.items()}
+        ids_s, _, stages[f"subset_{method}_s"] = run(queries[:1], method, target_ids=tids)
+        took = [k for k, f in kern.items() if f.launches > before[k]]
+        if took != [want]:
+            raise AssertionError(f"subset {method} launched {took}, not {want}")
+        if not np.isin(ids_s, tids).all():
+            raise AssertionError(f"subset {method} returned ids outside the subset")
+
+    n_dev = dc["n_dev"]
+    t0 = time.perf_counter()
+    e.add_codes(new_codes)
+    torch.cuda.synchronize()
+    stages["add_100k_s"] = time.perf_counter() - t0
+    if e._dc is not dc or dc["n_dev"] != n_dev + n_add or dc["version"] != e._version:
+        raise AssertionError("add(+100k) did not keep the cache")
+    new_q = cw[sub, new_codes[:8].astype(np.int64)].reshape(8, d).astype(np.float32)
+    for method in ("ivf", "linear"):
+        ids, _, _ = run(new_q, method)
+        if not (ids[:, 0] == n + np.arange(8)).all():
+            raise AssertionError(f"{method} after add: the new rows are not found "
+                                 f"at rank 0 ({ids[:, 0]})")
+    ids, _, stages["ivf_after_add_s"] = ivf_pass(ivf_qs[-1], "after add")
+    results["ivf_after_add"] = (recall(ids, gt, 1), recall(ids, gt, 10))
+    if e._dc is not dc:
+        raise AssertionError("a query after the add rebuilt the cache")
+
+    launches = {k: f.launches for k, f in kern.items()}
+    log(f"  launches in the pq engine phase: {launches}")
+    for name, c in launches.items():
+        if c == 0:
+            raise AssertionError(f"{name} was not launched by the pq path")
+    for k, (r1, r10) in results.items():
+        log(f"  recall {k}: @1 {r1:.4f} @10 {r10:.4f}")
+    for k in ("linear_q128", "linear_q1024"):
+        if results[k][0] < 0.99:
+            raise AssertionError(f"{k}: recall@1 {results[k][0]} < 0.99")
+    for qn in ivf_qs:
+        r1, r10 = results[f"ivf_q{qn}"]
+        if r10 < walk[qn][1] - 0.01 or r1 < 0.99:
+            raise AssertionError(f"IVF Q={qn}: recall@1 {r1}, @10 {r10} against "
+                                 f"the exact walk's @10 {walk[qn][1]}")
+    if results["ivf_after_add"][0] < 0.99:
+        raise AssertionError("IVF recall@1 after the add < 0.99")
+    stages["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log("  pq stages: " + json.dumps({k: round(v, 4) for k, v in stages.items()}))
+    del e, dc
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     phase_card()
     dev = torch.device("cuda", 0)
@@ -336,6 +663,10 @@ def main():
     t0 = time.perf_counter()
     launches = phase_engine(dev)
     log(f"phase engine: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches.update(phase_engine_pq(dev))
+    log(f"phase engine pq: {time.perf_counter() - t0:.1f} s")
     for r in records:
         r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": records}))

@@ -38,29 +38,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "packed_keys.cuh"
+
 namespace {
 
 constexpr int kQT = 32;  // queries scored per pass over the staged window
-constexpr float kPackClamp = 3.0e38f;
-constexpr float kPackRestore = 2.9e38f;
-constexpr unsigned kInfBits = 0x7f800000u;  // +inf
-
-__device__ __forceinline__ float pack_key(float s, int lane) {
-  s = fminf(s, kPackClamp);
-  return __int_as_float((__float_as_int(s) & ~0x7) | lane);
-}
-
-__device__ __forceinline__ float min8(float k) {
-  k = fminf(k, __shfl_xor_sync(0xffffffffu, k, 1));
-  k = fminf(k, __shfl_xor_sync(0xffffffffu, k, 2));
-  k = fminf(k, __shfl_xor_sync(0xffffffffu, k, 4));
-  return k;
-}
-
-__device__ __forceinline__ float unpack_value(float k) {
-  const float v = __int_as_float(__float_as_int(k) & ~0x7);
-  return v >= kPackRestore ? __uint_as_float(kInfBits) : v;
-}
 
 __global__ void ivf_window_top2_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ dec_g,
@@ -79,13 +61,7 @@ __global__ void ivf_window_top2_kernel(
   const long long col0 = static_cast<long long>(u) * 2 * nt;
 
   if (dup[u] != 0) {
-    for (long long i = t; i < static_cast<long long>(Q) * 2 * nt;
-         i += blockDim.x) {
-      const long long qi = i / (2 * nt);
-      const long long at = qi * ncol + col0 + (i - qi * 2 * nt);
-      vmin[at] = __uint_as_float(kInfBits);
-      amin[at] = 0;
-    }
+    write_dup(vmin, amin, 0, Q, ncol, col0, nt);
     return;
   }
 
@@ -129,9 +105,7 @@ __global__ void ivf_window_top2_kernel(
   const float pn =
       (pen != nullptr && active) ? pen[static_cast<long long>(w) * cap_v + t]
                                  : 0.0f;
-  const int lane = t & 7;
-  const int tile = t >> 3;
-  const int slot_base = w * cap_v + tile * 8;
+  const int slot_base = w * cap_v + (t >> 3) * 8;
 
   for (int qb = 0; qb < Q; qb += kQT) {
     __syncthreads();  // the previous pass is done with qs
@@ -161,17 +135,9 @@ __global__ void ivf_window_top2_kernel(
 
 #pragma unroll
     for (int i = 0; i < kQT; ++i) {
-      const float s = active ? nrm - 2.0f * acc[i] + pn : __uint_as_float(kInfBits);
-      const float k = pack_key(s, lane);
-      const float k1 = min8(k);
-      const float k2 = min8(k == k1 ? __uint_as_float(kInfBits) : k);
-      if (lane == 0 && active && qb + i < Q) {
-        const long long at = static_cast<long long>(qb + i) * ncol + col0 + tile;
-        vmin[at] = unpack_value(k1);
-        vmin[at + nt] = unpack_value(k2);
-        amin[at] = slot_base + (__float_as_int(k1) & 0x7);
-        amin[at + nt] = slot_base + (__float_as_int(k2) & 0x7);
-      }
+      const float s = active ? nrm - 2.0f * acc[i] + pn : inf_f();
+      store_top2(s, t, active && qb + i < Q, static_cast<long long>(qb + i) * ncol, col0,
+                 nt, slot_base, vmin, amin);
     }
   }
 }

@@ -33,16 +33,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "packed_keys.cuh"
+
 namespace {
 
 constexpr int kTile = 128;  // slots per key, and threads per block
 constexpr int kQT = 32;     // queries per block
-constexpr float kPackClamp = 3.0e38f;
-
-__device__ __forceinline__ float pack_key(float s, int slot) {
-  s = fminf(s, kPackClamp);
-  return __int_as_float((__float_as_int(s) & ~0x7F) | slot);
-}
 
 __device__ __forceinline__ float load_bf16(const __nv_bfloat16* p, bool ok) {
   return ok ? __bfloat162float(*p) : 0.0f;
@@ -102,7 +98,7 @@ replica_tile_keys_kernel(const __nv_bfloat16* __restrict__ q,
   const int lane = t & 31;
 #pragma unroll
   for (int i = 0; i < kQT; ++i) {
-    float k = pack_key(n - 2.0f * acc[i], t);
+    float k = pack_key<7>(n - 2.0f * acc[i], t);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
       k = fminf(k, __shfl_xor_sync(0xffffffffu, k, off));

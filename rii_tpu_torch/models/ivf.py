@@ -120,6 +120,54 @@ def build_virtual_layout(codes, norms, assignments, nlist, cap_v=256, pad_to=8,
     }
 
 
+def append_placement(assign, counts, vstart, cap_v, v_capacity,
+                     want_vlen=True):
+    """Host-side placement for an O(batch) append into a grouped layout
+    built by :func:`build_virtual_layout`.
+
+    Each new id lands at its bucket's contiguous tail: members of bucket b
+    always occupy [vstart[b]*cap_v, vstart[b]*cap_v + counts[b]), and
+    append-only placement keeps ids ascending within each bucket (reference
+    push_back order, reference src/rii.h:356-358).
+
+    Returns None when any bucket would exceed its reserved window capacity
+    (the caller then rebuilds), else a dict:
+      perm (k,) stable bucket-sort permutation of the batch,
+      slots (k,) int64 grouped-array destinations for the PERMUTED batch,
+      new_counts (nlist,) updated per-bucket member counts,
+      wins / vls int32 arrays (None unless want_vlen): the touched windows
+      and their new member counts, the vlen update for kernels that mask by
+      count.
+    """
+    assign = np.asarray(assign)
+    assert (assign >= 0).all(), "append_placement needs fully assigned rows"
+    nlist = counts.shape[0]
+    add_counts = np.bincount(assign, minlength=nlist)
+    new_counts = counts + add_counts
+    if (new_counts > v_capacity).any():
+        return None
+    k = assign.shape[0]
+    perm = np.argsort(assign, kind="stable")
+    srt = assign[perm]
+    offs = np.arange(k, dtype=np.int64) - np.searchsorted(srt, srt)
+    slots = vstart[srt] * cap_v + counts[srt] + offs
+    out = {"perm": perm, "slots": slots, "new_counts": new_counts,
+           "wins": None, "vls": None}
+    if want_vlen:
+        # touched windows + new member counts, vectorized over the batch's
+        # unique buckets (no per-bucket Python loop: nlist can be 31623)
+        ub = np.unique(srt)
+        nwin = -(-np.asarray(v_capacity, np.int64)[ub] // cap_v)
+        wb = np.repeat(ub, nwin)  # bucket of each touched window
+        win_j = (np.arange(int(nwin.sum()), dtype=np.int64)
+                 - np.repeat(np.cumsum(nwin) - nwin, nwin))
+        out["wins"] = (np.asarray(vstart, np.int64)[wb]
+                       + win_j).astype(np.int32)
+        out["vls"] = np.clip(new_counts[wb] - win_j * cap_v,
+                             0, cap_v).astype(np.int32)
+    return out
+
+
 def posting_lists_from_assignments(assignments, nlist):
     """Materialize reference-style posting lists (list of ascending-id lists)."""
     assignments = np.asarray(assignments)

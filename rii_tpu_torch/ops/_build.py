@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes``. The build runs at
 first use, into ``build/rii_tpu_torch/`` at the root of the checkout, under a
-file name keyed by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. Nothing here runs when the
+file name keyed by a hash of the source, the shared headers and the flags, so
+an edited source is rebuilt and an unchanged one is loaded as it is. Nothing here runs when the
 module is imported.
 """
 
@@ -23,7 +23,8 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rii_tpu_torch"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _name_locks
+_name_locks = {}  # library name -> lock held while it is built and loaded
 _loaded = {}  # library name -> ctypes.CDLL
 build_seconds = {}  # library name -> seconds its build (or load) took
 
@@ -41,15 +42,20 @@ def _nvcc():
 
 
 def library_path(name):
-    """Where ``csrc/<name>.cu`` is built for the current source and flags."""
+    """Where ``csrc/<name>.cu`` is built for the current source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
     src = (_CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src + headers + " ".join(_FLAGS).encode()).hexdigest()[:16]
     return _BUILD_DIR / f"lib{name}-{key}.so"
 
 
 def load_library(name, verbose=False):
-    """Build ``csrc/<name>.cu`` if needed and return the loaded library."""
+    """Build ``csrc/<name>.cu`` if needed and return the loaded library.
+    Different libraries may build at the same time (one nvcc each)."""
     with _lock:
+        lock = _name_locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         t0 = time.perf_counter()

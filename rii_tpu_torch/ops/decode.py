@@ -44,3 +44,38 @@ def decode_norms(codes, codewords):
     m = codewords.shape[0]
     sub = torch.arange(m, device=codes.device)[None, :]
     return cnorms[sub, codes.long()].sum(-1)
+
+
+def codeword_norms(codewords):
+    """(M, Ks, Ds) codewords -> (M, Ks) float32 ||cw[m, k]||^2, the constant
+    term of :func:`build_dtable`, summed in order along Ds."""
+    return _sum_sq_in_order(codewords.to(torch.float32))
+
+
+def build_dtable(queries, codewords, dtype=torch.bfloat16, cw_norms=None):
+    """(Q, D) queries -> (M, Ks, Q) ADC table ||q_m - cw[m, k]||^2, the
+    table of the pq tier's small-Q window kernel (kernel E).
+
+    Formed in float32 as ||cw||^2 - 2 q.cw + ||q_m||^2, the JAX package's
+    decoded-domain identity, and then cast to ``dtype`` (bf16: the selection
+    class; callers rescore the final top-k exactly). The squared norms are
+    summed in order along Ds, as XLA reduces on the CPU, so that the two
+    packages round the same float32 values to bf16. ``cw_norms``, the
+    :func:`codeword_norms` of ``codewords``, saves recomputing them for
+    every batch."""
+    cw = codewords.to(torch.float32)  # (M, Ks, Ds)
+    m, ks, ds = cw.shape
+    qs = queries.to(torch.float32).reshape(-1, m, ds).transpose(0, 1)  # (M, Q, Ds)
+    cross = torch.einsum("mkd,mqd->mkq", cw, qs)
+    cn = codeword_norms(cw) if cw_norms is None else cw_norms  # (M, Ks)
+    qn2 = _sum_sq_in_order(qs)  # (M, Q)
+    return (cn[:, :, None] - 2.0 * cross + qn2[:, None, :]).to(dtype)
+
+
+def _sum_sq_in_order(x):
+    """Sum of squares over the last axis, added in index order."""
+    sq = x * x
+    acc = sq[..., 0]
+    for j in range(1, x.shape[-1]):
+        acc = acc + sq[..., j]
+    return acc

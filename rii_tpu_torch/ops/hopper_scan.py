@@ -211,40 +211,49 @@ def prepare_replica_t(decoded, norms_flat):
 # Kernel B: per-8-slot top-2 over the probed IVF windows
 # --------------------------------------------------------------------------- #
 
+def _top2_plain(scores, fl, dp, cap_v):
+    """Per-8-slot top-2 of a chunk of windows, the shared epilogue of the
+    window kernels' twins. scores (uc, cap_v, Q) f32; fl (uc,) window ids;
+    dp (uc,) bool duplicates. Returns (vmin, amin), each (Q, uc*2*cap_v/8),
+    in the kernels' column order."""
+    qn = scores.shape[-1]
+    nt = cap_v // _IVF_TILE
+    lane = torch.arange(_IVF_TILE, dtype=torch.int32,
+                        device=scores.device).view(1, 1, _IVF_TILE, 1)
+    tile_off = (torch.arange(nt, device=scores.device) * _IVF_TILE).view(1, nt, 1)
+    keys = _pack(scores.reshape(-1, nt, _IVF_TILE, qn), lane, 0x7)
+    k1 = keys.min(dim=2).values  # (uc, nt, Q)
+    k2 = torch.where(keys == k1[:, :, None], torch.full_like(keys, _INF),
+                     keys).min(dim=2).values
+    v1, l1 = _unpack(k1, 0x7)
+    v2, l2 = _unpack(k2, 0x7)
+    base = fl.long().view(-1, 1, 1) * cap_v + tile_off  # (uc, nt, 1)
+    v = torch.stack([v1, v2], 1)  # (uc, 2, nt, Q)
+    a = torch.stack([base + l1, base + l2], 1).to(torch.int32)
+    v = torch.where(dp.view(-1, 1, 1, 1), torch.full_like(v, _INF), v)
+    a = torch.where(dp.view(-1, 1, 1, 1), torch.zeros_like(a), a)
+    return v.reshape(-1, qn).T, a.reshape(-1, qn).T
+
+
 def ivf_window_tile_minima_plain(queries, decoded_g, flat, dup, cap_v,
                                  pen=None):
     """Plain twin of kernel B (see csrc/ivf_window.cu for the contract)."""
     qf = queries.to(torch.bfloat16).float()
     qn, d = qf.shape
-    nt = cap_v // _IVF_TILE
     wins_all = decoded_g.view(-1, cap_v, d)
     pen_w = None if pen is None else pen.view(-1, cap_v)
-    lane = torch.arange(_IVF_TILE, dtype=torch.int32,
-                        device=qf.device).view(1, 1, _IVF_TILE, 1)
-    tile_off = (torch.arange(nt, device=qf.device) * _IVF_TILE).view(1, nt, 1)
     uc = max(1, _TWIN_SCORES // max(1, cap_v * qn))
     vals, args = [], []
     for s in range(0, flat.shape[0], uc):
         fl = flat[s:s + uc].long()
-        dp = dup[s:s + uc] != 0
         wins = wins_all[fl].float()  # (uc, cap_v, D)
         nrm = (wins * wins).sum(-1)  # (uc, cap_v)
         scores = nrm[..., None] - 2.0 * (wins @ qf.T)  # (uc, cap_v, Q)
         if pen_w is not None:
             scores = scores + pen_w[fl][..., None]
-        keys = _pack(scores.view(-1, nt, _IVF_TILE, qn), lane, 0x7)
-        k1 = keys.min(dim=2).values  # (uc, nt, Q)
-        k2 = torch.where(keys == k1[:, :, None], torch.full_like(keys, _INF),
-                         keys).min(dim=2).values
-        v1, l1 = _unpack(k1, 0x7)
-        v2, l2 = _unpack(k2, 0x7)
-        base = fl.view(-1, 1, 1) * cap_v + tile_off  # (uc, nt, 1)
-        v = torch.stack([v1, v2], 1)  # (uc, 2, nt, Q)
-        a = torch.stack([base + l1, base + l2], 1).to(torch.int32)
-        v = torch.where(dp.view(-1, 1, 1, 1), torch.full_like(v, _INF), v)
-        a = torch.where(dp.view(-1, 1, 1, 1), torch.zeros_like(a), a)
-        vals.append(v.reshape(-1, qn).T)
-        args.append(a.reshape(-1, qn).T)
+        v, a = _top2_plain(scores, fl, dup[s:s + uc] != 0, cap_v)
+        vals.append(v)
+        args.append(a)
     return torch.cat(vals, 1), torch.cat(args, 1)
 
 

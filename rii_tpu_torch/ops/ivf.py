@@ -7,15 +7,19 @@ batch. Each query's candidates are therefore the union of every bucket the
 batch probed, a superset of its own probes, and duplicate entries are
 masked so returned ids are unique.
 
-Two branches, as in the JAX module: the window kernel (kernel B,
-``hopper_scan.ivf_window_tile_minima``) followed by an exact rescore, and a
-plain chunked branch. Probe selection and every top-k are exact
-(``torch.topk``).
+Two branches for each window tier, as in the JAX module: the window kernels
+(kernel B over bf16 windows, ``hopper_scan``; kernels D and E over uint8
+code windows, ``hopper_pq``) followed by an exact rescore, and a plain
+chunked branch. Probe selection and every top-k are exact (``torch.topk``).
 """
 
 import torch
 
 from rii_tpu_torch.ops.decode import onehot_decode
+from rii_tpu_torch.ops.hopper_pq import (
+    ivf_dt_window_tile_minima,
+    ivf_pq_window_tile_minima,
+)
 from rii_tpu_torch.ops.hopper_scan import (
     _finish,
     _smallest,
@@ -161,23 +165,69 @@ def ivf_union_scan_topk(queries, decoded_g, norms_g, order_g, centers_dec,
     return _ids_of(order_g, slot_top, v + qsq[:, None], topk)
 
 
+def _rescore_grouped_codes(q_all, slot_top, valid, codes_g, norms_g,
+                           codewords, k):
+    """Exact float32 ADC re-rank of candidate grouped slots (Q, k_sel),
+    decoded from the grouped codes; invalid candidates stay +inf. Returns
+    (dists (Q, k), slots (Q, k))."""
+    qn, k_sel = slot_top.shape
+    safe = slot_top.clamp(min=0).long()
+    dec = onehot_decode(codes_g[safe.reshape(-1)], codewords).reshape(
+        qn, k_sel, -1)
+    qsq = (q_all * q_all).sum(-1)
+    exact = norms_g[safe] - 2.0 * torch.einsum("qkd,qd->qk", dec, q_all) \
+        + qsq[:, None]
+    exact = torch.where(valid, exact, torch.full_like(exact, _INF))
+    d, pos = _smallest(exact, min(k, k_sel))
+    return d, torch.gather(slot_top, 1, pos)
+
+
 def ivf_union_scan_topk_pq(queries, codes_g, norms_g, order_g, codewords,
                            centers_dec, centers_norms, w, topk, cap_u,
                            nlist_pad, target_mask=None, recall_target=None,
-                           probe_recall="inherit"):
-    """Union-bucket IVF over uint8 code windows (the pq tier), plain branch.
+                           probe_recall="inherit", vlen=None,
+                           use_kernel=False, overfetch=2, cw_norms=None):
+    """Union-bucket IVF over uint8 code windows (the pq tier).
 
-    Windows are decoded chunk by chunk: in float32 in exact mode
-    (``recall_target=None``), else in bf16 with an exact float32 rescore of
-    the selected slots. The kernel branch of the JAX module (K8/K9) is not
-    ported; the engine raises before it would need it."""
+    Two branches, as in the JAX module. ``use_kernel`` (with ``vlen``, the
+    (nlist_pad,) int32 member count of each window) takes the window
+    kernels: kernel E from the bf16 ADC table when Q < D (``cw_norms``: the
+    codewords' precomputed squared norms, optional), kernel D through the
+    bf16 codebook otherwise; a ``target_mask`` rides as the 0/+inf penalty
+    stream. The kernel branch selects ``overfetch * topk`` slots
+    (the JAX package selects ``topk``, i.e. ``overfetch=1``) and re-ranks
+    them in exact float32 ADC from the codes.
+
+    The plain branch decodes the windows chunk by chunk: in float32 in exact
+    mode (``recall_target=None``), else in bf16 with an exact float32
+    rescore of the selected slots."""
     q_all = queries.float()
-    qn = q_all.shape[0]
+    qn, d = q_all.shape
     m = codes_g.shape[1]
     if target_mask is not None:
         norms_g = torch.where(target_mask, norms_g, torch.full_like(norms_g, _INF))
     flat, dup = _union(q_all, centers_dec, centers_norms, w, nlist_pad,
                        recall_target, probe_recall)
+    if use_kernel:
+        pen = None
+        if target_mask is not None:
+            pen = torch.where(target_mask, 0.0, _INF).to(torch.float32)
+        args = (q_all, codes_g, codewords, flat, dup.to(torch.int32),
+                vlen[flat.long()], cap_u)
+        if qn < d:
+            vmin, amin = ivf_dt_window_tile_minima(*args, pen=pen,
+                                                   cw_norms=cw_norms)
+        else:
+            vmin, amin = ivf_pq_window_tile_minima(*args, pen=pen)
+        sel, pos = _smallest(vmin, min(topk * overfetch, vmin.shape[1]))
+        slot_top = torch.gather(amin, 1, pos)
+        # +inf selections (duplicate windows, padding, excluded slots) point
+        # at slots whose codes decode to finite distances: keep them masked
+        dist, slots = _rescore_grouped_codes(q_all, slot_top,
+                                             torch.isfinite(sel), codes_g,
+                                             norms_g, codewords, topk)
+        return _ids_of(order_g, slots, dist, topk)
+
     exact_sel = recall_target is None
     q_sel = q_all if exact_sel else q_all.to(torch.bfloat16).float()
     u = flat.shape[0]
@@ -198,14 +248,9 @@ def ivf_union_scan_topk_pq(queries, codes_g, norms_g, order_g, codewords,
     vals, slots = torch.cat(vals, 1), torch.cat(slots, 1)
     v, p = _smallest(vals, min(topk, vals.shape[1]))
     slot_top = torch.gather(slots, 1, p)
-    qsq = (q_all * q_all).sum(-1)
     if exact_sel:
+        qsq = (q_all * q_all).sum(-1)
         return _ids_of(order_g, slot_top, v + qsq[:, None], topk)
-    safe = slot_top.clamp(min=0).long()
-    dec = onehot_decode(codes_g[safe.reshape(-1)], codewords).reshape(
-        qn, safe.shape[1], -1)
-    exact = norms_g[safe] - 2.0 * torch.einsum("qkd,qd->qk", dec, q_all) \
-        + qsq[:, None]
-    exact = torch.where(torch.isfinite(v), exact, torch.full_like(exact, _INF))
-    d2, p2 = _smallest(exact, exact.shape[1])
-    return _ids_of(order_g, torch.gather(slot_top, 1, p2), d2, topk)
+    dist, slots = _rescore_grouped_codes(q_all, slot_top, torch.isfinite(v),
+                                         codes_g, norms_g, codewords, topk)
+    return _ids_of(order_g, slots, dist, topk)

@@ -9,11 +9,18 @@ Canonical state is host-side numpy (uint8 codes, int32 assignments, uint8
 coarse centers); the device tensors are a derived cache, rebuilt lazily when
 the index changes. Routing keeps every threshold of the JAX package: the
 kernel tiers run where the engine's device is CUDA (the JAX package's "the
-backend is not the CPU"), the IVF window kernel fires from a 2048-window
+backend is not the CPU"), the bf16 window kernel fires from a 2048-window
 union up, a batch whose union covers half the capacity goes to the linear
 scan, and the replica and windows are held to ``decoded_cache_budget``.
-Tiers whose kernels are not ported (int8, and pq on the kernel path) raise
-``NotImplementedError`` naming the missing kernel.
+The int8 tier, whose kernels are not ported, raises ``NotImplementedError``
+naming them.
+
+``add`` after a cache build scatters the new rows into the live cache in
+O(batch), into the windows' reserved headroom, as the JAX package does; a
+batch that does not fit drops the cache, which is rebuilt at the next query.
+The scatters write the cache tensors in place (the JAX package's arrays are
+immutable); they run under the exclusive side of the state lock, so no
+query sees a half-written cache.
 """
 
 import copy
@@ -24,13 +31,19 @@ import torch
 
 from rii_tpu_torch._device import resolve_device
 from rii_tpu_torch.models.ivf import (
+    append_placement,
     build_virtual_layout,
     code_norms_np,
     posting_lists_from_assignments,
 )
 from rii_tpu_torch.models.pq import PQ
 from rii_tpu_torch.models.pqkmeans import pqkmeans_fit, pqkmeans_predict
-from rii_tpu_torch.ops.decode import build_decoded_cache
+from rii_tpu_torch.ops.decode import (
+    build_decoded_cache,
+    codeword_norms,
+    onehot_decode,
+)
+from rii_tpu_torch.ops.hopper_pq import pq_scan_topk_t, prepare_pq_scan_inputs_t
 from rii_tpu_torch.ops.hopper_scan import (
     _TN_MIN_Q,
     prepare_replica_t,
@@ -52,13 +65,6 @@ _MISSING_INT8 = ("the int8 tier is not ported: it needs the int8 replica and "
                  "window kernels K4-K6 (rii_tpu/ops/pallas_scan.py "
                  "_replica_i8t_kernel, _replica_i8tn_kernel, "
                  "_ivf_i8_window_multi_kernel)")
-_MISSING_PQ_LINEAR = ("the pq tier on the kernel path is not ported: it needs "
-                      "kernel K7 (rii_tpu/ops/pallas_scan.py _pq_t_kernel); "
-                      "use scan_mode='bf16' or topk_recall=None")
-_MISSING_PQ_IVF = ("IVF over uint8 code windows on the kernel path is not "
-                   "ported: it needs kernels K8/K9 (rii_tpu/ops/pallas_scan.py "
-                   "_ivf_pq_window_kernel, _ivf_dt_window_kernel); raise "
-                   "decoded_cache_budget or use topk_recall=None")
 
 
 def require_dtype(arr, dtype, name):
@@ -193,6 +199,7 @@ class Rii:
         self._code_chunks = []  # list of (n_i, M) uint8
         self._assign_chunks = []  # list of (n_i,) int32; -1 = in no posting list
         self._n = 0
+        self._cap_reserve = 0  # reserve(): rows the cache is sized for
         self._centers = None  # (nlist, M) uint8
         self._version = 0
         self._codes_cache = None  # consolidated (N, M) uint8
@@ -329,9 +336,45 @@ class Rii:
         self.reconfigure(nlist=nlist, iter=iter)
         return self
 
+    def merge(self, engine, update_posting_lists="auto"):
+        """Append another engine's codes; ids continue after self.N. Keeps
+        self's existing posting lists (reference rii/rii.py:208-233)."""
+        assert isinstance(engine, Rii)
+        assert self.fine_quantizer == engine.fine_quantizer, \
+            "Two engines to be merged must have the same fine quantizer"
+        if engine.N != 0:
+            self._add_codes(engine._consolidated_codes().copy(),
+                            self._resolve_update_posting_lists_flag(
+                                update_posting_lists))
+        if self._verbose:
+            print(f"The number of codes: {self._n}")
+
+    def reserve(self, n_expected):
+        """Size the device cache for growth to ``n_expected`` rows: the
+        linear capacity becomes the power of two at or above it, and the
+        windows reserve enough per-bucket slots that later :meth:`add`
+        batches scatter in O(batch) until N passes the reservation. Costs
+        the reserved capacity in device memory up front; takes effect at the
+        next cache build. Returns self."""
+        self._cap_reserve = max(0, int(n_expected))
+        return self
+
+    def clear(self):
+        """Drop codes, centers, posting lists and threshold; the codewords
+        are kept."""
+        with self._state_lock.write():
+            self.threshold = None
+            self._code_chunks = []
+            self._assign_chunks = []
+            self._n = 0
+            self._centers = None
+            self._codes_cache = None
+            self._bump()
+
     def _add_codes(self, codes, update_flag):
-        """Append a code batch. The device cache is dropped and rebuilt on
-        the next query (an O(batch) append into the cache is not ported)."""
+        """Append a code batch, and scatter it into the live device cache
+        when there is one with room (else the cache is dropped and rebuilt
+        at the next query)."""
         codes = np.ascontiguousarray(codes, dtype=np.uint8)
         assert codes.ndim == 2 and codes.shape[1] == self.M
         msg = ("reconfigure() must be called before add(vecs=X, "
@@ -346,20 +389,97 @@ class Rii:
             return pqkmeans_predict(self.codewords, self._centers, codes,
                                     device=self.device)
 
-        # predict outside the exclusive section; redo it if a reconfigure
-        # replaced the centers meanwhile
+        # predict outside the exclusive section; redo it if a reconfigure or
+        # a clear replaced the centers meanwhile
         c0 = self._centers
         assign = _predict()
         with self._state_lock.write():
             if self._centers is not c0:
+                if update_flag and self._centers is None:
+                    raise RuntimeError(msg)
                 assign = _predict()
             self._code_chunks.append(codes)
             self._codes_cache = None
             self._assign_chunks.append(assign)
+            n0 = self._n
             self._n += codes.shape[0]
-            self._bump()
+            self._version += 1
+            # a scatter that fails part way (device out of memory) leaves the
+            # cache half-written: drop it, so the next query rebuilds it; the
+            # host append stands
+            ok = False
+            try:
+                ok = self._apply_add_to_cache(codes, assign, n0)
+            except RuntimeError:
+                pass
+            finally:
+                if not ok:
+                    self._dc = None
         if self._verbose:
             print(f"{codes.shape[0]} new vectors are added. Total: {self._n}")
+
+    def _apply_add_to_cache(self, codes, assign, n0):
+        """Scatter k new rows into the live device cache (the reference's
+        O(new) AddCodes, src/rii.h:158-193). Returns False when there is no
+        cache or no room; the caller then drops the cache."""
+        dc = self._dc
+        k = codes.shape[0]
+        if dc is None:
+            return False
+        if k == 0:  # the cache is already right
+            dc["version"] = self._version
+            return True
+        if n0 + k > dc["cap"]:
+            return False
+        update_ivf = bool((assign >= 0).any())
+        if update_ivf and "v_counts" not in dc:
+            return False
+        place = None
+        if update_ivf:
+            # placement and the capacity check come before any write
+            place = append_placement(assign, dc["v_counts"], dc["v_vstart"],
+                                     dc["cap_v"], dc["v_capacity"],
+                                     want_vlen="vlen_g" in dc)
+            if place is None:
+                return False
+
+        cw = np.asarray(self.codewords, dtype=np.float32)
+        norms_new = code_norms_np(cw, codes)
+        idx = torch.arange(n0, n0 + k, device=self.device)
+        codes_d = self._tensor(codes)
+        norms_d = self._tensor(norms_new)
+        # each write below is one in-place scatter; norms_rep (the replica's
+        # norms) is a view of norms_flat
+        dc["codes_flat"][idx] = codes_d
+        dc["norms_flat"][idx] = norms_d
+        dec_new = None
+        if "decoded_t" in dc or "decoded_flat" in dc or "decoded_g" in dc:
+            dec_new = onehot_decode(codes_d, dc["codewords"], torch.bfloat16)
+        if "decoded_t" in dc:
+            dc["decoded_t"][:, idx] = dec_new.T
+        if "decoded_flat" in dc:
+            dc["decoded_flat"][idx] = dec_new
+        if "codes_t" in dc:
+            dc["codes_t"][:, idx] = codes_d.T
+
+        if update_ivf:
+            perm = self._tensor(place["perm"])
+            slots = self._tensor(place["slots"])
+            dc["order_g"][slots] = self._tensor(
+                (n0 + place["perm"]).astype(np.int32))
+            dc["norms_g"][slots] = norms_d[perm]
+            if "decoded_g" in dc:
+                dc["decoded_g"][slots] = dec_new[perm]
+            if "codes_g" in dc:
+                dc["codes_g"][slots] = codes_d[perm]
+            if "vlen_g" in dc:
+                wins = self._tensor(place["wins"].astype(np.int64))
+                dc["vlen_g"][wins] = self._tensor(place["vls"])
+            dc["v_counts"] = place["new_counts"]
+
+        dc["n_dev"] = n0 + k
+        dc["version"] = self._version
+        return True
 
     # ------------------------------------------------------------------ #
     # query
@@ -485,6 +605,13 @@ class Rii:
                 d, i = linear_scan_topk_decoded(
                     qd, dc["decoded_flat"], norms, topk, codes=rs_codes,
                     codewords=rs_cw, mask=mask, block=dc["block_dec"])
+            elif "codes_t" in dc:
+                # the pq tier: kernel C, selection only, as in JAX
+                if mask is not None:
+                    norms = torch.where(mask, norms, float("inf"))
+                d, i = pq_scan_topk_t(qd, dc["codes_t"], norms,
+                                      dc["codewords"], topk,
+                                      n_valid=dc["n_dev"])
             else:
                 d, i = linear_scan_topk(qd, dc["codes_flat"], norms,
                                         dc["codewords"], topk, mask=mask,
@@ -502,10 +629,6 @@ class Rii:
     def _query_ivf_batch(self, queries, topk, tids, L, force_full=False):
         dc = self._ensure_cache()
         use_kernels = self._use_kernels()
-        if use_kernels and dc["windows"] == "int8":
-            raise NotImplementedError(_MISSING_INT8)
-        if use_kernels and dc["windows"] == "pq":
-            raise NotImplementedError(_MISSING_PQ_IVF)
         qp, qn = _pad_queries(queries, lo=8 if use_kernels else 1)
         qd = torch.tensor(qp, device=self.device)
         s = None if tids is None else len(tids)
@@ -518,6 +641,8 @@ class Rii:
             # the union covers most of the database: the contiguous linear
             # scan reads every row faster than the windows would
             return self._query_linear_batch(queries, topk, tids)
+        if use_kernels and dc["windows"] == "int8":
+            raise NotImplementedError(_MISSING_INT8)
         tm = None
         if tids is not None:
             tm = self._subset_mask(dc, tids)[
@@ -537,12 +662,15 @@ class Rii:
                 codes=dc["codes_flat"] if rs else None,
                 codewords=dc["codewords"] if rs else None)
         else:
+            # uint8 code windows: kernels D/E on the card, exact rescore
             d, i = ivf_union_scan_topk_pq(
                 qd, dc["codes_g"], dc["norms_g"], dc["order_g"],
                 dc["codewords"], dc["centers_dec_v"], dc["centers_norms_v"],
                 w=wv, topk=topk, cap_u=dc["cap_v"],
                 nlist_pad=dc["nlist_v_pad"], target_mask=tm,
-                recall_target=rt, probe_recall=self.probe_recall)
+                recall_target=rt, probe_recall=self.probe_recall,
+                vlen=dc["vlen_g"], use_kernel=use_kernels,
+                cw_norms=dc["cw_norms"])
         d = d[:qn].cpu().numpy()
         i = i[:qn].cpu().numpy()
         # fewer than topk candidates found: widen to full coverage (the
@@ -657,7 +785,7 @@ class Rii:
         codes = self._consolidated_codes()
         cw = np.asarray(self.codewords, dtype=np.float32)
         norms = code_norms_np(cw, codes)
-        cap = _pow2_at_least(max(self._n, 1), 1024)
+        cap = _pow2_at_least(max(self._n, self._cap_reserve, 1), 1024)
         codes_flat = np.zeros((cap, self.M), dtype=np.uint8)
         codes_flat[: self._n] = codes
         norms_flat = np.full(cap, np.inf, dtype=np.float32)
@@ -665,6 +793,7 @@ class Rii:
         dc = {
             "version": self._version,
             "cap": cap,
+            "n_dev": self._n,
             "block": min(8192, cap),  # pq tier: bounds the decode transient
             "block_dec": min(262144, cap),
             "codewords": self._tensor(cw),
@@ -685,7 +814,10 @@ class Rii:
             else:
                 dc["decoded_flat"] = decoded
         elif self._use_kernels():
-            raise NotImplementedError(_MISSING_PQ_LINEAR)
+            # the pq tier: codes transposed (M, cap) for kernel C; its norms
+            # are norms_flat itself
+            dc["codes_t"], _ = prepare_pq_scan_inputs_t(dc["codes_flat"],
+                                                        dc["norms_flat"])
         if self._centers is not None:
             self._build_windows(dc, codes, norms, cw, resolved)
         self._dc = dc
@@ -693,7 +825,8 @@ class Rii:
 
     def _build_windows(self, dc, codes, norms, cw, resolved):
         """The balanced virtual-bucket layout of the union IVF scan, with
-        bf16 windows when the replica and windows fit the budget together."""
+        bf16 windows when the replica and windows fit the budget together,
+        else uint8 code windows (int8 when their kernels could hold them)."""
         nlist = self.nlist
         nlist_pad = _pow2_at_least(nlist, 8)
         dec = cw[np.arange(self.M)[None, :], self._centers.astype(np.int64)]
@@ -702,10 +835,14 @@ class Rii:
         centers_norms = np.full(nlist_pad, np.inf, dtype=np.float32)
         centers_norms[:nlist] = (centers_dec[:nlist] ** 2).sum(axis=1)
         # 12.5% per-bucket headroom, as in the JAX package, so both build
-        # the same layout
+        # the same layout; reserve() scales it to cover the reserved growth
+        h = 0.125
+        if self._cap_reserve > self._n > 0:
+            h = max(h, self._cap_reserve / self._n - 1.0)
         ul = build_virtual_layout(codes, norms, self._assignments(), nlist,
-                                  headroom=0.125)
+                                  headroom=h)
         vreal = ul["vreal"]
+        vstart = ul["vstart"]
         vr = np.clip(vreal, 0, nlist_pad - 1)
         dc.update({
             "nlist_pad": nlist_pad,
@@ -717,6 +854,11 @@ class Rii:
             "centers_dec_v": self._tensor(centers_dec[vr]),
             "centers_norms_v": self._tensor(np.where(
                 vreal >= 0, centers_norms[vr], np.inf).astype(np.float32)),
+            # host mirrors for the O(batch) placement of added rows
+            "v_vstart": vstart[:nlist].astype(np.int64),
+            "v_counts": ul["counts"].copy(),
+            "v_capacity": ((vstart[1:] - vstart[:-1])
+                           * ul["cap_v"]).astype(np.int64),
         })
         d_dim = self.M * cw.shape[2]
         # gate the combined footprint of the replica and the windows
@@ -737,5 +879,10 @@ class Rii:
             dc["decoded_g"] = dec_g
             dc["windows"] = "bf16"
         else:
+            # uint8 code windows; padding is masked by each window's member
+            # count (vlen), as the window kernels read no norms
             dc["codes_g"] = self._tensor(ul["codes_grouped"])
+            dc["vlen_g"] = self._tensor(ul["vlen"])
             dc["windows"] = "int8" if win_i8 else "pq"
+            # the constant term of kernel E's per-batch ADC table
+            dc["cw_norms"] = codeword_norms(dc["codewords"])

@@ -172,7 +172,7 @@ def test_add_after_configure_rebuilds_cache(setup):
         assert_ranked_ids_match(it, dt, ij, dj, rtol=EXACT_RTOL)
 
 
-@pytest.mark.parametrize("scan_mode,kernel", [("int8", "K4"), ("pq", "K7")])
+@pytest.mark.parametrize("scan_mode,kernel", [("int8", "K4")])
 def test_unported_tiers_raise(setup, scan_mode, kernel):
     te = Rii(PQ.from_codewords(setup["jpq"].codewords))
     te.scan_mode = scan_mode
@@ -180,6 +180,91 @@ def test_unported_tiers_raise(setup, scan_mode, kernel):
     te.add_configure(setup["X"], nlist=NLIST, iter=3)
     with pytest.raises(NotImplementedError, match=kernel):
         te.query_batch(setup["Q"], topk=5, method="linear")
+
+
+def test_ivf_falls_back_to_linear_before_the_window_tier_matters(setup):
+    """A bf16 replica with int8 windows (K6, not ported): an IVF batch whose
+    probe union covers half the capacity goes to the linear scan, as in the
+    JAX engine, instead of raising for the window tier it never reads."""
+    budget = 8192 * 160 + 16384 * 64  # the replica fits, bf16 windows do not
+    X = setup["X"]
+    je = rii_tpu.Rii(setup["jpq"])
+    te = Rii(PQ.from_codewords(setup["jpq"].codewords))
+    je.scan_mode = te.scan_mode = "bf16"
+    je.decoded_cache_budget = te.decoded_cache_budget = budget
+    je.pallas_interpret = True
+    te.force_kernel_routing = True
+    je.add_configure(X, nlist=NLIST, iter=3)
+    te.add_configure(X, nlist=NLIST, iter=3)
+    dc = te._ensure_cache()
+    assert "decoded_t" in dc and dc["windows"] == "int8"
+    ij, dj = je.query_batch(X[:256], topk=10, method="ivf")
+    it, dt = te.query_batch(X[:256], topk=10, method="ivf")
+    np.testing.assert_allclose(dt, dj, rtol=FAST_RTOL, atol=FAST_RTOL)
+    assert (it[:, 0] == ij[:, 0]).all()
+
+
+# the pq tier at a size where an IVF batch stays off the linear scan:
+# 2 * union rows (Q*wv windows of 256) < cap = 32768
+PQ_N, PQ_NLIST = 20000, 200
+
+
+@pytest.fixture(scope="module")
+def pq_setup(setup):
+    rng = np.random.RandomState(19)
+    X = rng.random((PQ_N, D)).astype(np.float32)
+    je = rii_tpu.Rii(setup["jpq"])
+    te = Rii(PQ.from_codewords(setup["jpq"].codewords))
+    je.scan_mode = te.scan_mode = "pq"
+    je.pallas_interpret = True
+    te.force_kernel_routing = True
+    je.add_configure(X, nlist=PQ_NLIST, iter=3)
+    te.add_configure(X, nlist=PQ_NLIST, iter=3)
+    Q = (X[:16] + rng.normal(0, 0.01, (16, D))).astype(np.float32)
+    return dict(X=X, je=je, te=te, Q=Q, rng=rng)
+
+
+def test_int8_windows_raise_where_ivf_reads_them(setup, pq_setup):
+    """A bf16 replica with int8 windows (K6, not ported): a batch that stays
+    off the linear scan raises, naming the missing kernels."""
+    te = Rii(PQ.from_codewords(setup["jpq"].codewords))
+    te.scan_mode = "bf16"
+    te.force_kernel_routing = True
+    te.decoded_cache_budget = 32768 * 160 + 51200 * 64
+    te.add_configure(pq_setup["X"], nlist=PQ_NLIST, iter=3)
+    dc = te._ensure_cache()
+    assert "decoded_t" in dc and dc["windows"] == "int8"
+    with pytest.raises(NotImplementedError, match="K4"):
+        te.query_batch(pq_setup["Q"][:8], topk=5, L=50, method="ivf")
+
+
+@pytest.mark.parametrize("method,subset,qn,L", [
+    ("linear", None, 16, None), ("ivf", None, 8, 50),
+    ("linear", 5000, 16, None), ("ivf", 5000, 8, 10)])
+def test_pq_tier_kernel_routes_match(pq_setup, monkeypatch, method, subset,
+                                     qn, L):
+    """The pq tier on the kernel routes (the port through kernels C and E's
+    twins, the JAX engine through Pallas interpret mode) against JAX: the
+    linear scan selects only (bf16-class distances), IVF rescores."""
+    import rii_tpu_torch.ops.ivf as TI
+    je, te = pq_setup["je"], pq_setup["te"]
+    dc = te._ensure_cache()
+    assert dc["mode"] == "pq" and "codes_t" in dc and dc["windows"] == "pq"
+    calls = []
+    real = TI.ivf_dt_window_tile_minima
+    monkeypatch.setattr(TI, "ivf_dt_window_tile_minima",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    tids = None
+    if subset is not None:
+        tids = np.sort(pq_setup["rng"].choice(PQ_N, subset, replace=False)).astype(np.int64)
+    q = pq_setup["Q"][:qn]
+    ij, dj = je.query_batch(q, topk=5, L=L, method=method, target_ids=tids)
+    it, dt = te.query_batch(q, topk=5, L=L, method=method, target_ids=tids)
+    assert bool(calls) == (method == "ivf")  # IVF stayed off the linear scan
+    np.testing.assert_allclose(dt, dj, rtol=FAST_RTOL, atol=FAST_RTOL)
+    assert (it[:, 0] == ij[:, 0]).all()
+    if tids is not None:
+        assert np.isin(it, tids).all()
 
 
 def test_cuda_without_a_card_raises(setup, monkeypatch):

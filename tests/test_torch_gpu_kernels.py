@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from rii_tpu_torch.ops import hopper_pq as HP
 from rii_tpu_torch.ops import hopper_scan as H
 
 from _torch_parity import assert_keys_match
@@ -70,6 +71,68 @@ def test_ivf_window_matches_twin(cuda, d, cap_v, with_pen):
     torch.cuda.synchronize()
     assert H.ivf_window_tile_minima.launches == before + 1
     v_t, a_t = H.ivf_window_tile_minima_plain(q, dec, flat, dup, cap_v, pen=pen)
+    assert_keys_match(*_np(v_k, a_k, v_t, a_t))
+    cols = np.repeat(dup.cpu().numpy() != 0, 2 * cap_v // 8)
+    assert (a_k.cpu().numpy()[:, cols] == 0).all()
+
+
+@pytest.mark.parametrize("qn,m,ks,ds", [(13, 8, 256, 16), (8, 32, 256, 4),
+                                        (40, 5, 100, 3)])
+def test_pq_tile_keys_matches_twin(cuda, qn, m, ks, ds):
+    """Kernel C at 8 queries per block (M=8), at 4 (M=32) and at a ragged
+    shape; the last 20000 slots are padding and n_valid skips their tiles
+    (a whole block's run of 16384 slots among them)."""
+    g = torch.Generator(device=cuda).manual_seed(qn)
+    cap = 1 << 15
+    cw = torch.rand((m, ks, ds), generator=g, device=cuda) * (0.4 / ds)
+    codes_t = torch.randint(0, ks, (m, cap), generator=g, device=cuda,
+                            dtype=torch.uint8)
+    cw16 = cw.to(torch.bfloat16).float()
+    dec = cw16[torch.arange(m, device=cuda), codes_t.T.long()].reshape(cap, -1)
+    norms = (dec * dec).sum(1)
+    norms[-20000:] = float("inf")
+    q = torch.rand((qn, m * ds), generator=g, device=cuda) * 0.1
+    before = HP.pq_tile_keys.launches
+    k = HP.pq_tile_keys(q, codes_t, norms, cw, n_valid=cap - 20000)
+    torch.cuda.synchronize()
+    assert HP.pq_tile_keys.launches == before + 1
+    t = HP.pq_tile_keys_plain(q, codes_t, norms, cw)
+    v_k, l_k = H._unpack(k, 0x7F)
+    v_t, l_t = H._unpack(t, 0x7F)
+    assert_keys_match(*_np(v_k, l_k, v_t, l_t))
+
+
+@pytest.mark.parametrize("kernel,qn,ds,cap_v,with_pen", [
+    ("D", 70, 16, 256, True), ("D", 33, 3, 40, False),
+    ("E", 8, 16, 256, True), ("E", 21, 3, 40, False)])
+def test_ivf_pq_windows_match_twin(cuda, kernel, qn, ds, cap_v, with_pen):
+    """Kernels D and E with duplicates, vlen padding and the pen stream;
+    ragged Q, Ds and cap_v exercise the kernels' edges."""
+    g = torch.Generator(device=cuda).manual_seed(qn)
+    m, ks, nwin, u = 8, 256, 30, 50
+    cw = torch.rand((m, ks, ds), generator=g, device=cuda) * (0.4 / ds)
+    codes_g = torch.randint(0, ks, (nwin * cap_v, m), generator=g, device=cuda,
+                            dtype=torch.uint8)
+    vlen_w = torch.randint(0, cap_v + 1, (nwin,), generator=g, device=cuda,
+                           dtype=torch.int32)
+    flat = torch.sort(torch.randint(0, nwin, (u,), generator=g, device=cuda,
+                                    dtype=torch.int32)).values
+    dup = torch.cat([torch.zeros(1, dtype=torch.int32, device=cuda),
+                     (flat[1:] == flat[:-1]).to(torch.int32)])
+    pen = None
+    if with_pen:
+        pen = torch.where(torch.rand(nwin * cap_v, generator=g, device=cuda) < 0.3,
+                          float("inf"), 0.0).to(torch.float32)
+    q = torch.rand((qn, m * ds), generator=g, device=cuda) * 0.1
+    fn, twin = ((HP.ivf_pq_window_tile_minima, HP.ivf_pq_window_tile_minima_plain)
+                if kernel == "D" else
+                (HP.ivf_dt_window_tile_minima, HP.ivf_dt_window_tile_minima_plain))
+    vl = vlen_w[flat.long()]
+    before = fn.launches
+    v_k, a_k = fn(q, codes_g, cw, flat, dup, vl, cap_v, pen=pen)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    v_t, a_t = twin(q, codes_g, cw, flat, dup, vl, cap_v, pen=pen)
     assert_keys_match(*_np(v_k, a_k, v_t, a_t))
     cols = np.repeat(dup.cpu().numpy() != 0, 2 * cap_v // 8)
     assert (a_k.cpu().numpy()[:, cols] == 0).all()
