@@ -7,7 +7,8 @@ Phases, each of which must pass (no exception is caught):
 
 1. The card: requires ``torch.cuda.is_available()`` and prints the card's
    name and power limit from ``nvidia-smi``.
-2. Build: compiles the CUDA kernels from ``rii_tpu_torch/csrc`` with nvcc.
+2. Build: compiles the CUDA kernels from ``rii_tpu_torch/csrc`` with nvcc,
+   one process per source, all started together.
 3. Kernel against twin: each kernel against its plain PyTorch twin on the
    card, at the main path's shapes, with the CPU tests' tolerances, timed
    with CUDA events (median of 7).
@@ -28,6 +29,21 @@ Phases, each of which must pass (no exception is caught):
    cache, queries again; recall and distances against exact ADC ground
    truth computed on the card, and the launch counts of kernels C, D and E
    during this phase.
+7. Engine, int8 replica (the 10M band, BIGANN's 10M scale at bench.py's
+   codec): N=10,000,000 synthetic codes, M=32, Ks=256, D=128, nlist=3162
+   (sqrt N, the reference's default), reserve(N + 100k): ``auto`` must pick
+   the int8 replica (cap 2^24: cap*D*2 > 2 GiB >= cap*D) with pq windows
+   (cap*(D+32) > 2 GiB). The lifecycle of phase 6 with IVF at Q=8 and 64
+   and L = 2*L0: linear batches launch kernel F, IVF batches kernel E;
+   linear distances are exact ADC too (the int8 tier always rescores).
+8. Engine, int8 windows (the 4M band): N=4,000,000, the same codec,
+   nlist=2000, reserve(N + 50k): ``auto`` must pick the bf16 replica
+   (cap 2^22) with int8 windows (bf16 windows would pass the budget); the
+   same lifecycle with IVF at Q=8 and 64, every IVF batch launching kernel
+   G and staying off the linear scan, and add(+50k).
+Phases 7 and 8 print ``memory_breakdown`` and check that the replica and the
+decoded windows stay within ``decoded_cache_budget``. Each engine phase
+sets every launch count to 0 just before it and reads them just after.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -87,14 +103,17 @@ def compare_keys(name, v_k, s_k, v_t, s_t):
 
 
 def kernel_wrappers():
-    """The five kernels' wrappers by the names the JSON record uses."""
+    """The seven kernels' wrappers by the names the JSON record uses."""
+    from rii_tpu_torch.ops import hopper_i8 as HI
     from rii_tpu_torch.ops import hopper_pq as HP
     from rii_tpu_torch.ops import hopper_scan as H
     return {"replica_tile_keys": H.replica_tile_keys,
             "ivf_window_top2": H.ivf_window_tile_minima,
             "pq_tile_keys": HP.pq_tile_keys,
             "ivf_pq_window_top2": HP.ivf_pq_window_tile_minima,
-            "ivf_dt_window_top2": HP.ivf_dt_window_tile_minima}
+            "ivf_dt_window_top2": HP.ivf_dt_window_tile_minima,
+            "replica_i8_tile_keys": HI.replica_i8_tile_keys,
+            "ivf_i8_window_top2": HI.ivf_i8_window_tile_minima}
 
 
 def reset_launch_counts():
@@ -117,7 +136,8 @@ def phase_card():
 
 def phase_build():
     from rii_tpu_torch.ops import _build
-    names = ("replica_scan", "ivf_window", "pq_scan", "ivf_pq_window")
+    names = ("replica_scan", "ivf_window", "pq_scan", "ivf_pq_window",
+             "replica_i8_scan", "ivf_i8_window")
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(lambda nm: _build.load_library(nm, verbose=True), names))
@@ -189,6 +209,7 @@ def phase_kernels(dev):
                     "U": u, "Q": qn})
     del dec_g, pen
     records += phase_kernels_pq(dev, g)
+    records += phase_kernels_i8(dev, g)
     return records
 
 
@@ -289,6 +310,103 @@ def phase_kernels_pq(dev, g):
         for qn in qns[:-1]:
             rec[f"ms_q{qn}"], rec[f"plain_ms_q{qn}"] = times[qn][:2]
         records.append(rec)
+    return records
+
+
+def phase_kernels_i8(dev, g):
+    """Kernels F and G against their twins at the int8 phases' shapes
+    (D=128). Kernel F at Q=128 and 1024 over the 10M band's cap=2^24 with
+    n_valid = 10,000,000 + 100,000, as the engine passes it after the add
+    (+inf norms past it). Kernel G at Q=8 and 64 over the unions the 4M
+    band builds (Q*64 windows of 256 rows out of ~20k), drawn from a pool
+    four times the union's size (duplicates), with vlen padding, with and
+    without a pen stream. Rows are random int8 with column scales below
+    0.1/127, so scores stay below 2 in magnitude, as for kernels A and B.
+    Kernel F and its twin agree bit for bit (the cross term is exact)."""
+    from rii_tpu_torch.ops import hopper_i8 as HI
+    from rii_tpu_torch.ops import hopper_scan as H
+    d, records = 128, []
+    scales = torch.rand(d, generator=g, device=dev) * (0.1 / 127) + 1e-5
+
+    def rows_of(n):
+        rows = torch.randint(-127, 128, (n, d), generator=g, device=dev,
+                             dtype=torch.int32).to(torch.int8)
+        return rows, ((rows.float() * scales) ** 2).sum(1)
+
+    cap, n_valid = 1 << 24, 10_100_000
+    dec_w = torch.empty((d // 4, cap), dtype=torch.int32, device=dev)
+    norms = torch.empty(cap, device=dev)
+    for s0 in range(0, cap, 1 << 22):
+        rows, nr = rows_of(1 << 22)
+        dec_w[:, s0:s0 + (1 << 22)] = HI.pack_words(rows).T
+        norms[s0:s0 + (1 << 22)] = nr
+    del rows, nr
+    norms[n_valid:] = float("inf")  # padding slots
+    norms[n_valid - 5000:n_valid - 3000] = float("inf")  # excluded slots
+    ms, plain_ms, errs = {}, {}, []
+    for qn in (128, 1024):
+        q = torch.rand((qn, d), generator=g, device=dev) * 0.1
+        keys_k = HI.replica_i8_tile_keys(q, dec_w, scales, norms, n_valid=n_valid)
+        keys_t = HI.replica_i8_tile_keys_plain(q, dec_w, scales, norms)
+        torch.cuda.synchronize()
+        same = (keys_k.view(torch.int32) == keys_t.view(torch.int32)).float().mean().item()
+        v_k, l_k = H._unpack(keys_k, 0x7F)
+        v_t, l_t = H._unpack(keys_t, 0x7F)
+        del keys_k, keys_t
+        errs.append(compare_keys(f"kernel F Q={qn} n_valid={n_valid}", v_k, l_k, v_t, l_t))
+        log(f"  kernel F Q={qn}: keys bit-equal to the twin's on {same:.6f} of tiles")
+        del v_k, l_k, v_t, l_t
+        ms[qn] = cuda_ms(lambda: HI.replica_i8_tile_keys(q, dec_w, scales, norms,
+                                                         n_valid=n_valid))
+        plain_ms[qn] = cuda_ms(lambda: HI.replica_i8_tile_keys_plain(q, dec_w, scales, norms))
+        log(f"  kernel F Q={qn} cap={cap} n_valid={n_valid}: kernel {ms[qn]:.3f} ms, "
+            f"plain {plain_ms[qn]:.3f} ms")
+    records.append({"name": "replica_i8_tile_keys", "route": "cuda",
+                    "source": "rii_tpu_torch/csrc/replica_i8_scan.cu",
+                    "replaces": "rii_tpu/ops/pallas_scan.py:538 _replica_i8t_kernel, "
+                                ":559 _replica_i8tn_kernel",
+                    "max_abs_err": max(errs), "ms": ms[1024],
+                    "plain_ms": plain_ms[1024], "ms_q128": ms[128],
+                    "plain_ms_q128": plain_ms[128], "cap": cap, "n_valid": n_valid})
+    del dec_w, norms
+
+    cap_v, nwin, wv = 256, 20_480, 64
+    dec_g, _ = rows_of(nwin * cap_v)
+    vlen_w = torch.randint(cap_v // 2, cap_v + 1, (nwin,), generator=g,
+                           device=dev, dtype=torch.int32)
+    pen = torch.where(torch.rand(nwin * cap_v, generator=g, device=dev) < 0.3,
+                      float("inf"), 0.0).to(torch.float32)
+    errs, times = [], {}
+    for qn in (8, 64):
+        u = qn * wv
+        pool = torch.randperm(nwin, generator=g, device=dev)[:4 * u]
+        flat = torch.sort(pool[torch.randint(0, 4 * u, (u,), generator=g,
+                                             device=dev)]).values.to(torch.int32)
+        dup = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                         (flat[1:] == flat[:-1]).to(torch.int32)])
+        vl = vlen_w[flat.long()]
+        q = torch.rand((qn, d), generator=g, device=dev) * 0.1
+        for p, tag in ((None, "no pen"), (pen, "pen")):
+            v_k, a_k = HI.ivf_i8_window_tile_minima(q, dec_g, scales, flat, dup, vl,
+                                                    cap_v, pen=p)
+            v_t, a_t = HI.ivf_i8_window_tile_minima_plain(q, dec_g, scales, flat, dup,
+                                                          vl, cap_v, pen=p)
+            torch.cuda.synchronize()
+            errs.append(compare_keys(f"kernel G U={u} Q={qn} ({int(dup.sum())} "
+                                     f"duplicates) {tag}", v_k, a_k, v_t, a_t))
+        t_k = cuda_ms(lambda: HI.ivf_i8_window_tile_minima(q, dec_g, scales, flat, dup,
+                                                           vl, cap_v))
+        t_t = cuda_ms(lambda: HI.ivf_i8_window_tile_minima_plain(q, dec_g, scales, flat,
+                                                                 dup, vl, cap_v))
+        times[qn] = (t_k, t_t, u)
+        log(f"  kernel G U={u} Q={qn}: kernel {t_k:.3f} ms, plain {t_t:.3f} ms")
+    records.append({"name": "ivf_i8_window_top2", "route": "cuda",
+                    "source": "rii_tpu_torch/csrc/ivf_i8_window.cu",
+                    "replaces": "rii_tpu/ops/pallas_scan.py:1389 "
+                                "_ivf_i8_window_multi_kernel, :1354 _ivf_i8_window_kernel",
+                    "max_abs_err": max(errs), "ms": times[64][0], "plain_ms": times[64][1],
+                    "U": times[64][2], "Q": 64, "ms_q8": times[8][0],
+                    "plain_ms_q8": times[8][1]})
     return records
 
 
@@ -478,16 +596,27 @@ def exact_adc_topk(codes, cw, queries, k, chunk=1 << 21):
     return best_i.cpu().numpy(), exact.cpu().numpy()
 
 
-def phase_engine_pq(dev):
-    """The SIFT1B-shape lifecycle through the public API at scan_mode
-    "auto" (see the module docstring). Returns the launch counts of kernels
-    C, D and E during the phase."""
+def drive_lifecycle(dev, cfg):
+    """One lifecycle through the public API at scan_mode "auto" on N
+    synthetic codes (codewords RandomState(0).standard_normal, codes
+    RandomState(1)): reserve(N + n_add), add_codes ingest, reconfigure, the
+    tiers ``auto`` must pick, linear query_batch at Q=128 and 1024, IVF at
+    each of ``ivf_qs`` against the exact-mode walk, subset queries with
+    |S| = n_subset, add(+n_add) scattered into the live cache and queries
+    again; recall and distances against exact ADC ground truth computed on
+    the card. IVF batches use L = ``cfg["ivf_L0s"]`` (default 1, the
+    engine's default) times L0. Every batch must launch the kernel of its
+    route: the linear kernel ``cfg["linear"]``, the window kernel
+    ``cfg["ivf"](Q)`` (and not the linear one). Returns the launch counts
+    of the path's kernels."""
     from rii_tpu_torch import PQ, Rii
-    from rii_tpu_torch.ops import hopper_pq as HP
-    n, m, ks, d, nlist, topk = 1 << 25, 8, 256, 128, 31623, 10
-    n_add, n_subset, ivf_qs = 100_000, 1_000_000, (8, 64, 512)
-    kern = {k: f for k, f in kernel_wrappers().items()
-            if k in ("pq_tile_keys", "ivf_pq_window_top2", "ivf_dt_window_top2")}
+    name, n, m, nlist = cfg["name"], cfg["n"], cfg["m"], cfg["nlist"]
+    ks, d, topk = 256, 128, 10
+    n_add, n_subset, ivf_qs = cfg["n_add"], cfg["n_subset"], cfg["ivf_qs"]
+    wrappers = kernel_wrappers()
+    lin = wrappers[cfg["linear"]]
+    kern = {k: wrappers[k] for k in sorted({cfg["linear"]}
+                                           | {cfg["ivf"](q) for q in (1, *ivf_qs)})}
     torch.cuda.reset_peak_memory_stats()
     stages = {}
     t0 = time.perf_counter()
@@ -513,7 +642,7 @@ def phase_engine_pq(dev):
 
     reset_launch_counts()
     e = Rii(PQ.from_codewords(cw, device=dev))
-    # room for the add below: without it cap = N = 2^25 and the add rebuilds
+    # room for the add below: without it cap may equal N and the add rebuilds
     e.reserve(n + n_add)
     t0 = time.perf_counter()
     for s0 in range(0, n, 1 << 22):
@@ -527,11 +656,18 @@ def phase_engine_pq(dev):
     dc = e._ensure_cache()
     torch.cuda.synchronize()
     stages["cache_build_s"] = time.perf_counter() - t0
-    log(f"  engine pq: N={e.N} nlist={e.nlist} cap={dc['cap']} mode={dc['mode']} "
-        f"windows={dc['windows']} nlist_v={dc['nlist_v']} L0={e.L0} "
-        f"memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    if dc["mode"] != "pq" or dc["windows"] != "pq":
-        raise AssertionError("scan_mode='auto' did not pick the pq tier at this size")
+    log(f"  engine {name}: N={e.N} M={m} nlist={e.nlist} cap={dc['cap']} "
+        f"mode={dc['mode']} windows={dc['windows']} nlist_v={dc['nlist_v']} "
+        f"L0={e.L0} memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    if (dc["mode"], dc["windows"]) != cfg["tiers"]:
+        raise AssertionError(f"scan_mode='auto' picked {dc['mode']} / {dc['windows']}, "
+                             f"not {cfg['tiers']} at this size")
+    if cfg.get("budget_keys"):
+        mem = e.memory_breakdown()
+        log(f"  memory_breakdown {name}: " + json.dumps(mem))
+        held = sum(mem[f"device:{k}"] for k in cfg["budget_keys"])
+        if held > e.decoded_cache_budget:
+            raise AssertionError(f"{cfg['budget_keys']} hold {held} B, over the budget")
 
     def run(qs, method, **kw):
         torch.cuda.synchronize()
@@ -542,61 +678,71 @@ def phase_engine_pq(dev):
             raise AssertionError(f"{method} Q={len(qs)}: bad output")
         return ids, dists, time.perf_counter() - t
 
-    results = {}
-    for qn in (128, 1024):
-        run(queries[:qn], "linear")  # warm
-        before = HP.pq_tile_keys.launches
-        ids, _, stages[f"linear_q{qn}_s"] = run(queries[:qn], "linear")
-        if HP.pq_tile_keys.launches == before:
-            raise AssertionError(f"linear Q={qn} did not launch kernel C")
-        results[f"linear_q{qn}"] = (recall(ids[:128], gt, 1), recall(ids[:128], gt, 10))
-
-    def ivf_pass(qn, tag):
-        """The 128 ground-truth queries in batches of qn (one batch of 512
-        at qn=512), method "auto"; with the kernels each batch must stay on
-        IVF and launch kernel E (Q < D) or D."""
-        win = kern["ivf_dt_window_top2" if qn < d else "ivf_pq_window_top2"]
-        ids_all, d_all, took = [], [], 0.0
-        for s0 in range(0, 128, min(qn, 128)):
-            c7, cw_ = HP.pq_tile_keys.launches, win.launches
-            ids, dists, t = run(queries[s0:s0 + qn], "auto")
-            took += t
-            if e.topk_recall is not None and (HP.pq_tile_keys.launches != c7
-                                              or win.launches == cw_):
-                raise AssertionError(f"IVF {tag} Q={qn}: the batch left the window kernel")
-            ids_all.append(ids[:128])
-            d_all.append(dists[:128])
-        return np.concatenate(ids_all), np.concatenate(d_all), took
-
-    walk, dist_err = {}, 0.0
-    for qn in ivf_qs:
-        ivf_pass(qn, "warm")
-        ids, dists, stages[f"ivf_q{qn}_s"] = ivf_pass(qn, "fast")
-        results[f"ivf_q{qn}"] = (recall(ids, gt, 1), recall(ids, gt, 10))
-        # returned distances of ground-truth ids are exact ADC
+    def check_dists(ids, dists, what):
+        """Returned distances of ground-truth ids are exact ADC."""
+        worst = 0.0
         for r in range(128):
             for i_, d_ in zip(ids[r], dists[r]):
                 hit = np.nonzero(gt_ids[r] == i_)[0]
                 if not hit.size:
                     continue
                 err = abs(d_ - gt_d[r, hit[0]])
-                dist_err = max(dist_err, err)
+                worst = max(worst, err)
                 if err > 1e-4 * abs(gt_d[r, hit[0]]) + 1e-3:
-                    raise AssertionError(f"IVF Q={qn}: distance {d_} of id {i_} vs "
+                    raise AssertionError(f"{what}: distance {d_} of id {i_} vs "
                                          f"exact {gt_d[r, hit[0]]}")
-        e.topk_recall = None  # the same candidate walk, exact and plain
+        return worst
+
+    results, dist_err = {}, {}
+    for qn in (128, 1024):
+        run(queries[:qn], "linear")  # warm
+        before = lin.launches
+        ids, dists, stages[f"linear_q{qn}_s"] = run(queries[:qn], "linear")
+        if lin.launches == before:
+            raise AssertionError(f"linear Q={qn} did not launch {cfg['linear']}")
+        results[f"linear_q{qn}"] = (recall(ids[:128], gt, 1), recall(ids[:128], gt, 10))
+        if cfg["linear_exact"]:
+            dist_err[f"linear_q{qn}"] = check_dists(ids[:128], dists[:128],
+                                                    f"linear Q={qn}")
+
+    ivf_L = cfg.get("ivf_L0s", 1) * e.L0
+
+    def ivf_pass(qn, tag):
+        """The 128 ground-truth queries in batches of qn (one batch at
+        qn > 128), method "auto"; with the kernels each batch must stay on
+        IVF and launch its window kernel."""
+        win = wrappers[cfg["ivf"](qn)]
+        ids_all, d_all, took = [], [], 0.0
+        for s0 in range(0, 128, min(qn, 128)):
+            c_lin, c_win = lin.launches, win.launches
+            ids, dists, t = run(queries[s0:s0 + qn], "auto", L=ivf_L)
+            took += t
+            if e.topk_recall is not None and (lin.launches != c_lin
+                                              or win.launches == c_win):
+                raise AssertionError(f"IVF {tag} Q={qn}: the batch left the window kernel")
+            ids_all.append(ids[:128])
+            d_all.append(dists[:128])
+        return np.concatenate(ids_all), np.concatenate(d_all), took
+
+    walk = {}
+    for qn in ivf_qs:
+        ivf_pass(qn, "warm")
+        ids, dists, stages[f"ivf_q{qn}_s"] = ivf_pass(qn, "fast")
+        results[f"ivf_q{qn}"] = (recall(ids, gt, 1), recall(ids, gt, 10))
+        dist_err[f"ivf_q{qn}"] = check_dists(ids, dists, f"IVF Q={qn}")
+        e.topk_recall = None  # the same candidate walk, exact probes and top-k
         ids_w, _, stages[f"ivf_exact_walk_q{qn}_s"] = ivf_pass(qn, "exact")
         e.topk_recall = 0.99
         walk[qn] = (recall(ids_w, gt, 1), recall(ids_w, gt, 10))
-        log(f"  IVF Q={qn} wv={e._probe_width_virtual(e.L0, None, dc)}: recall@1 "
+        log(f"  IVF Q={qn} L={ivf_L} wv={e._probe_width_virtual(ivf_L, None, dc)}: recall@1 "
             f"{results[f'ivf_q{qn}'][0]:.4f} @10 {results[f'ivf_q{qn}'][1]:.4f}; "
             f"exact walk @1 {walk[qn][0]:.4f} @10 {walk[qn][1]:.4f}; "
             f"{stages[f'ivf_q{qn}_s']:.3f} s for 128 queries")
 
-    log(f"  IVF distances of ground-truth ids: max |diff| {dist_err:.3e} "
-        "against exact ADC")
+    log(f"  distances of ground-truth ids, max |diff| against exact ADC: "
+        + json.dumps({k: float(f"{v:.3e}") for k, v in dist_err.items()}))
     tids = np.sort(np.random.RandomState(7).choice(n, n_subset, replace=False)).astype(np.int64)
-    for method, want in (("linear", "pq_tile_keys"), ("ivf", "ivf_dt_window_top2")):
+    for method, want in (("linear", cfg["linear"]), ("ivf", cfg["ivf"](1))):
         before = {k: f.launches for k, f in kern.items()}
         ids_s, _, stages[f"subset_{method}_s"] = run(queries[:1], method, target_ids=tids)
         took = [k for k, f in kern.items() if f.launches > before[k]]
@@ -609,9 +755,9 @@ def phase_engine_pq(dev):
     t0 = time.perf_counter()
     e.add_codes(new_codes)
     torch.cuda.synchronize()
-    stages["add_100k_s"] = time.perf_counter() - t0
+    stages[f"add_{n_add // 1000}k_s"] = time.perf_counter() - t0
     if e._dc is not dc or dc["n_dev"] != n_dev + n_add or dc["version"] != e._version:
-        raise AssertionError("add(+100k) did not keep the cache")
+        raise AssertionError(f"add(+{n_add}) did not keep the cache")
     new_q = cw[sub, new_codes[:8].astype(np.int64)].reshape(8, d).astype(np.float32)
     for method in ("ivf", "linear"):
         ids, _, _ = run(new_q, method)
@@ -624,10 +770,10 @@ def phase_engine_pq(dev):
         raise AssertionError("a query after the add rebuilt the cache")
 
     launches = {k: f.launches for k, f in kern.items()}
-    log(f"  launches in the pq engine phase: {launches}")
-    for name, c in launches.items():
+    log(f"  launches in the {name} phase: {launches}")
+    for k, c in launches.items():
         if c == 0:
-            raise AssertionError(f"{name} was not launched by the pq path")
+            raise AssertionError(f"{k} was not launched by the {name} path")
     for k, (r1, r10) in results.items():
         log(f"  recall {k}: @1 {r1:.4f} @10 {r10:.4f}")
     for k in ("linear_q128", "linear_q1024"):
@@ -641,10 +787,44 @@ def phase_engine_pq(dev):
     if results["ivf_after_add"][0] < 0.99:
         raise AssertionError("IVF recall@1 after the add < 0.99")
     stages["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    log("  pq stages: " + json.dumps({k: round(v, 4) for k, v in stages.items()}))
+    log(f"  {name} stages: " + json.dumps({k: round(v, 4) for k, v in stages.items()}))
     del e, dc
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_engine_pq(dev):
+    """The SIFT1B-shape lifecycle (see the module docstring): the pq tier,
+    kernels C, D and E."""
+    return drive_lifecycle(dev, {
+        "name": "pq", "n": 1 << 25, "m": 8, "nlist": 31623, "n_add": 100_000,
+        "n_subset": 1_000_000, "ivf_qs": (8, 64, 512), "tiers": ("pq", "pq"),
+        "linear": "pq_tile_keys", "linear_exact": False,
+        "ivf": lambda qn: "ivf_dt_window_top2" if qn < 128 else "ivf_pq_window_top2"})
+
+
+def phase_engine_i8_replica(dev):
+    """The 10M band: the int8 replica (kernel F) with pq windows (kernel E),
+    BIGANN's 10M scale at bench.py's codec (see the module docstring). IVF
+    at L = 2*L0 (8 of the 3162 lists): at L0 (4 lists) the exact walk
+    itself misses 2 of the 128 true neighbours."""
+    return drive_lifecycle(dev, {
+        "name": "int8 replica", "n": 10_000_000, "m": 32, "nlist": 3162,
+        "n_add": 100_000, "n_subset": 1_000_000, "ivf_qs": (8, 64), "ivf_L0s": 2,
+        "tiers": ("int8", "pq"), "linear": "replica_i8_tile_keys",
+        "linear_exact": True, "ivf": lambda qn: "ivf_dt_window_top2",
+        "budget_keys": ("decoded_i8_t",)})
+
+
+def phase_engine_i8_windows(dev):
+    """The 4M band: the bf16 replica (kernel A) with int8 windows (kernel
+    G), see the module docstring."""
+    return drive_lifecycle(dev, {
+        "name": "int8 windows", "n": 4_000_000, "m": 32, "nlist": 2000,
+        "n_add": 50_000, "n_subset": 1_000_000, "ivf_qs": (8, 64),
+        "tiers": ("bf16", "int8"), "linear": "replica_tile_keys",
+        "linear_exact": False, "ivf": lambda qn: "ivf_i8_window_top2",
+        "budget_keys": ("decoded_t", "decoded_g_i8")})
 
 
 def main():
@@ -664,9 +844,13 @@ def main():
     launches = phase_engine(dev)
     log(f"phase engine: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    launches.update(phase_engine_pq(dev))
-    log(f"phase engine pq: {time.perf_counter() - t0:.1f} s")
+    for phase, fn in (("pq", phase_engine_pq),
+                      ("int8 replica", phase_engine_i8_replica),
+                      ("int8 windows", phase_engine_i8_windows)):
+        t0 = time.perf_counter()
+        for k, c in fn(dev).items():  # a kernel on two paths: both runs count
+            launches[k] = launches.get(k, 0) + c
+        log(f"phase engine {phase}: {time.perf_counter() - t0:.1f} s")
     for r in records:
         r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": records}))

@@ -1,7 +1,7 @@
 """rii-tpu on PyTorch and CUDA: the reconfigurable inverted index (PQ/IVFADC).
 
 A port of the ``rii_tpu`` JAX package to PyTorch, with hand-written CUDA
-kernels for NVIDIA Hopper on the bf16 and pq query paths
+kernels for NVIDIA Hopper on the bf16, int8 and pq query paths
 (``rii_tpu_torch/csrc``).
 Module names follow ``rii_tpu`` so that each counterpart is easy to find.
 This package imports ``torch`` and never ``jax``.

@@ -1,0 +1,307 @@
+"""Hopper kernels of the int8 tier and their plain PyTorch twins
+(counterpart of the int8 part of ``rii_tpu.ops.pallas_scan``).
+
+The middle memory tier holds the decoded rows quantized to int8 per column
+(half the bytes of the bf16 replica) and selects candidates at int8
+precision; every caller then re-ranks them in exact float32 ADC from the
+uint8 codes. Two hand-written CUDA kernels carry it:
+
+- **Kernel F**, :func:`replica_i8_tile_keys` (``csrc/replica_i8_scan.cu``),
+  replaces ``_replica_i8t_kernel`` and ``_replica_i8tn_kernel``: packed
+  per-128-slot minimum keys of the linear scan over the transposed int8
+  replica, one kernel for every Q.
+- **Kernel G**, :func:`ivf_i8_window_tile_minima`
+  (``csrc/ivf_i8_window.cu``), replaces ``_ivf_i8_window_multi_kernel`` and
+  ``_ivf_i8_window_kernel``: per-8-slot top-2 over the probed int8 windows.
+
+Layouts are the port's: kernel F reads the replica as (ceil(D/4), cap)
+int32 words, each holding dims 4j..4j+3 of one slot (zero past D), so a
+warp's 32 neighbouring slots read one 128-byte line per word row; the
+windows stay (total, D) int8 rows. Queries reach both kernels as int8
+words (Q, ceil(D/4)) with a float32 dequantization factor per query.
+
+The int32 cross term is exact, and so is its float32 value (|cross| <=
+127^2 * D < 2^24 for D <= 1040). The twins form it as a float32 product
+of the int8 values, whose partial sums are integers below 2^24 and hence
+exact in any order. The score ``norm - 2 * cross * alpha`` is rounded once,
+as a fused multiply-add, which is how XLA's CPU backend evaluates the
+Pallas kernels' expression in interpret mode; the twins take it in float64
+(the product is exact there) and round to float32. So kernel F, its twin
+and the Pallas kernel agree bit for bit; kernel G's norms are float32 sums
+taken in another order.
+
+The wrapper rules are those of ``hopper_scan``: CPU tensors take the plain
+twin, CUDA tensors launch the kernel or raise, and each wrapper counts its
+launches in ``.launches``.
+"""
+
+import ctypes
+
+import torch
+
+from rii_tpu_torch.ops import _build
+from rii_tpu_torch.ops.decode import onehot_decode
+from rii_tpu_torch.ops.hopper_pq import _mask_rows, _window_chunks
+from rii_tpu_torch.ops.hopper_scan import (
+    _TILE,
+    _TWIN_SCORES,
+    _exact_rescore_codes,
+    _merge_packed_keys,
+    _on_cpu,
+    _pack,
+    _ptr,
+    _require,
+    _stream,
+    _top2_plain,
+)
+
+_EPS = 1e-30  # floor of a quantization range, as in the JAX package
+_QUANT_BLOCK = 1 << 18  # rows decoded at a time while quantizing
+# float32(1/127): the JAX package quantizes queries inside jit, where XLA
+# turns the division by the constant 127 into a product with its float32
+# reciprocal (its replica quantization runs eagerly and divides)
+_INV127 = torch.tensor(1.0 / 127.0, dtype=torch.float32).item()
+
+
+# --------------------------------------------------------------------------- #
+# quantization
+# --------------------------------------------------------------------------- #
+
+def quantize_rows_i8(rows, col_scales):
+    """clip(round(rows / col_scales), -127, 127) as int8, the JAX package's
+    per-column quantization (round half to even) and its requantization of
+    added rows with the existing scales."""
+    q = torch.round(rows.float() / col_scales)
+    return q.clamp(-127, 127).to(torch.int8)
+
+
+def pack_words(q_i8):
+    """(n, D) int8 -> (n, ceil(D/4)) int32 words, dims 4j..4j+3 in word j
+    (lowest byte first), zero past D."""
+    n, d = q_i8.shape
+    dp = -(-d // 4) * 4
+    if dp != d or not q_i8.is_contiguous():
+        padded = q_i8.new_zeros((n, dp))
+        padded[:, :d] = q_i8
+        q_i8 = padded
+    return q_i8.view(torch.int32)
+
+
+def unpack_words(words, d):
+    """(n, ceil(D/4)) int32 words -> (n, D) int8, the inverse of pack_words."""
+    return words.contiguous().view(torch.int8)[:, :d]
+
+
+def quantize_replica_i8(codes, codewords, words_t=False, block=_QUANT_BLOCK):
+    """Quantize the bf16 decode of (n, M) codes per column, as the JAX
+    package's ``quantize_replica_i8(build_decoded_cache(codes))``, bit for
+    bit, without holding the decode: one pass over blocks of rows takes each
+    column's max |x| (exact in any order), a second decodes again and
+    quantizes. Every row counts, padding rows (code 0) included, as in JAX.
+
+    Returns (q, col_scales (D,) f32): q is (n, D) int8, or with ``words_t``
+    kernel F's (ceil(D/4), n) int32 words."""
+    n = codes.shape[0]
+    d = codewords.shape[0] * codewords.shape[2]
+    amax = torch.zeros(d, dtype=torch.float32, device=codes.device)
+    for s in range(0, n, block):
+        dec = onehot_decode(codes[s:s + block], codewords, torch.bfloat16)
+        amax = torch.maximum(amax, dec.float().abs().amax(0))
+    col_scales = amax.clamp(min=_EPS) / 127.0
+    if words_t:
+        out = torch.empty((-(-d // 4), n), dtype=torch.int32, device=codes.device)
+    else:
+        out = torch.empty((n, d), dtype=torch.int8, device=codes.device)
+    for s in range(0, n, block):
+        dec = onehot_decode(codes[s:s + block], codewords, torch.bfloat16)
+        q = quantize_rows_i8(dec, col_scales)
+        if words_t:
+            out[:, s:s + block] = pack_words(q).T
+        else:
+            out[s:s + block] = q
+    return out, col_scales
+
+
+def quantize_queries_i8(queries, col_scales):
+    """Fold the column scales into the queries and quantize per query (the
+    JAX package's ``_quantize_queries_i8`` as its jitted callers run it).
+    Returns (q_i8 (Q, D) int8, alpha (Q,) f32): cross = int8 cross * alpha."""
+    qs = queries.float() * col_scales[None, :]
+    qscale = qs.abs().amax(1).clamp(min=_EPS) * _INV127
+    return quantize_rows_i8(qs, qscale[:, None]), qscale
+
+
+def _fused_score(norms, cross, alpha):
+    """norms - 2 * cross * alpha rounded once (the kernels' fma): the
+    product is exact in float64, the difference is rounded there and then
+    to float32."""
+    return (norms.double() - (2.0 * cross).double() * alpha.double()).float()
+
+
+# --------------------------------------------------------------------------- #
+# Kernel F: packed per-128-slot keys over the transposed int8 replica
+# --------------------------------------------------------------------------- #
+
+def replica_i8_tile_keys_plain(queries, dec_w, col_scales, norms):
+    """Plain twin of kernel F (see csrc/replica_i8_scan.cu for the
+    contract). Works through cap in chunks, so no (Q, cap) float32 array is
+    held."""
+    q_i8, alpha = quantize_queries_i8(queries, col_scales)
+    qf = q_i8.float()
+    qn, d = qf.shape
+    cap = dec_w.shape[1]
+    chunk = max(_TILE, min(_TWIN_SCORES // max(qn, 1), _TWIN_SCORES // d)
+                // _TILE * _TILE)
+    lane = torch.arange(_TILE, dtype=torch.int32, device=qf.device)
+    out = []
+    for s in range(0, cap, chunk):
+        rows = unpack_words(dec_w[:, s:s + chunk].T, d).float()  # (n, D)
+        scores = _fused_score(norms[None, s:s + chunk], qf @ rows.T,
+                              alpha[:, None])
+        n = scores.shape[1]
+        keys = _pack(scores.view(qn, n // _TILE, _TILE), lane, 0x7F)
+        out.append(keys.min(dim=2).values)
+    return torch.cat(out, dim=1)
+
+
+def replica_i8_tile_keys(queries, dec_w, col_scales, norms, n_valid=None):
+    """Kernel F: packed per-128-slot minimum keys (Q, cap/128) of the scan
+    over the int8 replica.
+
+    queries (Q, D) f32 (quantized here, as in the JAX package); dec_w
+    (ceil(D/4), cap) int32 words of :func:`quantize_replica_i8`;
+    col_scales (D,) f32; norms (cap,) f32 exact ||decode||^2 with +inf on
+    padding and excluded slots. ``n_valid`` (default cap) promises that
+    every slot from it on is padding: the kernel then writes those tiles'
+    keys without reading them. CPU tensors take the plain twin; CUDA tensors
+    launch the kernel."""
+    dw, cap = dec_w.shape
+    d = col_scales.shape[0]
+    _require(queries.dim() == 2 and queries.shape[1] == d,
+             f"queries must be (Q, {d}), got {tuple(queries.shape)}")
+    _require(dw == -(-d // 4), f"dec_w must have ceil({d}/4) word rows, has {dw}")
+    _require(norms.shape == (cap,), f"norms must be ({cap},)")
+    _require(cap % _TILE == 0, f"cap={cap} must be a multiple of {_TILE}")
+    if _on_cpu(queries, dec_w, col_scales, norms):
+        return replica_i8_tile_keys_plain(queries, dec_w, col_scales, norms)
+    _require(dec_w.dtype == torch.int32 and dec_w.is_contiguous(),
+             "dec_w must be contiguous int32")
+    _require(norms.dtype == torch.float32 and norms.is_contiguous(),
+             "norms must be contiguous float32")
+    q_i8, alpha = quantize_queries_i8(queries, col_scales)
+    q_w = pack_words(q_i8).contiguous()
+    qn = q_w.shape[0]
+    keys = torch.empty((qn, cap // _TILE), dtype=torch.float32,
+                       device=dec_w.device)
+    lib = _build.load_library("replica_i8_scan")
+    fn = lib.rii_replica_i8_tile_keys
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    nv = cap if n_valid is None else max(0, min(int(n_valid), cap))
+    _build.check(fn(_ptr(q_w), _ptr(alpha), _ptr(dec_w), _ptr(norms),
+                    _ptr(keys), qn, dw, cap, nv, _stream(dec_w.device)),
+                 "replica_i8_tile_keys")
+    replica_i8_tile_keys.launches += 1
+    return keys
+
+
+replica_i8_tile_keys.launches = 0
+
+
+def replica_i8_scan_topk_t(queries, dec_w, col_scales, norms_rep, codes,
+                           codewords, topk, n_valid=None):
+    """Full scan of the int8 replica through kernel F, then the merge over
+    the packed keys to ``k_fetch = min(max(2*topk, topk+8), cap/128)``
+    candidates and their exact float32 ADC re-rank from the uint8
+    codes (the int8 tier always rescores). norms_rep (1, cap) f32, masked
+    with +inf where excluded. Returns (dists (Q, topk) f32, ids (Q, topk)
+    int64, -1 where exhausted)."""
+    keys = replica_i8_tile_keys(queries, dec_w, col_scales, norms_rep[0],
+                                n_valid=n_valid)
+    k_fetch = min(max(2 * topk, topk + 8), keys.shape[1])
+    _, ids_a = _merge_packed_keys(queries, keys, k_fetch)
+    return _exact_rescore_codes(queries, ids_a, codes, codewords,
+                                norms_rep[0], topk)
+
+
+# --------------------------------------------------------------------------- #
+# Kernel G: per-8-slot top-2 over the probed int8 windows
+# --------------------------------------------------------------------------- #
+
+def ivf_i8_window_tile_minima_plain(queries, decoded_g_i8, col_scales, flat,
+                                    dup, vlen, cap_v, pen=None):
+    """Plain twin of kernel G (see csrc/ivf_i8_window.cu for the contract)."""
+    q_i8, alpha = quantize_queries_i8(queries, col_scales)
+    qf = q_i8.float()
+    qn, d = qf.shape
+    rows3 = decoded_g_i8.view(-1, cap_v, d)
+    pen_w = None if pen is None else pen.view(-1, cap_v)
+    vals, args = [], []
+    for s, fl in _window_chunks(flat, cap_v, qn):
+        rows = rows3[fl].float()  # (uc, cap_v, D)
+        decf = rows * col_scales
+        nrm = (decf * decf).sum(-1)
+        scores = _fused_score(nrm[..., None], rows @ qf.T, alpha)
+        scores = _mask_rows(scores, vlen[s:s + fl.shape[0]], pen_w, fl, cap_v)
+        v, a = _top2_plain(scores, fl, dup[s:s + fl.shape[0]] != 0, cap_v)
+        vals.append(v)
+        args.append(a)
+    return torch.cat(vals, 1), torch.cat(args, 1)
+
+
+def ivf_i8_window_tile_minima(queries, decoded_g_i8, col_scales, flat, dup,
+                              vlen, cap_v, pen=None):
+    """Kernel G: per-8-slot top-2 over the probed int8 windows.
+
+    queries (Q, D) f32 (quantized here, as in the JAX package);
+    decoded_g_i8 (total, D) int8 grouped rows; col_scales (D,) f32 their
+    column scales; flat/dup/vlen (U,) int32 (vlen: the entry's window
+    member count); pen optional (total,) f32 (0 keep, +inf excluded) in
+    grouped-slot order. Returns (vmin, amin), each (Q, U*2*cap_v/8): f32
+    int8-class scores without ||q||^2 and int32 grouped slots. CPU tensors
+    take the plain twin; CUDA tensors launch the kernel."""
+    total, d = decoded_g_i8.shape
+    _require(queries.dim() == 2 and queries.shape[1] == d,
+             f"queries must be (Q, {d}), got {tuple(queries.shape)}")
+    _require(col_scales.shape == (d,), f"col_scales must be ({d},)")
+    _require(cap_v % 8 == 0 and total % cap_v == 0,
+             f"cap_v={cap_v} must divide total={total} and be a multiple of 8")
+    _require(flat.dim() == 1 and flat.shape == dup.shape == vlen.shape,
+             "flat/dup/vlen must be (U,)")
+    _require(pen is None or pen.shape == (total,), f"pen must be ({total},)")
+    extra = () if pen is None else (pen,)
+    if _on_cpu(queries, decoded_g_i8, col_scales, flat, dup, vlen, *extra):
+        return ivf_i8_window_tile_minima_plain(queries, decoded_g_i8,
+                                               col_scales, flat, dup, vlen,
+                                               cap_v, pen)
+    _require(decoded_g_i8.dtype == torch.int8 and decoded_g_i8.is_contiguous(),
+             "decoded_g_i8 must be contiguous int8")
+    _require(cap_v <= 1024, "cap_v must be <= 1024 (one thread per row)")
+    _require(flat.dtype == dup.dtype == vlen.dtype == torch.int32,
+             "flat/dup/vlen must be int32")
+    _require(pen is None or (pen.dtype == torch.float32 and pen.is_contiguous()),
+             "pen must be contiguous float32")
+    q_i8, alpha = quantize_queries_i8(queries, col_scales)
+    q_w = pack_words(q_i8).contiguous()
+    scales = col_scales.to(torch.float32).contiguous()
+    flat, dup, vlen = flat.contiguous(), dup.contiguous(), vlen.contiguous()
+    qn, u = q_w.shape[0], flat.shape[0]
+    ncol = u * 2 * (cap_v // 8)
+    vmin = torch.empty((qn, ncol), dtype=torch.float32,
+                       device=decoded_g_i8.device)
+    amin = torch.empty((qn, ncol), dtype=torch.int32, device=decoded_g_i8.device)
+    lib = _build.load_library("ivf_i8_window")
+    fn = lib.rii_ivf_i8_window_top2
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    pen_p = ctypes.c_void_p(None) if pen is None else _ptr(pen)
+    _build.check(fn(_ptr(q_w), _ptr(alpha), _ptr(decoded_g_i8), _ptr(scales),
+                    _ptr(flat), _ptr(dup), _ptr(vlen), pen_p, _ptr(vmin),
+                    _ptr(amin), qn, d, u, cap_v,
+                    _stream(decoded_g_i8.device)), "ivf_i8_window_tile_minima")
+    ivf_i8_window_tile_minima.launches += 1
+    return vmin, amin
+
+
+ivf_i8_window_tile_minima.launches = 0

@@ -7,15 +7,18 @@ batch. Each query's candidates are therefore the union of every bucket the
 batch probed, a superset of its own probes, and duplicate entries are
 masked so returned ids are unique.
 
-Two branches for each window tier, as in the JAX module: the window kernels
-(kernel B over bf16 windows, ``hopper_scan``; kernels D and E over uint8
-code windows, ``hopper_pq``) followed by an exact rescore, and a plain
-chunked branch. Probe selection and every top-k are exact (``torch.topk``).
+Two branches for the bf16 and pq window tiers, as in the JAX module: the
+window kernels (kernel B over bf16 windows, ``hopper_scan``; kernels D and
+E over uint8 code windows, ``hopper_pq``) followed by an exact rescore, and
+a plain chunked branch. The int8 windows always take their kernel (kernel
+G, ``hopper_i8``), as in JAX. Probe selection and every top-k are exact
+(``torch.topk``).
 """
 
 import torch
 
 from rii_tpu_torch.ops.decode import onehot_decode
+from rii_tpu_torch.ops.hopper_i8 import ivf_i8_window_tile_minima
 from rii_tpu_torch.ops.hopper_pq import (
     ivf_dt_window_tile_minima,
     ivf_pq_window_tile_minima,
@@ -253,4 +256,45 @@ def ivf_union_scan_topk_pq(queries, codes_g, norms_g, order_g, codewords,
         return _ids_of(order_g, slot_top, v + qsq[:, None], topk)
     dist, slots = _rescore_grouped_codes(q_all, slot_top, torch.isfinite(v),
                                          codes_g, norms_g, codewords, topk)
+    return _ids_of(order_g, slots, dist, topk)
+
+
+def ivf_union_scan_topk_i8(queries, decoded_g_i8, col_scales, norms_g,
+                           order_g, codes, codewords, centers_dec,
+                           centers_norms, vlen, w, topk, cap_u, nlist_pad,
+                           target_mask=None, recall_target=None,
+                           probe_recall="inherit"):
+    """Union-bucket IVF over int8 windows, the middle memory tier (port of
+    the JAX module's ``ivf_union_scan_topk_i8``).
+
+    decoded_g_i8 (total, D) int8 grouped rows with column scales
+    ``col_scales`` (D,); norms_g (total,) f32, +inf on padding; order_g
+    int32 original ids, -1 on padding; codes (cap, M) uint8 in original
+    order, read through order_g for the rescore; vlen (nlist_pad,) int32
+    member count of each window; target_mask
+    optional (total,) bool, riding as the 0/+inf penalty stream. Kernel G
+    selects ``min(max(2*topk, topk+8), ncols)`` slots at int8 precision;
+    they are re-ranked in exact float32 ADC from the codes.
+
+    Returns (dists (Q, topk) f32 ascending, ids (Q, topk) int64, -1 padded).
+    """
+    q_all = queries.float()
+    pen = None
+    if target_mask is not None:
+        norms_g = torch.where(target_mask, norms_g, torch.full_like(norms_g, _INF))
+        pen = torch.where(target_mask, 0.0, _INF).to(torch.float32)
+    flat, dup = _union(q_all, centers_dec, centers_norms, w, nlist_pad,
+                       recall_target, probe_recall)
+    vmin, amin = ivf_i8_window_tile_minima(q_all, decoded_g_i8, col_scales,
+                                           flat, dup.to(torch.int32),
+                                           vlen[flat.long()], cap_u, pen=pen)
+    # int8 selection reorders near-boundary candidates: overfetch before
+    # the exact rescore, as the JAX module does
+    sel, pos = _smallest(vmin, min(max(2 * topk, topk + 8), vmin.shape[1]))
+    slot_top = torch.gather(amin, 1, pos)
+    # +inf selections (duplicate windows, padding, excluded slots) point at
+    # slots whose codes decode to finite distances: keep them masked
+    dist, slots = _rescore_slots(q_all, slot_top, torch.isfinite(sel),
+                                 order_g, norms_g, codes, codewords, None,
+                                 topk)
     return _ids_of(order_g, slots, dist, topk)

@@ -12,8 +12,6 @@ kernel tiers run where the engine's device is CUDA (the JAX package's "the
 backend is not the CPU"), the bf16 window kernel fires from a 2048-window
 union up, a batch whose union covers half the capacity goes to the linear
 scan, and the replica and windows are held to ``decoded_cache_budget``.
-The int8 tier, whose kernels are not ported, raises ``NotImplementedError``
-naming them.
 
 ``add`` after a cache build scatters the new rows into the live cache in
 O(batch), into the windows' reserved headroom, as the JAX package does; a
@@ -43,13 +41,23 @@ from rii_tpu_torch.ops.decode import (
     codeword_norms,
     onehot_decode,
 )
+from rii_tpu_torch.ops.hopper_i8 import (
+    pack_words,
+    quantize_replica_i8,
+    quantize_rows_i8,
+    replica_i8_scan_topk_t,
+)
 from rii_tpu_torch.ops.hopper_pq import pq_scan_topk_t, prepare_pq_scan_inputs_t
 from rii_tpu_torch.ops.hopper_scan import (
     _TN_MIN_Q,
     prepare_replica_t,
     replica_scan_topk_t,
 )
-from rii_tpu_torch.ops.ivf import ivf_union_scan_topk, ivf_union_scan_topk_pq
+from rii_tpu_torch.ops.ivf import (
+    ivf_union_scan_topk,
+    ivf_union_scan_topk_i8,
+    ivf_union_scan_topk_pq,
+)
 from rii_tpu_torch.ops.scan import (
     linear_scan_topk,
     linear_scan_topk_decoded,
@@ -60,11 +68,6 @@ from rii_tpu_torch.ops.scan import (
 _RECONFIGURE_SAMPLE_SEED = 123  # mirrors std::default_random_engine(123)
 _PQKMEANS_SEED = 0  # mirrors mt19937(0) in the reference's PQk-means
 _PAD_SENTINEL = 1e15  # bf16 value of padding rows in the IVF windows
-
-_MISSING_INT8 = ("the int8 tier is not ported: it needs the int8 replica and "
-                 "window kernels K4-K6 (rii_tpu/ops/pallas_scan.py "
-                 "_replica_i8t_kernel, _replica_i8tn_kernel, "
-                 "_ivf_i8_window_multi_kernel)")
 
 
 def require_dtype(arr, dtype, name):
@@ -453,12 +456,19 @@ class Rii:
         dc["codes_flat"][idx] = codes_d
         dc["norms_flat"][idx] = norms_d
         dec_new = None
-        if "decoded_t" in dc or "decoded_flat" in dc or "decoded_g" in dc:
+        if any(key in dc for key in ("decoded_t", "decoded_flat", "decoded_g",
+                                     "decoded_i8_t", "decoded_g_i8")):
             dec_new = onehot_decode(codes_d, dc["codewords"], torch.bfloat16)
         if "decoded_t" in dc:
             dc["decoded_t"][:, idx] = dec_new.T
         if "decoded_flat" in dc:
             dc["decoded_flat"][idx] = dec_new
+        if "decoded_i8_t" in dc:
+            # requantized with the existing column scales (clipped), as in
+            # the JAX package: the exact rescore absorbs the lost precision
+            # of rows beyond the old column maxima until the next rebuild
+            dc["decoded_i8_t"][:, idx] = pack_words(
+                quantize_rows_i8(dec_new, dc["i8_scales"])).T
         if "codes_t" in dc:
             dc["codes_t"][:, idx] = codes_d.T
 
@@ -470,6 +480,9 @@ class Rii:
             dc["norms_g"][slots] = norms_d[perm]
             if "decoded_g" in dc:
                 dc["decoded_g"][slots] = dec_new[perm]
+            if "decoded_g_i8" in dc:
+                dc["decoded_g_i8"][slots] = quantize_rows_i8(
+                    dec_new[perm], dc["i8_scales_g"])
             if "codes_g" in dc:
                 dc["codes_g"][slots] = codes_d[perm]
             if "vlen_g" in dc:
@@ -595,7 +608,15 @@ class Rii:
         else:
             # mid/large subsets: a masked full scan (+inf norms exclude)
             mask = None if tids is None else self._subset_mask(dc, tids)
-            if "decoded_t" in dc:
+            if "decoded_i8_t" in dc:
+                # the int8 tier: kernel F, always rescored exactly
+                if mask is not None:
+                    norms = torch.where(mask, norms, float("inf"))
+                d, i = replica_i8_scan_topk_t(
+                    qd, dc["decoded_i8_t"], dc["i8_scales"], norms[None, :],
+                    dc["codes_flat"], dc["codewords"], topk,
+                    n_valid=dc["n_dev"])
+            elif "decoded_t" in dc:
                 if mask is not None:
                     norms = torch.where(mask, norms, float("inf"))
                 d, i = replica_scan_topk_t(qd, dc["decoded_t"], norms[None, :],
@@ -641,8 +662,6 @@ class Rii:
             # the union covers most of the database: the contiguous linear
             # scan reads every row faster than the windows would
             return self._query_linear_batch(queries, topk, tids)
-        if use_kernels and dc["windows"] == "int8":
-            raise NotImplementedError(_MISSING_INT8)
         tm = None
         if tids is not None:
             tm = self._subset_mask(dc, tids)[
@@ -661,6 +680,16 @@ class Rii:
                 probe_recall=self.probe_recall,
                 codes=dc["codes_flat"] if rs else None,
                 codewords=dc["codewords"] if rs else None)
+        elif dc["windows"] == "int8":
+            # int8 windows: kernel G (whatever the mode, as in JAX), exact
+            # rescore from the codes through order_g
+            d, i = ivf_union_scan_topk_i8(
+                qd, dc["decoded_g_i8"], dc["i8_scales_g"], dc["norms_g"],
+                dc["order_g"], dc["codes_flat"], dc["codewords"],
+                dc["centers_dec_v"], dc["centers_norms_v"], dc["vlen_g"],
+                w=wv, topk=topk, cap_u=dc["cap_v"],
+                nlist_pad=dc["nlist_v_pad"], target_mask=tm,
+                recall_target=rt, probe_recall=self.probe_recall)
         else:
             # uint8 code windows: kernels D/E on the card, exact rescore
             d, i = ivf_union_scan_topk_pq(
@@ -710,6 +739,32 @@ class Rii:
         """Cost-model threshold: IVF evaluates ~L candidates + nlist coarse
         centers, linear evaluates |S|; crossover at |S| ~= L + nlist."""
         return np.poly1d([1.0, float(self.nlist)])
+
+    # ------------------------------------------------------------------ #
+    # diagnostics
+    # ------------------------------------------------------------------ #
+
+    def memory_breakdown(self):
+        """Device-cache footprint in bytes per entry, and the host's
+        canonical codes and assignments (as ``rii_tpu.Rii.memory_breakdown``;
+        host mirrors of the window layout are left out). ``device_total``
+        counts each storage once: a view shares its base's bytes (the
+        replica's norms are a view of ``norms_flat``)."""
+        out = {"host_codes": self._n * self.M,
+               "host_assignments": self._n * 4}
+        dc = self._ensure_cache() if self._n else {}
+        seen = set()
+        dev = 0
+        for k, v in dc.items():
+            if not isinstance(v, torch.Tensor):
+                continue
+            out[f"device:{k}"] = v.numel() * v.element_size()
+            storage = v.untyped_storage()
+            if storage.data_ptr() not in seen:
+                seen.add(storage.data_ptr())
+                dev += storage.nbytes()
+        out["device_total"] = dev
+        return out
 
     # ------------------------------------------------------------------ #
     # internal state
@@ -803,8 +858,11 @@ class Rii:
         resolved = self._resolve_scan_mode(cap)
         dc["mode"] = resolved
         if resolved == "int8":
-            raise NotImplementedError(_MISSING_INT8)
-        if resolved == "bf16":
+            # the int8 replica in kernel F's layout, (ceil(D/4), cap) words;
+            # its norms are norms_flat itself (the tier needs the kernels)
+            dc["decoded_i8_t"], dc["i8_scales"] = quantize_replica_i8(
+                dc["codes_flat"], dc["codewords"], words_t=True)
+        elif resolved == "bf16":
             decoded = build_decoded_cache(dc["codes_flat"], dc["codewords"])
             if self._use_kernels():
                 # transposed replica (D, cap) for kernel A
@@ -826,7 +884,8 @@ class Rii:
     def _build_windows(self, dc, codes, norms, cw, resolved):
         """The balanced virtual-bucket layout of the union IVF scan, with
         bf16 windows when the replica and windows fit the budget together,
-        else uint8 code windows (int8 when their kernels could hold them)."""
+        else int8 windows where they fit and their kernel runs, else uint8
+        code windows."""
         nlist = self.nlist
         nlist_pad = _pow2_at_least(nlist, 8)
         dec = cw[np.arange(self.M)[None, :], self._centers.astype(np.int64)]
@@ -861,9 +920,14 @@ class Rii:
                            * ul["cap_v"]).astype(np.int64),
         })
         d_dim = self.M * cw.shape[2]
-        # gate the combined footprint of the replica and the windows
-        has_replica = "decoded_flat" in dc or "decoded_t" in dc
-        flat_bytes = dc["cap"] * (d_dim * 2 + 8 * 4) if has_replica else 0
+        # gate the combined footprint of the replica and the windows (the
+        # JAX package's accounting: the replica's bytes plus 32 a row)
+        if "decoded_flat" in dc or "decoded_t" in dc:
+            flat_bytes = dc["cap"] * (d_dim * 2 + 8 * 4)
+        elif "decoded_i8_t" in dc:
+            flat_bytes = dc["cap"] * (d_dim + 8 * 4)
+        else:
+            flat_bytes = 0
         budget = self.decoded_cache_budget
         win_bf16 = (resolved == "bf16"
                     and flat_bytes + ul["total"] * d_dim * 2 <= budget)
@@ -878,11 +942,20 @@ class Rii:
             dec_g[dc["order_g"] < 0] = _PAD_SENTINEL
             dc["decoded_g"] = dec_g
             dc["windows"] = "bf16"
+        elif win_i8:
+            # the grouped decode quantized with its own column scales (over
+            # every slot, padding included, as in JAX); the rescore reads
+            # codes_flat through order_g, so no grouped codes are kept.
+            # Padding is masked by each window's member count (vlen).
+            dc["decoded_g_i8"], dc["i8_scales_g"] = quantize_replica_i8(
+                self._tensor(ul["codes_grouped"]), dc["codewords"])
+            dc["vlen_g"] = self._tensor(ul["vlen"])
+            dc["windows"] = "int8"
         else:
             # uint8 code windows; padding is masked by each window's member
             # count (vlen), as the window kernels read no norms
             dc["codes_g"] = self._tensor(ul["codes_grouped"])
             dc["vlen_g"] = self._tensor(ul["vlen"])
-            dc["windows"] = "int8" if win_i8 else "pq"
+            dc["windows"] = "pq"
             # the constant term of kernel E's per-batch ADC table
             dc["cw_norms"] = codeword_norms(dc["codewords"])

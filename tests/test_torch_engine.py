@@ -25,6 +25,10 @@ from _torch_parity import (assert_assignments_equal_but_near_ties,
 N, D, NLIST = 6000, 64, 40
 EXACT_RTOL = 3e-6
 FAST_RTOL = 3e-2
+# the int8 tier always rescores in exact float32 ADC; the two packages sum
+# the rescore in other orders, and ||x||^2 + ||q||^2 (~40 here) cancel to
+# distances of ~3, so the float32 steps show at ~1e-5
+RESCORE_RTOL = 1e-5
 
 
 @pytest.fixture(scope="module")
@@ -174,18 +178,27 @@ def test_add_after_configure_rebuilds_cache(setup):
 
 @pytest.mark.parametrize("scan_mode,kernel", [("int8", "K4")])
 def test_unported_tiers_raise(setup, scan_mode, kernel):
+    """The tier that raised before its kernels were ported (K4 for the int8
+    replica) now answers as the JAX engine does: the port through kernel
+    F's twin, rii_tpu through Pallas interpret mode, both rescoring
+    exactly."""
+    je = rii_tpu.Rii(setup["jpq"])
     te = Rii(PQ.from_codewords(setup["jpq"].codewords))
-    te.scan_mode = scan_mode
+    je.scan_mode = te.scan_mode = scan_mode
+    je.pallas_interpret = True
     te.force_kernel_routing = True
+    je.add_configure(setup["X"], nlist=NLIST, iter=3)
     te.add_configure(setup["X"], nlist=NLIST, iter=3)
-    with pytest.raises(NotImplementedError, match=kernel):
-        te.query_batch(setup["Q"], topk=5, method="linear")
+    assert "decoded_i8_t" in te._ensure_cache()
+    ij, dj = je.query_batch(setup["Q"], topk=5, method="linear")
+    it, dt = te.query_batch(setup["Q"], topk=5, method="linear")
+    assert_ranked_ids_match(it, dt, ij, dj, rtol=RESCORE_RTOL)
 
 
 def test_ivf_falls_back_to_linear_before_the_window_tier_matters(setup):
-    """A bf16 replica with int8 windows (K6, not ported): an IVF batch whose
-    probe union covers half the capacity goes to the linear scan, as in the
-    JAX engine, instead of raising for the window tier it never reads."""
+    """A bf16 replica with int8 windows: an IVF batch whose probe union
+    covers half the capacity goes to the linear scan, as in the JAX engine,
+    before the window tier is read."""
     budget = 8192 * 160 + 16384 * 64  # the replica fits, bf16 windows do not
     X = setup["X"]
     je = rii_tpu.Rii(setup["jpq"])
@@ -224,18 +237,32 @@ def pq_setup(setup):
     return dict(X=X, je=je, te=te, Q=Q, rng=rng)
 
 
-def test_int8_windows_raise_where_ivf_reads_them(setup, pq_setup):
-    """A bf16 replica with int8 windows (K6, not ported): a batch that stays
-    off the linear scan raises, naming the missing kernels."""
+def test_int8_windows_raise_where_ivf_reads_them(setup, pq_setup, monkeypatch):
+    """A bf16 replica with int8 windows, where the port raised before K6 was
+    ported: a batch that stays off the linear scan now reads the windows
+    through kernel G's twin and answers as the JAX engine does."""
+    import rii_tpu_torch.ops.ivf as TI
+    budget = 32768 * 160 + 51200 * 64
+    je = rii_tpu.Rii(setup["jpq"])
     te = Rii(PQ.from_codewords(setup["jpq"].codewords))
-    te.scan_mode = "bf16"
+    je.scan_mode = te.scan_mode = "bf16"
+    je.decoded_cache_budget = te.decoded_cache_budget = budget
+    je.pallas_interpret = True
     te.force_kernel_routing = True
-    te.decoded_cache_budget = 32768 * 160 + 51200 * 64
+    je.add_configure(pq_setup["X"], nlist=PQ_NLIST, iter=3)
     te.add_configure(pq_setup["X"], nlist=PQ_NLIST, iter=3)
     dc = te._ensure_cache()
     assert "decoded_t" in dc and dc["windows"] == "int8"
-    with pytest.raises(NotImplementedError, match="K4"):
-        te.query_batch(pq_setup["Q"][:8], topk=5, L=50, method="ivf")
+    assert "decoded_g_i8" in je._ensure_cache()
+    calls = []
+    real = TI.ivf_i8_window_tile_minima
+    monkeypatch.setattr(TI, "ivf_i8_window_tile_minima",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    q = pq_setup["Q"][:8]
+    ij, dj = je.query_batch(q, topk=5, L=50, method="ivf")
+    it, dt = te.query_batch(q, topk=5, L=50, method="ivf")
+    assert calls == [1]  # the batch stayed off the linear scan
+    assert_ranked_ids_match(it, dt, ij, dj, rtol=RESCORE_RTOL)
 
 
 @pytest.mark.parametrize("method,subset,qn,L", [
@@ -265,6 +292,136 @@ def test_pq_tier_kernel_routes_match(pq_setup, monkeypatch, method, subset,
     assert (it[:, 0] == ij[:, 0]).all()
     if tids is not None:
         assert np.isin(it, tids).all()
+
+
+@pytest.fixture(scope="module")
+def i8_setup(setup, pq_setup):
+    """The int8 tier on its kernel routes (default budget: the int8 replica
+    and int8 windows) over pq_setup's data, in both packages."""
+    je = rii_tpu.Rii(setup["jpq"])
+    te = Rii(PQ.from_codewords(setup["jpq"].codewords))
+    je.scan_mode = te.scan_mode = "int8"
+    je.pallas_interpret = True
+    te.force_kernel_routing = True
+    je.add_configure(pq_setup["X"], nlist=PQ_NLIST, iter=3)
+    te.add_configure(pq_setup["X"], nlist=PQ_NLIST, iter=3)
+    return dict(pq_setup, je=je, te=te)
+
+
+@pytest.mark.parametrize("method,subset,qn,L", [
+    ("linear", None, 16, None), ("ivf", None, 8, 50),
+    ("linear", 1000, 16, None), ("linear", 5000, 16, None),
+    ("ivf", 5000, 8, 10)])
+def test_int8_tier_kernel_routes_match(i8_setup, monkeypatch, method, subset,
+                                       qn, L):
+    """The int8 tier (the port through kernels F and G's twins, the JAX
+    engine through Pallas interpret mode): linear full scans and subsets
+    above 4096 take the int8 replica, subsets of 4096 or fewer the exact
+    subset scan over the codes, IVF the int8 windows; every route returns
+    exact-ADC distances."""
+    import rii_tpu_torch.ops.hopper_i8 as HI
+    import rii_tpu_torch.ops.ivf as TI
+    import rii_tpu_torch.rii as TR
+    je, te = i8_setup["je"], i8_setup["te"]
+    dc = te._ensure_cache()
+    assert dc["mode"] == "int8" and "decoded_i8_t" in dc
+    assert dc["windows"] == "int8" and "codes_g" not in dc
+    calls = []
+    for mod, name in ((TI, "ivf_i8_window_tile_minima"),
+                      (TR, "replica_i8_scan_topk_t")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name, **k:
+                            calls.append(_n) or _r(*a, **k))
+    before = HI.replica_i8_tile_keys.launches
+    tids = None
+    if subset is not None:
+        tids = np.sort(i8_setup["rng"].choice(PQ_N, subset, replace=False)).astype(np.int64)
+    q = i8_setup["Q"][:qn]
+    ij, dj = je.query_batch(q, topk=5, L=L, method=method, target_ids=tids)
+    it, dt = te.query_batch(q, topk=5, L=L, method=method, target_ids=tids)
+    want = {"ivf": ["ivf_i8_window_tile_minima"],
+            "linear": [] if subset == 1000 else ["replica_i8_scan_topk_t"]}
+    assert calls == want[method]
+    assert HI.replica_i8_tile_keys.launches == before  # CPU: the twin
+    assert_ranked_ids_match(it, dt, ij, dj, rtol=RESCORE_RTOL)
+    if tids is not None:
+        assert np.isin(it, tids).all()
+
+
+def test_int8_windows_hold_what_jax_holds(i8_setup):
+    """The int8 replica and windows equal the JAX engine's bit for bit; the
+    windows keep their own scales and member counts, and no grouped codes
+    (the rescore reads codes_flat through order_g)."""
+    from rii_tpu_torch.ops.hopper_i8 import unpack_words
+    jdc, dc = i8_setup["je"]._ensure_cache(), i8_setup["te"]._ensure_cache()
+    assert "codes_g" not in jdc and "codes_g" not in dc
+    for key in ("i8_scales", "i8_scales_g", "decoded_g_i8", "vlen_g",
+                "order_g"):
+        np.testing.assert_array_equal(dc[key].numpy(), np.asarray(jdc[key]),
+                                      err_msg=key)
+    np.testing.assert_array_equal(
+        unpack_words(dc["decoded_i8_t"].T, D).numpy(),
+        np.asarray(jdc["decoded_i8_t"]).T)
+
+
+def test_int8_window_budget_counts_the_int8_replica(setup):
+    """The window gate counts an int8 replica as cap*(D+32) bytes, as the
+    JAX engine does: with cap*D <= budget < cap*(D+32) + total*D the
+    windows are uint8 codes in both packages (not counting the replica, the
+    port chose int8 windows beyond the budget)."""
+    budget = 800_000  # cap*D = 524288, cap*(D+32) = 786432 at cap 8192
+    je = rii_tpu.Rii(setup["jpq"])
+    te = Rii(PQ.from_codewords(setup["jpq"].codewords))
+    je.scan_mode = te.scan_mode = "int8"
+    je.decoded_cache_budget = te.decoded_cache_budget = budget
+    je.pallas_interpret = True
+    te.force_kernel_routing = True
+    je.add_configure(setup["X"], nlist=NLIST, iter=3)
+    te.add_configure(setup["X"], nlist=NLIST, iter=3)
+    jdc, dc = je._ensure_cache(), te._ensure_cache()
+    total = dc["nlist_v_pad"] * dc["cap_v"]
+    assert dc["cap"] * D <= budget < dc["cap"] * (D + 32) + total * D
+    assert total * D <= budget  # what the old gate would have admitted
+    assert dc["mode"] == "int8" and "decoded_i8_t" in jdc
+    assert dc["windows"] == ("int8" if "decoded_g_i8" in jdc else "pq") == "pq"
+    mem = te.memory_breakdown()
+    assert mem["device:decoded_i8_t"] <= budget
+
+
+@pytest.mark.parametrize("band,scan_mode,budget,replica,windows", [
+    ("int8 replica, pq windows", "int8", 800_000, "decoded_i8_t", "codes_g"),
+    ("bf16 replica, int8 windows", "bf16", 32768 * 160 + 51200 * 64,
+     "decoded_t", "decoded_g_i8"),
+    ("int8 replica, int8 windows", "int8", 2 << 30, "decoded_i8_t",
+     "decoded_g_i8")])
+def test_memory_breakdown_within_budget_at_int8_bands(setup, pq_setup, band,
+                                                      scan_mode, budget,
+                                                      replica, windows):
+    """memory_breakdown reports the device bytes of each cache entry as the
+    JAX engine's does; at each band the replica and the decoded windows
+    stay within decoded_cache_budget (the gate's intent)."""
+    X = setup["X"] if budget == 800_000 else pq_setup["X"]
+    nlist = NLIST if budget == 800_000 else PQ_NLIST
+    je = rii_tpu.Rii(setup["jpq"])
+    te = Rii(PQ.from_codewords(setup["jpq"].codewords))
+    je.scan_mode = te.scan_mode = scan_mode
+    je.decoded_cache_budget = te.decoded_cache_budget = budget
+    je.pallas_interpret = True
+    te.force_kernel_routing = True
+    je.add_configure(X, nlist=nlist, iter=3)
+    te.add_configure(X, nlist=nlist, iter=3)
+    mj, mt = je.memory_breakdown(), te.memory_breakdown()
+    assert mt["host_codes"] == mj["host_codes"]
+    for key in (replica, windows, "codes_flat", "norms_flat", "order_g",
+                "norms_g"):
+        assert mt[f"device:{key}"] == mj[f"device:{key}"], key
+    held = mt[f"device:{replica}"]
+    if windows != "codes_g":
+        held += mt[f"device:{windows}"]
+    assert held <= budget, band
+    tensors = [v for v in te._dc.values() if isinstance(v, torch.Tensor)]
+    assert mt["device_total"] <= sum(v.numel() * v.element_size() for v in tensors)
+    assert mt["device_total"] >= held
 
 
 def test_cuda_without_a_card_raises(setup, monkeypatch):

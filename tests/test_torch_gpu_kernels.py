@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from rii_tpu_torch.ops import hopper_i8 as HI
 from rii_tpu_torch.ops import hopper_pq as HP
 from rii_tpu_torch.ops import hopper_scan as H
 
@@ -133,6 +134,70 @@ def test_ivf_pq_windows_match_twin(cuda, kernel, qn, ds, cap_v, with_pen):
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     v_t, a_t = twin(q, codes_g, cw, flat, dup, vl, cap_v, pen=pen)
+    assert_keys_match(*_np(v_k, a_k, v_t, a_t))
+    cols = np.repeat(dup.cpu().numpy() != 0, 2 * cap_v // 8)
+    assert (a_k.cpu().numpy()[:, cols] == 0).all()
+
+
+def _i8_rows(g, n, d, cuda):
+    """Random int8 rows, column scales below 0.1/127 and the dequantized
+    rows' squared norms (below 1.3 at D=128)."""
+    rows = torch.randint(-127, 128, (n, d), generator=g, device=cuda,
+                         dtype=torch.int32).to(torch.int8)
+    scales = torch.rand(d, generator=g, device=cuda) * (0.1 / 127) + 1e-5
+    norms = ((rows.float() * scales) ** 2).sum(1)
+    return rows, scales, norms
+
+
+@pytest.mark.parametrize("qn,d", [(8, 128), (20, 70), (100, 128)])
+def test_replica_i8_tile_keys_matches_twin(cuda, qn, d):
+    """Kernel F at each query tile (8, 32, 64) and at a D that is not a
+    multiple of 4; the last 20000 slots are padding that n_valid skips.
+    The cross term is exact, so the keys are bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(qn)
+    cap = 1 << 16
+    rows, scales, norms = _i8_rows(g, cap, d, cuda)
+    norms[-20000:] = float("inf")
+    dec_w = HI.pack_words(rows).T.contiguous()
+    q = torch.rand((qn, d), generator=g, device=cuda) * 0.1
+    before = HI.replica_i8_tile_keys.launches
+    k = HI.replica_i8_tile_keys(q, dec_w, scales, norms, n_valid=cap - 20000)
+    torch.cuda.synchronize()
+    assert HI.replica_i8_tile_keys.launches == before + 1
+    t = HI.replica_i8_tile_keys_plain(q, dec_w, scales, norms)
+    v_k, l_k = H._unpack(k, 0x7F)
+    v_t, l_t = H._unpack(t, 0x7F)
+    assert_keys_match(*_np(v_k, l_k, v_t, l_t))
+    assert torch.equal(k.view(torch.int32), t.view(torch.int32))
+
+
+@pytest.mark.parametrize("qn,d,cap_v,with_pen", [
+    (70, 128, 256, True), (33, 30, 40, False), (8, 64, 256, True)])
+def test_ivf_i8_windows_match_twin(cuda, qn, d, cap_v, with_pen):
+    """Kernel G with duplicates, vlen padding and the pen stream; D=30
+    takes the byte-wise staging, ragged Q and cap_v the kernel's edges."""
+    g = torch.Generator(device=cuda).manual_seed(qn)
+    nwin, u = 30, 50
+    rows, scales, _ = _i8_rows(g, nwin * cap_v, d, cuda)
+    vlen_w = torch.randint(0, cap_v + 1, (nwin,), generator=g, device=cuda,
+                           dtype=torch.int32)
+    flat = torch.sort(torch.randint(0, nwin, (u,), generator=g, device=cuda,
+                                    dtype=torch.int32)).values
+    dup = torch.cat([torch.zeros(1, dtype=torch.int32, device=cuda),
+                     (flat[1:] == flat[:-1]).to(torch.int32)])
+    pen = None
+    if with_pen:
+        pen = torch.where(torch.rand(nwin * cap_v, generator=g, device=cuda) < 0.3,
+                          float("inf"), 0.0).to(torch.float32)
+    q = torch.rand((qn, d), generator=g, device=cuda) * 0.1
+    vl = vlen_w[flat.long()]
+    before = HI.ivf_i8_window_tile_minima.launches
+    v_k, a_k = HI.ivf_i8_window_tile_minima(q, rows, scales, flat, dup, vl,
+                                            cap_v, pen=pen)
+    torch.cuda.synchronize()
+    assert HI.ivf_i8_window_tile_minima.launches == before + 1
+    v_t, a_t = HI.ivf_i8_window_tile_minima_plain(q, rows, scales, flat, dup,
+                                                  vl, cap_v, pen=pen)
     assert_keys_match(*_np(v_k, a_k, v_t, a_t))
     cols = np.repeat(dup.cpu().numpy() != 0, 2 * cap_v // 8)
     assert (a_k.cpu().numpy()[:, cols] == 0).all()

@@ -1,11 +1,17 @@
 """O(batch) growth and the other mutations of rii_tpu_torch.Rii, the cases
-of tests/test_growth.py at the bf16 and pq tiers.
+of tests/test_growth.py at the bf16, pq and int8 tiers.
 
 Each tier runs on its kernel route (``force_kernel_routing``: the
-transposed bf16 replica of kernel A, the transposed codes of kernel C), so
-the scatters write the caches the card uses. Where the JAX engine is the
+transposed bf16 replica of kernel A, the transposed codes of kernel C, the
+int8 replica of kernel F with the int8 windows of kernel G), so the
+scatters write the caches the card uses. Where the JAX engine is the
 comparison it runs the same tier through Pallas interpret mode, and results
-agree in the bf16 class (3e-2) with equal nearest neighbours."""
+agree in the bf16 class (3e-2) with equal nearest neighbours.
+
+The cases that query IVF in exact mode (a one-query union stays off the
+linear scan only unpadded) build the int8 cache on the kernel route first
+and then turn exact mode on: the int8 tier exists only there, and the cache
+keeps its windows (as in the JAX engine)."""
 
 import numpy as np
 import pytest
@@ -13,10 +19,12 @@ import torch
 
 import rii_tpu
 from rii_tpu_torch import PQ, Rii
+from rii_tpu_torch.ops.decode import onehot_decode
+from rii_tpu_torch.ops.hopper_i8 import quantize_rows_i8
 
 D = 32
 FAST_RTOL = 3e-2
-TIERS = {"bf16": "decoded_t", "pq": "codes_t"}
+TIERS = {"bf16": "decoded_t", "pq": "codes_t", "int8": "decoded_i8_t"}
 
 
 @pytest.fixture(scope="module")
@@ -79,6 +87,12 @@ def test_incremental_add_keeps_cache_and_matches_rebuild(cw, tier):
     # the windows hold every id once (the rebuild lays them out anew)
     og = e._dc["order_g"]
     assert sorted(og[og >= 0].tolist()) == list(range(3200))
+    if "decoded_g_i8" in e._dc:  # each id's window row: its quantized decode
+        live = og[og >= 0].long()
+        dec = onehot_decode(e._dc["codes_flat"][live], e._dc["codewords"],
+                            torch.bfloat16)
+        assert torch.equal(e._dc["decoded_g_i8"][og >= 0],
+                           quantize_rows_i8(dec, e._dc["i8_scales_g"]))
     assert sum(len(p) for p in e.posting_lists) == 3200
 
     je = _jax_engine(cw, tier)
@@ -96,9 +110,12 @@ def test_incremental_add_finds_new_ids_through_ivf(cw, tier):
     the linear scan finds them (exact mode: Q is not padded, so a one-query
     union of 4 windows is under half the capacity)."""
     X1, X2 = _data(22, 3000, 200)
-    e = _engine(cw, tier, exact=True)
+    e = _engine(cw, tier, exact=tier != "int8")
     e.add_configure(X1, nlist=40)
-    e._ensure_cache()
+    dc = e._ensure_cache()
+    if tier == "int8":  # the add scatters into the int8 windows
+        assert dc["windows"] == "int8"
+    e.topk_recall = None
     e.add(X2)
     assert e._dc is not None
     dec = e.fine_quantizer.decode(e.codes[3000:3008])  # at distance 0
@@ -123,9 +140,10 @@ def test_incremental_add_overflow_falls_back_to_rebuild(cw, tier):
 @pytest.mark.parametrize("tier", list(TIERS))
 def test_add_without_update_is_invisible_to_ivf_until_reconfigure(cw, tier):
     X1, X2 = _data(24, 3000, 100)
-    e = _engine(cw, tier, exact=True)
+    e = _engine(cw, tier, exact=tier != "int8")
     e.add_configure(X1, nlist=40)
     e._ensure_cache()
+    e.topk_recall = None
     e.add(X2, update_posting_lists=False)
     assert e._dc is not None  # a linear-only scatter keeps the cache
     assert 3005 in e.query(X2[5], topk=3, method="linear")[0]
@@ -180,7 +198,7 @@ def test_reserve_scales_window_headroom(cw, tier):
     e.add(X2, update_posting_lists=True)
     assert e._dc is not None
     assert int(e._dc["v_counts"].sum()) == 2900
-    if tier == "pq":  # the code windows' member counts follow
+    if tier != "bf16":  # the pq and int8 windows' member counts follow
         vl = e._dc["vlen_g"].numpy()
         assert vl.sum() == 2900 and (vl <= e._dc["cap_v"]).all()
 
