@@ -11,7 +11,10 @@ Phases, each of which must pass (no exception is caught):
    one process per source, all started together.
 3. Kernel against twin: each kernel against its plain PyTorch twin on the
    card, at the main path's shapes, with the CPU tests' tolerances, timed
-   with CUDA events (median of 7).
+   with CUDA events (median of 7), beside its bound (the larger of its
+   bytes over 3.35 TB/s and its operations over the dense peak of their
+   type) and, for kernels A, F, H and I, the time of one PyTorch call that
+   computes the scores' product (not the tile reduce).
 4. Small reference: a CUDA engine against a CPU engine on the same codes.
 5. Engine: the bf16 path through the public API at a SIFT-shaped config
    (N=2,000,000, D=128, M=32, Ks=256, nlist=1000, topk=10): PQ fit,
@@ -20,6 +23,17 @@ Phases, each of which must pass (no exception is caught):
    kernel) and at L=5000 in exact mode, one subset IVF query with
    |S|=100k, recall against exact float32 ground truth, and the launch
    counts of kernels A and B during this phase.
+5b. Engine, the route to kernel H: a second engine over phase 5's codes,
+   centers and assignments, whose cache is built by a first query in exact
+   mode (topk_recall=None: the row-major replica), then set to
+   topk_recall=0.99: linear query_batch at Q=1024 and 128 and a subset of
+   1,000,000 ids, each batch launching kernel H, recall@10 >= 0.99 against
+   phase 5's ground truth; one IVF pass on the same cache (kernel B).
+5c. Ops: rii_tpu_torch.benchmarks.micro_scan.run on 2^20 of phase 5's
+   codes at Q=128 and 1024: replica_scan_topk (kernel H),
+   replica_i8_scan_topk (I), pq_scan_topk (J, exact and packed) and the
+   plain linear_scan_topk, recall against exact ADC ground truth, kernel
+   I's distances exact ADC.
 6. Engine, pq tier: the SIFT1B-shape lifecycle (the reference's billion-
    scale config M=8, Ks=256, D=128, nlist=31623 on 2^25 synthetic codes, as
    benchmarks/sift1b_shape.py runs it): add_codes ingest, reconfigure,
@@ -62,10 +76,34 @@ TOL_RTOL = 1e-5  # key values: the CPU tests' tolerance
 TOL_ATOL = 1e-5
 SLOT_AGREE = 0.99  # share of tiles whose slot must agree; the rest are ties
 DIST_RTOL_FAST = 3e-2  # bf16 selection class, as in the CPU engine tests
+# NVIDIA H100 SXM data sheet: HBM3 rate and dense tensor-core peaks
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def bound(nbytes, ops, kind):
+    """The least time the card could take: the larger of ``nbytes`` over
+    the memory rate and ``ops`` (2 per multiply-add of the scores' product,
+    counted over the rows this run's data needs) over the peak of ``kind``.
+    Returns the record's ``bound_ms`` and ``bound_by``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def at_q(fields, qn):
+    """A record's fields for a second shape, keyed with the suffix _q<Q>."""
+    return {f"{k}_q{qn}": v for k, v in fields.items()}
+
+
+def live(norms):
+    """Slots whose norm is finite: the rows a scan has to score."""
+    return int(torch.isfinite(norms).sum())
 
 
 def cuda_ms(fn, reps=7):
@@ -103,7 +141,7 @@ def compare_keys(name, v_k, s_k, v_t, s_t):
 
 
 def kernel_wrappers():
-    """The seven kernels' wrappers by the names the JSON record uses."""
+    """The ten kernels' wrappers (A-J) by the names the JSON record uses."""
     from rii_tpu_torch.ops import hopper_i8 as HI
     from rii_tpu_torch.ops import hopper_pq as HP
     from rii_tpu_torch.ops import hopper_scan as H
@@ -113,7 +151,10 @@ def kernel_wrappers():
             "ivf_pq_window_top2": HP.ivf_pq_window_tile_minima,
             "ivf_dt_window_top2": HP.ivf_dt_window_tile_minima,
             "replica_i8_tile_keys": HI.replica_i8_tile_keys,
-            "ivf_i8_window_top2": HI.ivf_i8_window_tile_minima}
+            "ivf_i8_window_top2": HI.ivf_i8_window_tile_minima,
+            "replica_scan_tile_minima": H.replica_scan_tile_minima,
+            "replica_i8_scan_tile_minima": HI.replica_i8_scan_tile_minima,
+            "pq_scan_tile_minima": HP.pq_scan_tile_minima}
 
 
 def reset_launch_counts():
@@ -137,7 +178,7 @@ def phase_card():
 def phase_build():
     from rii_tpu_torch.ops import _build
     names = ("replica_scan", "ivf_window", "pq_scan", "ivf_pq_window",
-             "replica_i8_scan", "ivf_i8_window")
+             "replica_i8_scan", "ivf_i8_window", "rowmajor_scan")
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(lambda nm: _build.load_library(nm, verbose=True), names))
@@ -158,9 +199,9 @@ def phase_kernels(dev):
     dec_t = (torch.rand((d, cap), generator=g, device=dev) * 0.08).to(torch.bfloat16)
     norms = (dec_t.float() ** 2).sum(0)
     norms[-1000:] = float("inf")  # padding slots
-    ms, plain_ms, errs = {}, {}, []
+    ms, plain_ms, errs, qs = {}, {}, [], {}
     for qn in (128, 1024):
-        q = torch.rand((qn, d), generator=g, device=dev) * 0.08
+        q = qs[qn] = torch.rand((qn, d), generator=g, device=dev) * 0.08
         keys_k = H.replica_tile_keys(q, dec_t, norms)
         keys_t = H.replica_tile_keys_plain(q, dec_t, norms)
         torch.cuda.synchronize()
@@ -170,14 +211,26 @@ def phase_kernels(dev):
         ms[qn] = cuda_ms(lambda: H.replica_tile_keys(q, dec_t, norms))
         plain_ms[qn] = cuda_ms(lambda: H.replica_tile_keys_plain(q, dec_t, norms))
         log(f"  kernel A Q={qn} cap={cap}: kernel {ms[qn]:.3f} ms, plain {plain_ms[qn]:.3f} ms")
+    nl, lib = live(norms), {}
+    for qn in (128, 1024):
+        q16 = qs[qn].to(torch.bfloat16)
+        lib[qn] = cuda_ms(lambda: torch.matmul(q16, dec_t))
+        log(f"  torch.matmul bf16 ({qn}, {d}) x ({d}, {cap}): {lib[qn]:.3f} ms")
+
+    def a_bound(qn):
+        return bound(nl * d * 2 + cap * 4 + qn * d * 2 + qn * (cap // 128) * 4,
+                     2 * qn * nl * d, "bf16")
+
     records.append({"name": "replica_tile_keys", "route": "cuda",
                     "source": "rii_tpu_torch/csrc/replica_scan.cu",
                     "replaces": "rii_tpu/ops/pallas_scan.py:244 _replica_t_kernel, "
                                 ":342 _replica_tn_kernel",
                     "max_abs_err": max(errs), "ms": ms[1024],
                     "plain_ms": plain_ms[1024], "ms_q128": ms[128],
-                    "plain_ms_q128": plain_ms[128], "cap": cap})
-    del dec_t, norms
+                    "plain_ms_q128": plain_ms[128], "cap": cap, "Q": 1024,
+                    **a_bound(1024), "library_ms": lib[1024],
+                    **at_q(a_bound(128), 128), "library_ms_q128": lib[128]})
+    del dec_t, norms, q16, qs
 
     cap_v, nwin, qn, u = 256, 10240, 32, 2048
     total = nwin * cap_v
@@ -201,15 +254,20 @@ def phase_kernels(dev):
     plain_b = cuda_ms(lambda: H.ivf_window_tile_minima_plain(q, dec_g, flat, dup, cap_v))
     log(f"  kernel B U={u} Q={qn} ({int(dup.sum())} duplicates): kernel {ms_b:.3f} ms, "
         f"plain {plain_b:.3f} ms")
+    rows = int((dup == 0).sum()) * cap_v  # a duplicate entry reads nothing
     records.append({"name": "ivf_window_top2", "route": "cuda",
                     "source": "rii_tpu_torch/csrc/ivf_window.cu",
                     "replaces": "rii_tpu/ops/pallas_scan.py:1076 _ivf_window_multi_kernel, "
                                 ":1037 _ivf_window_kernel",
                     "max_abs_err": max(errs), "ms": ms_b, "plain_ms": plain_b,
-                    "U": u, "Q": qn})
+                    "U": u, "Q": qn,
+                    **bound(rows * d * 2 + qn * d * 2 + u * 8 + qn * u * 2 * (cap_v // 8) * 8,
+                            2 * qn * rows * d, "bf16"),
+                    "library_ms": None})
     del dec_g, pen
     records += phase_kernels_pq(dev, g)
     records += phase_kernels_i8(dev, g)
+    records += phase_kernels_rowmajor(dev, g)
     return records
 
 
@@ -258,12 +316,20 @@ def phase_kernels_pq(dev, g):
         plain_ms[qn] = cuda_ms(lambda: HP.pq_tile_keys_plain(q, codes_t, norms, cw))
         log(f"  kernel C Q={qn} cap={cap} n_valid={n_valid}: kernel {ms[qn]:.3f} ms, "
             f"plain {plain_ms[qn]:.3f} ms")
+    nl = live(norms)
+
+    def c_bound(qn):
+        return bound(nl * m + cap * 4 + m * ks * ds * 2 + qn * d * 2 + qn * (cap // 128) * 4,
+                     2 * qn * nl * d, "bf16")
+
     records.append({"name": "pq_tile_keys", "route": "cuda",
                     "source": "rii_tpu_torch/csrc/pq_scan.cu",
                     "replaces": "rii_tpu/ops/pallas_scan.py:856 _pq_t_kernel",
                     "max_abs_err": max(errs), "ms": ms[1024],
                     "plain_ms": plain_ms[1024], "ms_q128": ms[128],
-                    "plain_ms_q128": plain_ms[128], "cap": cap, "n_valid": n_valid})
+                    "plain_ms_q128": plain_ms[128], "cap": cap, "n_valid": n_valid,
+                    "Q": 1024, **c_bound(1024), "library_ms": None,
+                    **at_q(c_bound(128), 128)})
     del codes_t, norms
 
     cap_v, nwin, wv = 256, 191_000, 32
@@ -297,18 +363,26 @@ def phase_kernels_pq(dev, g):
                     v_k, a_k, v_t, a_t))
             t_k = cuda_ms(lambda: fn(q, codes_g, cw, flat, dup, vl, cap_v))
             t_t = cuda_ms(lambda: twin(q, codes_g, cw, flat, dup, vl, cap_v))
-            times[qn] = (t_k, t_t, u)
+            rows = int(vl[dup == 0].sum())  # live rows of the distinct entries
+            times[qn] = (t_k, t_t, u, rows)
             log(f"  {name} U={u} Q={qn}: kernel {t_k:.3f} ms, plain {t_t:.3f} ms")
+        def w_bound(qn):
+            _, _, u, rows = times[qn]
+            return bound(rows * m + m * ks * ds * 2 + qn * d * 2 + u * 12
+                         + qn * u * 2 * (cap_v // 8) * 8, 2 * qn * rows * d, "bf16")
+
         q_main = qns[-1]
+        t_k, t_t, u, rows = times[q_main]
         rec = {"name": name, "route": "cuda",
                "source": "rii_tpu_torch/csrc/ivf_pq_window.cu",
                "replaces": ("rii_tpu/ops/pallas_scan.py:1556 _ivf_dt_window_kernel"
                             if name == "ivf_dt_window_top2" else
                             "rii_tpu/ops/pallas_scan.py:1261 _ivf_pq_window_kernel"),
-               "max_abs_err": max(errs), "ms": times[q_main][0],
-               "plain_ms": times[q_main][1], "U": times[q_main][2], "Q": q_main}
+               "max_abs_err": max(errs), "ms": t_k, "plain_ms": t_t, "U": u, "Q": q_main,
+               **w_bound(q_main), "library_ms": None}
         for qn in qns[:-1]:
             rec[f"ms_q{qn}"], rec[f"plain_ms_q{qn}"] = times[qn][:2]
+            rec.update(at_q(w_bound(qn), qn))
         records.append(rec)
     return records
 
@@ -335,17 +409,19 @@ def phase_kernels_i8(dev, g):
 
     cap, n_valid = 1 << 24, 10_100_000
     dec_w = torch.empty((d // 4, cap), dtype=torch.int32, device=dev)
+    rows_all = torch.empty((cap, d), dtype=torch.int8, device=dev)  # for _int_mm
     norms = torch.empty(cap, device=dev)
     for s0 in range(0, cap, 1 << 22):
         rows, nr = rows_of(1 << 22)
         dec_w[:, s0:s0 + (1 << 22)] = HI.pack_words(rows).T
+        rows_all[s0:s0 + (1 << 22)] = rows
         norms[s0:s0 + (1 << 22)] = nr
     del rows, nr
     norms[n_valid:] = float("inf")  # padding slots
     norms[n_valid - 5000:n_valid - 3000] = float("inf")  # excluded slots
-    ms, plain_ms, errs = {}, {}, []
+    ms, plain_ms, errs, qs = {}, {}, [], {}
     for qn in (128, 1024):
-        q = torch.rand((qn, d), generator=g, device=dev) * 0.1
+        q = qs[qn] = torch.rand((qn, d), generator=g, device=dev) * 0.1
         keys_k = HI.replica_i8_tile_keys(q, dec_w, scales, norms, n_valid=n_valid)
         keys_t = HI.replica_i8_tile_keys_plain(q, dec_w, scales, norms)
         torch.cuda.synchronize()
@@ -361,14 +437,26 @@ def phase_kernels_i8(dev, g):
         plain_ms[qn] = cuda_ms(lambda: HI.replica_i8_tile_keys_plain(q, dec_w, scales, norms))
         log(f"  kernel F Q={qn} cap={cap} n_valid={n_valid}: kernel {ms[qn]:.3f} ms, "
             f"plain {plain_ms[qn]:.3f} ms")
+    # the record's main shape is Q=128: at Q=1024 the product's int32
+    # output alone would take 64 GiB
+    q_i8, _ = HI.quantize_queries_i8(qs[128], scales)
+    lib_ms = cuda_ms(lambda: torch._int_mm(q_i8, rows_all.T))
+    log(f"  torch._int_mm (128, {d}) x ({d}, {cap}): {lib_ms:.3f} ms")
+    nl = live(norms)
+
+    def f_bound(qn):
+        return bound(nl * d + cap * 4 + qn * d + qn * (cap // 128) * 4, 2 * qn * nl * d, "int8")
+
     records.append({"name": "replica_i8_tile_keys", "route": "cuda",
                     "source": "rii_tpu_torch/csrc/replica_i8_scan.cu",
                     "replaces": "rii_tpu/ops/pallas_scan.py:538 _replica_i8t_kernel, "
                                 ":559 _replica_i8tn_kernel",
-                    "max_abs_err": max(errs), "ms": ms[1024],
-                    "plain_ms": plain_ms[1024], "ms_q128": ms[128],
-                    "plain_ms_q128": plain_ms[128], "cap": cap, "n_valid": n_valid})
-    del dec_w, norms
+                    "max_abs_err": max(errs), "ms": ms[128],
+                    "plain_ms": plain_ms[128], "ms_q1024": ms[1024],
+                    "plain_ms_q1024": plain_ms[1024], "cap": cap, "n_valid": n_valid,
+                    "Q": 128, **f_bound(128), "library_ms": lib_ms,
+                    **at_q(f_bound(1024), 1024)})
+    del dec_w, norms, rows_all, q_i8
 
     cap_v, nwin, wv = 256, 20_480, 64
     dec_g, _ = rows_of(nwin * cap_v)
@@ -398,15 +486,146 @@ def phase_kernels_i8(dev, g):
                                                            vl, cap_v))
         t_t = cuda_ms(lambda: HI.ivf_i8_window_tile_minima_plain(q, dec_g, scales, flat,
                                                                  dup, vl, cap_v))
-        times[qn] = (t_k, t_t, u)
+        times[qn] = (t_k, t_t, u, int(vl[dup == 0].sum()))
         log(f"  kernel G U={u} Q={qn}: kernel {t_k:.3f} ms, plain {t_t:.3f} ms")
+    def g_bound(qn):
+        _, _, u, rows = times[qn]
+        return bound(rows * d + qn * d + d * 4 + u * 12 + qn * u * 2 * (cap_v // 8) * 8,
+                     2 * qn * rows * d, "int8")
+
+    t_k, t_t, u, rows = times[64]
     records.append({"name": "ivf_i8_window_top2", "route": "cuda",
                     "source": "rii_tpu_torch/csrc/ivf_i8_window.cu",
                     "replaces": "rii_tpu/ops/pallas_scan.py:1389 "
                                 "_ivf_i8_window_multi_kernel, :1354 _ivf_i8_window_kernel",
-                    "max_abs_err": max(errs), "ms": times[64][0], "plain_ms": times[64][1],
-                    "U": times[64][2], "Q": 64, "ms_q8": times[8][0],
-                    "plain_ms_q8": times[8][1]})
+                    "max_abs_err": max(errs), "ms": t_k, "plain_ms": t_t,
+                    "U": u, "Q": 64, "ms_q8": times[8][0],
+                    "plain_ms_q8": times[8][1], **g_bound(64), "library_ms": None,
+                    **at_q(g_bound(8), 8)})
+    return records
+
+
+def phase_kernels_rowmajor(dev, g):
+    """Kernels H, I and J against their twins at D=128. H at the engine's
+    shape (cap 2^21, Q=128 and 1024) in both reduces; I and J at the ops
+    shape (cap 2^20, Q=128 and 1024; J at M=32, Ks=256), J in both
+    reduces. The last 1000 slots hold +inf norms (padding). Inputs are
+    scaled so that scores stay below 2 in magnitude, as for kernel A;
+    kernel I and its twin agree bit for bit."""
+    from rii_tpu_torch.ops import hopper_i8 as HI
+    from rii_tpu_torch.ops import hopper_pq as HP
+    from rii_tpu_torch.ops import hopper_scan as H
+    d, records = 128, []
+
+    def measure(label, fn, twin, args, modes, scale):
+        """Compare and time fn against twin at Q=128 and 1024 for each
+        reduce of ``modes``; returns ({(mode, Q): ms}, {(mode, Q): twin ms},
+        max error, {Q: queries})."""
+        ms, plain, errs, qs = {}, {}, [], {}
+        for qn in (128, 1024):
+            q = qs[qn] = torch.rand((qn, d), generator=g, device=dev) * scale
+            for mode in modes:
+                kw = {} if mode is None else {"packed": mode == "packed"}
+                v_k, a_k = fn(q, *args, **kw)
+                v_t, a_t = twin(q, *args, **kw)
+                torch.cuda.synchronize()
+                errs.append(compare_keys(f"{label} Q={qn} {mode or ''}", v_k, a_k, v_t, a_t))
+                if fn is HI.replica_i8_scan_tile_minima and not (
+                        torch.equal(v_k.view(torch.int32), v_t.view(torch.int32))
+                        and torch.equal(a_k, a_t)):
+                    raise AssertionError(f"{label} Q={qn}: not bit-equal to the twin")
+                del v_k, a_k, v_t, a_t
+                ms[mode, qn] = cuda_ms(lambda: fn(q, *args, **kw))
+                plain[mode, qn] = cuda_ms(lambda: twin(q, *args, **kw))
+                log(f"  {label} Q={qn} {mode or ''}: kernel {ms[mode, qn]:.3f} ms, "
+                    f"plain {plain[mode, qn]:.3f} ms")
+        return ms, plain, max(errs), qs
+
+    # H: the engine's row-major replica
+    cap = 1 << 21
+    dec = (torch.rand((cap, d), generator=g, device=dev) * 0.08).to(torch.bfloat16)
+    norms = (dec.float() ** 2).sum(1, keepdim=True)
+    norms[-1000:] = float("inf")
+    ms, plain, err, qs = measure("kernel H", H.replica_scan_tile_minima,
+                                 H.replica_scan_tile_minima_plain, (dec, norms),
+                                 ("packed", "exact"), 0.08)
+    nl, lib = live(norms), {}
+    for qn in (128, 1024):
+        q16 = qs[qn].to(torch.bfloat16)
+        lib[qn] = cuda_ms(lambda: torch.matmul(q16, dec.T))
+        log(f"  torch.matmul bf16 ({qn}, {d}) x ({d}, {cap}): {lib[qn]:.3f} ms")
+
+    def h_bound(qn):
+        return bound(nl * d * 2 + cap * 4 + qn * d * 2 + qn * (cap // 128) * 8,
+                     2 * qn * nl * d, "bf16")
+
+    records.append({"name": "replica_scan_tile_minima", "route": "cuda",
+                    "source": "rii_tpu_torch/csrc/rowmajor_scan.cu",
+                    "replaces": "rii_tpu/ops/pallas_scan.py:128 _replica_scan_kernel",
+                    "max_abs_err": err, "ms": ms["packed", 1024],
+                    "plain_ms": plain["packed", 1024], "ms_q128": ms["packed", 128],
+                    "plain_ms_q128": plain["packed", 128], "ms_exact": ms["exact", 1024],
+                    "plain_ms_exact": plain["exact", 1024], "cap": cap, "Q": 1024,
+                    **h_bound(1024), "library_ms": lib[1024],
+                    **at_q(h_bound(128), 128), "library_ms_q128": lib[128]})
+    del dec, norms, q16, qs
+
+    # I: the ops-level int8 replica
+    cap = 1 << 20
+    rows = torch.randint(-127, 128, (cap, d), generator=g, device=dev,
+                         dtype=torch.int32).to(torch.int8)
+    scales = torch.rand(d, generator=g, device=dev) * (0.1 / 127) + 1e-5
+    norms = ((rows.float() * scales) ** 2).sum(1, keepdim=True)
+    norms[-1000:] = float("inf")
+    ms, plain, err, qs = measure("kernel I", HI.replica_i8_scan_tile_minima,
+                                 HI.replica_i8_scan_tile_minima_plain,
+                                 (rows, scales, norms), (None,), 0.1)
+    nl, lib = live(norms), {}
+    for qn in (128, 1024):
+        q_i8, _ = HI.quantize_queries_i8(qs[qn], scales)
+        lib[qn] = cuda_ms(lambda: torch._int_mm(q_i8, rows.T))
+        log(f"  torch._int_mm ({qn}, {d}) x ({d}, {cap}): {lib[qn]:.3f} ms")
+
+    def i_bound(qn):
+        return bound(nl * d + cap * 4 + qn * d + qn * 4 + qn * (cap // 128) * 8,
+                     2 * qn * nl * d, "int8")
+
+    records.append({"name": "replica_i8_scan_tile_minima", "route": "cuda",
+                    "source": "rii_tpu_torch/csrc/rowmajor_scan.cu",
+                    "replaces": "rii_tpu/ops/pallas_scan.py:669 _replica_i8_kernel",
+                    "max_abs_err": err, "ms": ms[None, 1024], "plain_ms": plain[None, 1024],
+                    "ms_q128": ms[None, 128], "plain_ms_q128": plain[None, 128],
+                    "cap": cap, "Q": 1024, **i_bound(1024), "library_ms": lib[1024],
+                    **at_q(i_bound(128), 128), "library_ms_q128": lib[128]})
+    del rows, norms, q_i8, qs
+
+    # J: the ops-level pq scan over row-major codes
+    m, ks, ds = 32, 256, 4
+    cw = torch.rand((m, ks, ds), generator=g, device=dev) * 0.05
+    codes = torch.randint(0, ks, (cap, m), generator=g, device=dev, dtype=torch.uint8)
+    cwp = HP.build_padded_codewords(cw.cpu().numpy(), device=dev)
+    dec = cw.to(torch.bfloat16).float()[torch.arange(m, device=dev), codes.long()]
+    norms = (dec.reshape(cap, -1) ** 2).sum(1, keepdim=True)
+    del dec
+    norms[-1000:] = float("inf")
+    ms, plain, err, _ = measure("kernel J", HP.pq_scan_tile_minima,
+                                HP.pq_scan_tile_minima_plain, (codes, norms, cwp),
+                                ("exact", "packed"), 0.08)
+    nl = live(norms)
+
+    def j_bound(qn):
+        return bound(nl * m + cap * 4 + m * ks * ds * 2 + qn * d * 2 + qn * (cap // 128) * 8,
+                     2 * qn * nl * d, "bf16")
+
+    records.append({"name": "pq_scan_tile_minima", "route": "cuda",
+                    "source": "rii_tpu_torch/csrc/rowmajor_scan.cu",
+                    "replaces": "rii_tpu/ops/pallas_scan.py:57 _scan_kernel",
+                    "max_abs_err": err, "ms": ms["exact", 1024],
+                    "plain_ms": plain["exact", 1024], "ms_q128": ms["exact", 128],
+                    "plain_ms_q128": plain["exact", 128], "ms_packed": ms["packed", 1024],
+                    "plain_ms_packed": plain["packed", 1024], "cap": cap, "M": m,
+                    "Q": 1024, **j_bound(1024), "library_ms": None,
+                    **at_q(j_bound(128), 128)})
     return records
 
 
@@ -566,6 +785,140 @@ def phase_engine(dev):
     if results["ivf_L10000"][1] < 0.95:
         raise AssertionError(f"IVF recall@10 at L=10000 {results['ivf_L10000'][1]} < 0.95")
     log("  stages: " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    return launches, {"e": e, "x": x, "queries": queries, "gt": gt}
+
+
+def phase_engine_k11(dev, ctx):
+    """The engine's route to kernel H (phase 5b of the module docstring):
+    the row-major replica that an exact-mode first query builds, scanned in
+    fast mode."""
+    from rii_tpu_torch.ops import hopper_scan as H
+    from rii_tpu_torch.utils.convert import engine_from_arrays
+    e0, queries, gt, topk = ctx["e"], ctx["queries"], ctx["gt"], 10
+    h, b = H.replica_scan_tile_minima, H.ivf_window_tile_minima
+    stages, results = {}, {}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    e = engine_from_arrays(e0.codewords, e0.codes, e0.coarse_centers,
+                           e0._assignments(), device=dev)
+    e.topk_recall = None  # the first query after the mutation is exact
+    e.query_batch(queries[:1], topk=topk, method="linear")
+    torch.cuda.synchronize()
+    stages["engine_and_exact_cache_s"] = time.perf_counter() - t0
+    dc = e._ensure_cache()
+    log(f"  K11 route: N={e.N} cap={dc['cap']} mode={dc['mode']} windows={dc['windows']} "
+        f"keys={sorted(k for k in dc if k.startswith('decoded'))}")
+    if dc["mode"] != "bf16" or "decoded_flat" not in dc or "decoded_t" in dc:
+        raise AssertionError("the exact-mode cache does not hold the row-major replica")
+    e.topk_recall = 0.99
+
+    def linear(qs, **kw):
+        before = h.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ids, dists = e.query_batch(qs, topk=topk, method="linear", **kw)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t
+        if h.launches != before + 1:
+            raise AssertionError(f"K11 route Q={len(qs)}: the batch did not launch kernel H")
+        if ids.shape != (len(qs), topk) or not np.isfinite(dists).all():
+            raise AssertionError(f"K11 route Q={len(qs)}: bad output")
+        return ids, took
+
+    for qn in (1024, 128):
+        linear(queries[:qn])  # warm
+        ids, stages[f"linear_q{qn}_s"] = linear(queries[:qn])
+        results[f"linear_q{qn}"] = (recall(ids[:128], gt, 1), recall(ids[:128], gt, 10))
+    tids = np.sort(np.random.RandomState(7).choice(e.N, 1_000_000, replace=False)).astype(np.int64)
+    ids, stages["subset_1m_linear_s"] = linear(queries[:1], target_ids=tids)
+    if not np.isin(ids, tids).all():
+        raise AssertionError("K11 route subset: ids outside the subset")
+
+    wv = e._probe_width_virtual(5000, None, dc)
+    qb = 2048 // wv
+    before = b.launches
+    out = []
+    t0 = time.perf_counter()
+    for s in range(0, 128, qb):
+        ids, dists = e.query_batch(queries[s:s + qb], topk=topk, L=5000, method="ivf")
+        if not np.isfinite(dists).all():
+            raise AssertionError("K11 route IVF: non-finite distances")
+        out.append(ids)
+    torch.cuda.synchronize()
+    stages["ivf_L5000_128q_s"] = time.perf_counter() - t0
+    if b.launches == before:
+        raise AssertionError("K11 route IVF: the batches did not reach kernel B")
+    ids = np.concatenate(out)[:128]
+    results["ivf_L5000"] = (recall(ids, gt, 1), recall(ids, gt, 10))
+    launches = {"replica_scan_tile_minima": h.launches, "ivf_window_top2": b.launches}
+    log(f"  launches in the K11 route phase: {launches}")
+    for k, (r1, r10) in results.items():
+        log(f"  K11 route recall {k}: @1 {r1:.4f} @10 {r10:.4f}")
+    for k in ("linear_q1024", "linear_q128"):
+        if results[k][1] < 0.99:
+            raise AssertionError(f"K11 route {k}: recall@10 {results[k][1]} < 0.99")
+    log("  K11 route stages: " + json.dumps({k: round(v, 4) for k, v in stages.items()}))
+    del e, dc
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_dists(ids, dists, gt_ids, gt_d, what):
+    """Returned distances of ground-truth ids are exact ADC (1e-4 relative
+    + 1e-3 absolute). Returns the largest difference."""
+    worst = 0.0
+    for r in range(gt_ids.shape[0]):
+        for i_, d_ in zip(ids[r], dists[r]):
+            hit = np.nonzero(gt_ids[r] == i_)[0]
+            if not hit.size:
+                continue
+            err = abs(d_ - gt_d[r, hit[0]])
+            worst = max(worst, err)
+            if err > 1e-4 * abs(gt_d[r, hit[0]]) + 1e-3:
+                raise AssertionError(f"{what}: distance {d_} of id {i_} vs "
+                                     f"exact {gt_d[r, hit[0]]}")
+    return worst
+
+
+def phase_ops(dev, ctx):
+    """The ops-level API (phase 5c of the module docstring) through
+    rii_tpu_torch.benchmarks.micro_scan.run: the first 2^20 of phase 5's
+    codes, its codewords, and queries near rows among them."""
+    from rii_tpu_torch.benchmarks import micro_scan
+    n, topk = 1 << 20, 10
+    e, x = ctx["e"], ctx["x"]
+    codes = e.codes[:n]
+    cw = np.asarray(e.codewords, dtype=np.float32)
+    rng = np.random.RandomState(11)
+    qidx = rng.choice(n, 1024, replace=False)
+    queries = (x[qidx] + rng.normal(0, 0.01, (1024, x.shape[1]))).astype(np.float32)
+    gt_ids, gt_d = exact_adc_topk(torch.tensor(codes, device=dev),
+                                  torch.tensor(cw, device=dev),
+                                  torch.tensor(queries[:128], device=dev), topk)
+    wrappers = kernel_wrappers()
+    kern = {"H": "replica_scan_tile_minima", "I": "replica_i8_scan_tile_minima",
+            "J": "pq_scan_tile_minima"}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    recs = micro_scan.run(dev, codes, cw, queries, qns=(128, 1024), topk=topk)
+    took = time.perf_counter() - t0
+    launches = {name: wrappers[name].launches for name in kern.values()}
+    log(f"  ops: {len(recs)} entries in {took:.1f} s; launches {launches}")
+    for name, c in launches.items():
+        if c == 0:
+            raise AssertionError(f"{name} was not launched by the ops path")
+    for r in recs:
+        ids, dists = r["ids"][:128], r["dists"][:128]
+        if r["ids"].shape != (r["Q"], topk) or not np.isfinite(r["dists"]).all():
+            raise AssertionError(f"ops {r['op']} Q={r['Q']}: bad output")
+        r1, r10 = recall(ids, gt_ids[:, 0], 1), recall(ids, gt_ids[:, 0], 10)
+        extra = ""
+        if r["op"] in ("replica_i8_scan_topk", "linear_scan_topk"):
+            extra = f", distances max |diff| {check_dists(ids, dists, gt_ids, gt_d, r['op']):.3e}"
+        log(f"  ops {r['op']} (kernel {r['kernel']}) Q={r['Q']} N={r['N']}: "
+            f"{r['ms']:.3f} ms ({r['timer']}); recall@1 {r1:.4f} @10 {r10:.4f}{extra}")
+        if r1 < 0.99 or r10 < 0.99:
+            raise AssertionError(f"ops {r['op']} Q={r['Q']}: recall@1 {r1}, @10 {r10} < 0.99")
     return launches
 
 
@@ -678,21 +1031,6 @@ def drive_lifecycle(dev, cfg):
             raise AssertionError(f"{method} Q={len(qs)}: bad output")
         return ids, dists, time.perf_counter() - t
 
-    def check_dists(ids, dists, what):
-        """Returned distances of ground-truth ids are exact ADC."""
-        worst = 0.0
-        for r in range(128):
-            for i_, d_ in zip(ids[r], dists[r]):
-                hit = np.nonzero(gt_ids[r] == i_)[0]
-                if not hit.size:
-                    continue
-                err = abs(d_ - gt_d[r, hit[0]])
-                worst = max(worst, err)
-                if err > 1e-4 * abs(gt_d[r, hit[0]]) + 1e-3:
-                    raise AssertionError(f"{what}: distance {d_} of id {i_} vs "
-                                         f"exact {gt_d[r, hit[0]]}")
-        return worst
-
     results, dist_err = {}, {}
     for qn in (128, 1024):
         run(queries[:qn], "linear")  # warm
@@ -702,8 +1040,8 @@ def drive_lifecycle(dev, cfg):
             raise AssertionError(f"linear Q={qn} did not launch {cfg['linear']}")
         results[f"linear_q{qn}"] = (recall(ids[:128], gt, 1), recall(ids[:128], gt, 10))
         if cfg["linear_exact"]:
-            dist_err[f"linear_q{qn}"] = check_dists(ids[:128], dists[:128],
-                                                    f"linear Q={qn}")
+            dist_err[f"linear_q{qn}"] = check_dists(ids[:128], dists[:128], gt_ids,
+                                                    gt_d, f"linear Q={qn}")
 
     ivf_L = cfg.get("ivf_L0s", 1) * e.L0
 
@@ -729,7 +1067,7 @@ def drive_lifecycle(dev, cfg):
         ivf_pass(qn, "warm")
         ids, dists, stages[f"ivf_q{qn}_s"] = ivf_pass(qn, "fast")
         results[f"ivf_q{qn}"] = (recall(ids, gt, 1), recall(ids, gt, 10))
-        dist_err[f"ivf_q{qn}"] = check_dists(ids, dists, f"IVF Q={qn}")
+        dist_err[f"ivf_q{qn}"] = check_dists(ids, dists, gt_ids, gt_d, f"IVF Q={qn}")
         e.topk_recall = None  # the same candidate walk, exact probes and top-k
         ids_w, _, stages[f"ivf_exact_walk_q{qn}_s"] = ivf_pass(qn, "exact")
         e.topk_recall = 0.99
@@ -841,8 +1179,14 @@ def main():
     phase_small_reference()
     log(f"phase small reference: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches = phase_engine(dev)
+    launches, ctx = phase_engine(dev)
     log(f"phase engine: {time.perf_counter() - t0:.1f} s")
+    for phase, fn in (("K11 route", phase_engine_k11), ("ops", phase_ops)):
+        t0 = time.perf_counter()
+        for k, c in fn(dev, ctx).items():  # a kernel on two paths: both runs count
+            launches[k] = launches.get(k, 0) + c
+        log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+    del ctx
     torch.cuda.empty_cache()
     for phase, fn in (("pq", phase_engine_pq),
                       ("int8 replica", phase_engine_i8_replica),

@@ -1,7 +1,7 @@
 // Packed keys: a float score with a slot index in its low mantissa bits, so
 // one fminf picks the best score and carries its slot. Shared by the scan
-// kernels (A and C pack 7 bits, per 128-slot tile; B, D and E pack 3 bits,
-// per 8-slot tile, and keep the top 2).
+// kernels (A, C and H-J pack 7 bits, per 128-slot tile; B, D, E and G pack
+// 3 bits, per 8-slot tile, and keep the top 2).
 //
 // Scores are clamped to 3e38 before packing, so +inf packs to a finite key
 // that still sorts after every real score; unpacking restores keys at or
@@ -32,9 +32,10 @@ __device__ __forceinline__ float min8(float k) {
   return k;
 }
 
-// The value of a 3-bit packed key (slot bits cleared, clamp undone).
-__device__ __forceinline__ float unpack_value(float k) {
-  const float v = __int_as_float(__float_as_int(k) & ~0x7);
+// The value of a packed key (its kBits slot bits cleared, clamp undone).
+template <int kBits>
+__device__ __forceinline__ float unpack_key(float k) {
+  const float v = __int_as_float(__float_as_int(k) & ~((1 << kBits) - 1));
   return v >= kPackRestore ? inf_f() : v;
 }
 
@@ -51,8 +52,8 @@ __device__ __forceinline__ void store_top2(float s, int t, bool write, long long
   const float k2 = min8(k == k1 ? inf_f() : k);
   if (lane == 0 && write) {
     const long long at = row_base + col0 + (t >> 3);
-    vmin[at] = unpack_value(k1);
-    vmin[at + nt] = unpack_value(k2);
+    vmin[at] = unpack_key<3>(k1);
+    vmin[at + nt] = unpack_key<3>(k2);
     amin[at] = slot_base + (__float_as_int(k1) & 0x7);
     amin[at + nt] = slot_base + (__float_as_int(k2) & 0x7);
   }

@@ -13,12 +13,17 @@ uint8 codes. Two hand-written CUDA kernels carry it:
 - **Kernel G**, :func:`ivf_i8_window_tile_minima`
   (``csrc/ivf_i8_window.cu``), replaces ``_ivf_i8_window_multi_kernel`` and
   ``_ivf_i8_window_kernel``: per-8-slot top-2 over the probed int8 windows.
+- **Kernel I**, :func:`replica_i8_scan_tile_minima`
+  (``csrc/rowmajor_scan.cu``), replaces ``_replica_i8_kernel``: per-128-slot
+  (min, argmin) over the row-major (cap, D) int8 replica, the ops-level
+  entry :func:`replica_i8_scan_topk`.
 
 Layouts are the port's: kernel F reads the replica as (ceil(D/4), cap)
 int32 words, each holding dims 4j..4j+3 of one slot (zero past D), so a
 warp's 32 neighbouring slots read one 128-byte line per word row; the
-windows stay (total, D) int8 rows. Queries reach both kernels as int8
-words (Q, ceil(D/4)) with a float32 dequantization factor per query.
+windows and kernel I's replica stay (n, D) int8 rows. Queries reach the
+kernels as int8 words (Q, ceil(D/4)) with a float32 dequantization factor
+per query.
 
 The int32 cross term is exact, and so is its float32 value (|cross| <=
 127^2 * D < 2^24 for D <= 1040). The twins form it as a float32 product
@@ -26,9 +31,9 @@ of the int8 values, whose partial sums are integers below 2^24 and hence
 exact in any order. The score ``norm - 2 * cross * alpha`` is rounded once,
 as a fused multiply-add, which is how XLA's CPU backend evaluates the
 Pallas kernels' expression in interpret mode; the twins take it in float64
-(the product is exact there) and round to float32. So kernel F, its twin
-and the Pallas kernel agree bit for bit; kernel G's norms are float32 sums
-taken in another order.
+(the product is exact there) and round to float32. So kernels F and I,
+their twins and the Pallas kernels agree bit for bit; kernel G's norms are
+float32 sums taken in another order.
 
 The wrapper rules are those of ``hopper_scan``: CPU tensors take the plain
 twin, CUDA tensors launch the kernel or raise, and each wrapper counts its
@@ -45,13 +50,17 @@ from rii_tpu_torch.ops.hopper_pq import _mask_rows, _window_chunks
 from rii_tpu_torch.ops.hopper_scan import (
     _TILE,
     _TWIN_SCORES,
+    _check_rowmajor,
     _exact_rescore_codes,
     _merge_packed_keys,
     _on_cpu,
     _pack,
     _ptr,
     _require,
+    _rowmajor_minima_plain,
+    _select_and_rescore,
     _stream,
+    _tile_outputs,
     _top2_plain,
 )
 
@@ -223,6 +232,87 @@ def replica_i8_scan_topk_t(queries, dec_w, col_scales, norms_rep, codes,
     _, ids_a = _merge_packed_keys(queries, keys, k_fetch)
     return _exact_rescore_codes(queries, ids_a, codes, codewords,
                                 norms_rep[0], topk)
+
+
+# --------------------------------------------------------------------------- #
+# Kernel I: per-128-slot (min, argmin) over the row-major int8 replica
+# --------------------------------------------------------------------------- #
+
+def replica_i8_scan_tile_minima_plain(queries, decoded_i8, col_scales,
+                                      norms_col):
+    """Plain twin of kernel I (see csrc/rowmajor_scan.cu for the contract):
+    exact float32 products of the int8 values, the score rounded once,
+    packed-key tile minima."""
+    q_i8, alpha = quantize_queries_i8(queries, col_scales)
+    qf = q_i8.float()
+    cap, d = decoded_i8.shape
+    norms = norms_col.reshape(-1)
+
+    def score(s, e):
+        return _fused_score(norms[None, s:e], qf @ decoded_i8[s:e].float().T,
+                            alpha[:, None])
+
+    return _rowmajor_minima_plain(qf.shape[0], cap, d, score, packed=True)
+
+
+def replica_i8_scan_tile_minima(queries, decoded_i8, col_scales, norms_col,
+                                blk=1024):
+    """Kernel I: per-128-slot (min, argmin) over the row-major int8 replica,
+    always at packed-key precision (as the Pallas kernel).
+
+    queries (Q, D) f32 (quantized here, as in the JAX package); decoded_i8
+    (cap, D) int8 from :func:`quantize_replica_i8` (``words_t=False``);
+    col_scales (D,) f32; norms_col (cap, 1) f32 exact ||decode||^2 with +inf
+    on padding and excluded slots; ``blk`` is checked as the JAX entry
+    checks it. Returns (vmin (Q, cap/128) f32 WITHOUT ||q||^2, amin
+    (Q, cap/128) int32 global slots). CPU tensors take the plain twin; CUDA
+    tensors launch the kernel."""
+    cap, d = decoded_i8.shape
+    _check_rowmajor(cap, blk, norms_col)
+    _require(queries.dim() == 2 and queries.shape[1] == d,
+             f"queries must be (Q, {d}), got {tuple(queries.shape)}")
+    _require(col_scales.shape == (d,), f"col_scales must be ({d},)")
+    if _on_cpu(queries, decoded_i8, col_scales, norms_col):
+        return replica_i8_scan_tile_minima_plain(queries, decoded_i8,
+                                                 col_scales, norms_col)
+    _require(decoded_i8.dtype == torch.int8 and decoded_i8.is_contiguous(),
+             "decoded_i8 must be contiguous int8")
+    _require(norms_col.dtype == torch.float32 and norms_col.is_contiguous(),
+             "norms_col must be contiguous float32")
+    _require(d <= 1024, "D must be <= 1024 (an exact int32 cross term in "
+             "float32, and a tile's rows in shared memory)")
+    _require(cap < 1 << 31, "cap must be below 2^31 (int32 slots)")
+    q_i8, alpha = quantize_queries_i8(queries, col_scales)
+    q_w = pack_words(q_i8).contiguous()
+    qn = q_w.shape[0]
+    vmin, amin = _tile_outputs(qn, cap, decoded_i8.device)
+    lib = _build.load_library("rowmajor_scan")
+    fn = lib.rii_rowmajor_i8_tile_minima
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+                   + [ctypes.c_longlong, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    _build.check(fn(_ptr(q_w), _ptr(alpha), _ptr(decoded_i8), _ptr(norms_col),
+                    _ptr(vmin), _ptr(amin), qn, d, cap,
+                    _stream(decoded_i8.device)), "replica_i8_scan_tile_minima")
+    replica_i8_scan_tile_minima.launches += 1
+    return vmin, amin
+
+
+replica_i8_scan_tile_minima.launches = 0
+
+
+def replica_i8_scan_topk(queries, decoded_i8, col_scales, norms_col, codes,
+                         codewords, topk, blk=1024, overfetch=2):
+    """Full scan of the row-major int8 replica through kernel I, then the
+    exact merge to ``min(max(overfetch*topk, topk+8), cap/128)`` candidates
+    and their exact float32 ADC re-rank from the uint8 codes (always, as in
+    the JAX package; its ``recall_target`` only chose ``approx_max_k`` for
+    the merge). Returns (dists (Q, topk) f32, ids (Q, topk) int64, -1 where
+    exhausted)."""
+    vmin, amin = replica_i8_scan_tile_minima(queries, decoded_i8, col_scales,
+                                             norms_col, blk=blk)
+    return _select_and_rescore(queries, vmin, amin, topk, codes, codewords,
+                               norms_col, overfetch)
 
 
 # --------------------------------------------------------------------------- #

@@ -14,31 +14,42 @@ codes on the device:
 - **Kernel E**, :func:`ivf_dt_window_tile_minima` (same source), replaces
   ``_ivf_dt_window_kernel``: the same top-2 from the bf16 ADC table of
   :func:`rii_tpu_torch.ops.decode.build_dtable` (Q < D).
+- **Kernel J**, :func:`pq_scan_tile_minima` (``csrc/rowmajor_scan.cu``),
+  replaces ``_scan_kernel``: per-128-slot (min, argmin) over row-major
+  (cap, M) codes, the ops-level entry :func:`pq_scan_topk` with its host
+  packing :func:`prepare_pq_scan_inputs`.
 
 The wrapper rules are kernel A's and B's (``hopper_scan``): CPU tensors take
 the plain twin, CUDA tensors launch the kernel or raise, and each wrapper
 counts its launches in ``.launches``.
 
-The JAX module keeps the norms of the linear scan in a (cap/blk, nsub, sub)
-grid, a Mosaic block rule; here they are the flat (cap,) vector.
+The JAX module keeps the norms of the transposed linear scan in a
+(cap/blk, nsub, sub) grid, a Mosaic block rule; here they are the flat
+(cap,) vector. The row-major entries keep JAX's (cap, 1) norms column.
 """
 
 import ctypes
 
+import numpy as np
 import torch
 
+from rii_tpu_torch._device import resolve_device
 from rii_tpu_torch.ops import _build
 from rii_tpu_torch.ops.decode import build_dtable
 from rii_tpu_torch.ops.hopper_scan import (
     _INF,
     _TILE,
     _TWIN_SCORES,
+    _check_rowmajor,
     _merge_packed_keys,
+    _merge_tile_minima,
     _on_cpu,
     _pack,
     _ptr,
     _require,
+    _rowmajor_minima_plain,
     _stream,
+    _tile_outputs,
     _top2_plain,
 )
 
@@ -170,6 +181,137 @@ def pq_scan_topk_t(queries, codes_t, norms, codewords, topk, n_valid=None):
     exhausted)."""
     keys = pq_tile_keys(queries, codes_t, norms, codewords, n_valid=n_valid)
     return _merge_packed_keys(queries, keys, topk)
+
+
+# --------------------------------------------------------------------------- #
+# Kernel J: per-128-slot (min, argmin) of the scan over row-major codes
+# --------------------------------------------------------------------------- #
+
+def build_padded_codewords(codewords, *, device):
+    """(M, Ks, Ds) codewords -> (M, Ks, D) bf16 on ``device``, sub-space
+    m's codebook at columns [m*Ds, (m+1)*Ds) and zero elsewhere (the JAX
+    package's decode operand)."""
+    cw = np.asarray(codewords, dtype=np.float32)
+    m, ks, ds = cw.shape
+    out = np.zeros((m, ks, m * ds), dtype=np.float32)
+    for mm in range(m):
+        out[mm, :, mm * ds:(mm + 1) * ds] = cw[mm]
+    return torch.tensor(out, device=resolve_device(device)).to(torch.bfloat16)
+
+
+def prepare_pq_scan_inputs(codes, norms, codewords, cap=None, blk=1024, *,
+                           device):
+    """Host packing for :func:`pq_scan_topk`: numpy (N, M) uint8 codes, (N,)
+    norms and (M, Ks, Ds) codewords -> (codes (cap, M) uint8, norms_col
+    (cap, 1) f32 with +inf on padding, cw_padded (M, Ks, D) bf16), tensors
+    on ``device``. ``cap`` defaults to N rounded up to a multiple of
+    ``blk``."""
+    n, m = codes.shape
+    if cap is None:
+        cap = -(-n // blk) * blk
+    _require(cap % blk == 0 and cap >= n,
+             f"cap={cap} must be >= N={n} and a multiple of blk={blk}")
+    cp = np.zeros((cap, m), dtype=np.uint8)
+    cp[:n] = np.asarray(codes)
+    nm = np.full((cap, 1), np.inf, dtype=np.float32)
+    nm[:n, 0] = norms
+    dev = resolve_device(device)
+    return (torch.tensor(cp, device=dev), torch.tensor(nm, device=dev),
+            build_padded_codewords(codewords, device=dev))
+
+
+def _compact_codebook(cw_padded, m):
+    """(M, Ks, D) padded codewords -> the (M, Ks, Ds) bf16 codebook."""
+    ds = cw_padded.shape[2] // m
+    return torch.stack([cw_padded[mm, :, mm * ds:(mm + 1) * ds]
+                        for mm in range(m)]).to(torch.bfloat16).contiguous()
+
+
+def _check_pq_rowmajor(queries, codes, norms_col, cw_padded, blk):
+    cap, m = codes.shape
+    mk, ks, d = cw_padded.shape
+    _require(mk == m and d % m == 0,
+             f"cw_padded {tuple(cw_padded.shape)} does not fit M={m}")
+    _require(queries.dim() == 2 and queries.shape[1] == d,
+             f"queries must be (Q, {d}), got {tuple(queries.shape)}")
+    _check_rowmajor(cap, blk, norms_col)
+    return cap, m, ks, d // m
+
+
+def pq_scan_tile_minima_plain(queries, codes, norms_col, cw_padded,
+                              packed=False):
+    """Plain twin of kernel J (see csrc/rowmajor_scan.cu for the contract):
+    rows decoded through the bf16 codebook, bf16 queries, float32 sums."""
+    qf = queries.to(torch.bfloat16).float()
+    cap, m = codes.shape
+    cw16 = _compact_codebook(cw_padded, m)
+    norms = norms_col.reshape(-1)
+
+    def score(s, e):
+        return norms[None, s:e] - 2.0 * (qf @ _decode_bf16(codes[s:e], cw16).T)
+
+    return _rowmajor_minima_plain(qf.shape[0], cap, qf.shape[1], score, packed)
+
+
+def pq_scan_tile_minima(queries, codes, norms_col, cw_padded, blk=1024,
+                        packed=False):
+    """Kernel J: per-128-slot (min, argmin) of the scan over row-major
+    uint8 codes.
+
+    queries (Q, D) (cast to bf16); codes (cap, M) uint8; norms_col (cap, 1)
+    f32 with +inf on padding and excluded slots; cw_padded (M, Ks, D) bf16
+    from :func:`build_padded_codewords`; ``blk`` is checked as the JAX entry
+    checks it. Returns (vmin (Q, cap/128) f32 WITHOUT ||q||^2, amin
+    (Q, cap/128) int32 global slots); ``packed`` as kernel H's (default the
+    exact reduce, as in JAX). CPU tensors take the plain twin; CUDA tensors
+    launch the kernel."""
+    cap, m, ks, ds = _check_pq_rowmajor(queries, codes, norms_col, cw_padded,
+                                        blk)
+    if _on_cpu(queries, codes, norms_col, cw_padded):
+        return pq_scan_tile_minima_plain(queries, codes, norms_col, cw_padded,
+                                         packed)
+    _require(codes.dtype == torch.uint8 and codes.is_contiguous(),
+             "codes must be contiguous uint8")
+    _require(norms_col.dtype == torch.float32 and norms_col.is_contiguous(),
+             "norms_col must be contiguous float32")
+    _require(cap < 1 << 31, "cap must be below 2^31 (int32 slots)")
+    lib = _build.load_library("rowmajor_scan")
+    per_block = lib.rii_rowmajor_pq_queries_per_block
+    per_block.argtypes = [ctypes.c_int] * 3
+    per_block.restype = ctypes.c_int
+    _require(ks <= 256 and per_block(m, ks, ds) > 0,
+             f"M={m}, Ks={ks}, Ds={ds}: Ks must be <= 256 and the ADC table "
+             "of 4 queries must fit in shared memory")
+    q16 = queries.to(torch.bfloat16).contiguous()
+    cw16 = _compact_codebook(cw_padded, m)
+    qn = q16.shape[0]
+    vmin, amin = _tile_outputs(qn, cap, codes.device)
+    fn = lib.rii_rowmajor_pq_tile_minima
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    _build.check(fn(_ptr(q16), _ptr(codes), _ptr(norms_col), _ptr(cw16),
+                    _ptr(vmin), _ptr(amin), qn, m, ks, ds, cap,
+                    int(bool(packed)), _stream(codes.device)),
+                 "pq_scan_tile_minima")
+    pq_scan_tile_minima.launches += 1
+    return vmin, amin
+
+
+pq_scan_tile_minima.launches = 0
+
+
+def pq_scan_topk(queries, codes, norms_col, cw_padded, topk, blk=1024,
+                 recall_target=None):
+    """Linear scan of row-major codes through kernel J, then the exact
+    merge over the tile minima: packed tile minima with a
+    ``recall_target``, the exact reduce without (the JAX default).
+    Selection only: distances are at the bf16 cross term's precision with
+    ||q||^2 restored. Returns (dists (Q, topk) f32 ascending, ids (Q, topk)
+    int64, -1 where exhausted)."""
+    vmin, amin = pq_scan_tile_minima(queries, codes, norms_col, cw_padded,
+                                     blk=blk, packed=recall_target is not None)
+    return _merge_tile_minima(queries, vmin, amin, topk)
 
 
 # --------------------------------------------------------------------------- #

@@ -1,7 +1,8 @@
 """Hopper kernels of the query path and their plain PyTorch twins
 (counterpart of ``rii_tpu.ops.pallas_scan``).
 
-Two hand-written CUDA kernels (``csrc/``) carry the bf16 query path:
+Three hand-written CUDA kernels (``csrc/``) scan the bf16 replica and
+windows:
 
 - **Kernel A**, :func:`replica_tile_keys`, replaces the Pallas kernels
   ``_replica_t_kernel`` and ``_replica_tn_kernel``: packed per-128-slot
@@ -9,17 +10,25 @@ Two hand-written CUDA kernels (``csrc/``) carry the bf16 query path:
 - **Kernel B**, :func:`ivf_window_tile_minima`, replaces
   ``_ivf_window_multi_kernel`` and ``_ivf_window_kernel``: per-8-slot top-2
   over the probed IVF windows.
+- **Kernel H**, :func:`replica_scan_tile_minima` (``csrc/rowmajor_scan.cu``),
+  replaces ``_replica_scan_kernel``: per-128-slot (min, argmin) over the
+  row-major (cap, D) bf16 replica, packed or exact. The engine reaches it
+  when a cache built in exact mode (``topk_recall=None``, which keeps the
+  row-major replica) is queried after ``topk_recall`` is set again.
 
 Each wrapper runs its plain twin for tensors on the CPU, and launches its
 kernel for CUDA tensors (or raises); it never falls back from one to the
 other. Each counts its launches in a plain int attribute, ``.launches``,
 incremented only where the kernel is launched.
 
-The XLA epilogues of the JAX module (``_merge_packed_keys`` and
-``_exact_rescore_codes``) are plain torch here. ``_merge_packed_keys`` drops
-the JAX module's min-8 pre-reduce: that was a TPU device to cut the cost of
-``approx_max_k`` over wide rows, and ``torch.topk`` over the full
-(Q, cap/128) keys keeps one candidate per 128 slots instead of per 1024.
+The XLA epilogues of the JAX module (``_merge_packed_keys``,
+``_merge_tile_minima`` and ``_exact_rescore_codes``) are plain torch here.
+``_merge_packed_keys`` drops the JAX module's min-8 pre-reduce: that was a
+TPU device to cut the cost of ``approx_max_k`` over wide rows, and
+``torch.topk`` over the full (Q, cap/128) keys keeps one candidate per 128
+slots instead of per 1024. Both merges select exactly whatever the
+``recall_target``, which on this side only picks packed or exact tile
+minima.
 """
 
 import ctypes
@@ -36,6 +45,7 @@ _PACK_RESTORE = 2.9e38  # restored to +inf after unpacking
 _TN_MIN_Q = 512  # the JAX package's NN/TN crossover; the engine's rescore
                  # policy (Rii._resolve_rescore) still keys on it
 _TWIN_SCORES = 1 << 26  # f32 scores a twin holds at once (256 MiB)
+_SUB = 256  # the JAX row-major kernels' sub-block: blk must be a multiple
 
 _INF = float("inf")
 
@@ -205,6 +215,154 @@ def prepare_replica_t(decoded, norms_flat):
     """(cap, D) bf16 replica and (cap,) f32 norms -> (decoded_t (D, cap)
     contiguous, norms_rep (1, cap))."""
     return decoded.T.contiguous(), norms_flat[None, :]
+
+
+# --------------------------------------------------------------------------- #
+# Row-major scans (kernels H, I, J): per-128-slot (min, argmin)
+# --------------------------------------------------------------------------- #
+
+def _check_rowmajor(cap, blk, norms_col):
+    """The JAX entries' block rules, kept so that both accept the same
+    shapes (the kernels themselves step by 128-slot tiles), and the
+    (cap, 1) norms column."""
+    _require(cap % blk == 0 and blk % _SUB == 0 and blk // _TILE >= 8,
+             f"cap={cap}, blk={blk}: need cap % blk == 0, blk % {_SUB} == 0 "
+             f"and blk >= {8 * _TILE}")
+    _require(norms_col.shape == (cap, 1), f"norms_col must be ({cap}, 1)")
+
+
+def _tile_minima_of(scores, base, packed):
+    """(Q, n) scores of slots [base, base + n) -> (vmin, amin), each
+    (Q, n/128): per tile the minimum (packed: at key precision, +inf
+    restored) and its global slot (exact: the lowest among ties)."""
+    qn, n = scores.shape
+    st = scores.reshape(qn, n // _TILE, _TILE)
+    lane = torch.arange(_TILE, dtype=torch.int32, device=scores.device)
+    if packed:
+        vmin, low = _unpack(_pack(st, lane, 0x7F).min(dim=2).values, 0x7F)
+    else:
+        vmin = st.min(dim=2).values
+        low = torch.where(st == vmin[..., None], lane,
+                          torch.full_like(lane, _TILE)).min(dim=2).values
+        low = low.clamp(max=_TILE - 1)
+    tile_base = base + torch.arange(0, n, _TILE, dtype=torch.int32,
+                                    device=scores.device)
+    return vmin, tile_base[None, :] + low
+
+
+def _rowmajor_minima_plain(qn, cap, width, score, packed):
+    """The twins' shared loop: ``score(s, e)`` gives the (Q, e - s) float32
+    scores of slots [s, e); cap is worked through in chunks, so no (Q, cap)
+    float32 array is held."""
+    chunk = max(_TILE, min(_TWIN_SCORES // max(qn, 1), _TWIN_SCORES // width)
+                // _TILE * _TILE)
+    vals, args = [], []
+    for s in range(0, cap, chunk):
+        v, a = _tile_minima_of(score(s, min(cap, s + chunk)), s, packed)
+        vals.append(v)
+        args.append(a)
+    return torch.cat(vals, 1), torch.cat(args, 1)
+
+
+def _tile_outputs(qn, cap, device):
+    return (torch.empty((qn, cap // _TILE), dtype=torch.float32, device=device),
+            torch.empty((qn, cap // _TILE), dtype=torch.int32, device=device))
+
+
+def replica_scan_tile_minima_plain(queries, decoded, norms_col, packed=True):
+    """Plain twin of kernel H (see csrc/rowmajor_scan.cu for the contract):
+    bf16 queries against the bf16 rows, products summed in float32."""
+    qf = queries.to(torch.bfloat16).float()
+    cap, d = decoded.shape
+    norms = norms_col.reshape(-1)
+
+    def score(s, e):
+        return norms[None, s:e] - 2.0 * (qf @ decoded[s:e].float().T)
+
+    return _rowmajor_minima_plain(qf.shape[0], cap, d, score, packed)
+
+
+def replica_scan_tile_minima(queries, decoded, norms_col, blk=1024,
+                             packed=True):
+    """Kernel H: per-128-slot (min, argmin) over the row-major bf16 replica.
+
+    queries (Q, D) (cast to bf16); decoded (cap, D) bf16; norms_col (cap, 1)
+    f32 with +inf on padding and excluded slots; ``blk`` is checked as the
+    JAX entry checks it. Returns (vmin (Q, cap/128) f32 WITHOUT ||q||^2,
+    amin (Q, cap/128) int32 global slots); ``packed`` selects the packed-key
+    reduce (2^-16 relative values) or the exact one (lowest slot among
+    ties). CPU tensors take the plain twin; CUDA tensors launch the
+    kernel."""
+    cap, d = decoded.shape
+    _check_rowmajor(cap, blk, norms_col)
+    _require(queries.dim() == 2 and queries.shape[1] == d,
+             f"queries must be (Q, {d}), got {tuple(queries.shape)}")
+    if _on_cpu(queries, decoded, norms_col):
+        return replica_scan_tile_minima_plain(queries, decoded, norms_col,
+                                              packed)
+    _require(decoded.dtype == torch.bfloat16 and decoded.is_contiguous(),
+             "decoded must be contiguous bf16")
+    _require(norms_col.dtype == torch.float32 and norms_col.is_contiguous(),
+             "norms_col must be contiguous float32")
+    _require(d <= 512, "D must be <= 512 (a tile's rows and a pass of "
+             "queries in shared memory)")
+    _require(cap < 1 << 31, "cap must be below 2^31 (int32 slots)")
+    q16 = queries.to(torch.bfloat16).contiguous()
+    qn = q16.shape[0]
+    vmin, amin = _tile_outputs(qn, cap, decoded.device)
+    lib = _build.load_library("rowmajor_scan")
+    fn = lib.rii_rowmajor_bf16_tile_minima
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    _build.check(fn(_ptr(q16), _ptr(decoded), _ptr(norms_col), _ptr(vmin),
+                    _ptr(amin), qn, d, cap, int(bool(packed)),
+                    _stream(decoded.device)), "replica_scan_tile_minima")
+    replica_scan_tile_minima.launches += 1
+    return vmin, amin
+
+
+replica_scan_tile_minima.launches = 0
+
+
+def _merge_tile_minima(queries, vmin, amin, topk):
+    """Exact top-k over the tile minima with ||q||^2 restored. Returns
+    (dists (Q, topk) f32, ids (Q, topk) int64, -1 where exhausted)."""
+    q = queries.float()
+    qsq = (q * q).sum(-1)
+    v, pos = _smallest(vmin, min(topk, vmin.shape[1]))
+    ids = torch.gather(amin, 1, pos).long()
+    return _finish(v + qsq[:, None], ids, topk)
+
+
+def _select_and_rescore(queries, vmin, amin, topk, codes, codewords,
+                        norms_col, overfetch):
+    """The row-major scans' epilogue: the merge alone, or with ``codes``
+    an overfetch to ``min(max(overfetch*topk, topk+8), cap/128)``
+    candidates re-ranked in exact float32 ADC."""
+    if codes is None:
+        return _merge_tile_minima(queries, vmin, amin, topk)
+    k_fetch = min(max(topk * overfetch, topk + 8), vmin.shape[1])
+    _, ids_a = _merge_tile_minima(queries, vmin, amin, k_fetch)
+    return _exact_rescore_codes(queries, ids_a, codes, codewords,
+                                norms_col.reshape(-1), topk)
+
+
+def replica_scan_topk(queries, decoded, norms_col, topk, codes=None,
+                      codewords=None, blk=1024, recall_target=0.99,
+                      packed=None, overfetch=2):
+    """Full scan of the row-major bf16 replica through kernel H.
+
+    ``packed=None`` means packed iff ``recall_target`` is not None, as in
+    the JAX package. With ``codes``/``codewords`` the selection overfetches
+    and re-ranks in exact float32 ADC. Returns (dists (Q, topk) f32
+    ascending, ids (Q, topk) int64, -1 where exhausted)."""
+    if packed is None:
+        packed = recall_target is not None
+    vmin, amin = replica_scan_tile_minima(queries, decoded, norms_col,
+                                          blk=blk, packed=packed)
+    return _select_and_rescore(queries, vmin, amin, topk, codes, codewords,
+                               norms_col, overfetch)
 
 
 # --------------------------------------------------------------------------- #

@@ -51,6 +51,7 @@ from rii_tpu_torch.ops.hopper_pq import pq_scan_topk_t, prepare_pq_scan_inputs_t
 from rii_tpu_torch.ops.hopper_scan import (
     _TN_MIN_Q,
     prepare_replica_t,
+    replica_scan_topk,
     replica_scan_topk_t,
 )
 from rii_tpu_torch.ops.ivf import (
@@ -622,6 +623,17 @@ class Rii:
                 d, i = replica_scan_topk_t(qd, dc["decoded_t"], norms[None, :],
                                            topk, codes=rs_codes,
                                            codewords=rs_cw)
+            elif "decoded_flat" in dc and self._use_kernels():
+                # a cache built in exact mode keeps the row-major replica;
+                # once topk_recall is set again the kernel route scans it
+                # with kernel H, as the JAX engine does with its row-major
+                # Pallas kernel (the mask folds into the norms)
+                if mask is not None:
+                    norms = torch.where(mask, norms, float("inf"))
+                d, i = replica_scan_topk(
+                    qd, dc["decoded_flat"], norms[:, None], topk,
+                    codes=rs_codes, codewords=rs_cw,
+                    blk=min(8192, dc["cap"]), recall_target=self.topk_recall)
             elif "decoded_flat" in dc:
                 d, i = linear_scan_topk_decoded(
                     qd, dc["decoded_flat"], norms, topk, codes=rs_codes,

@@ -203,6 +203,83 @@ def test_ivf_i8_windows_match_twin(cuda, qn, d, cap_v, with_pen):
     assert (a_k.cpu().numpy()[:, cols] == 0).all()
 
 
+def _assert_minima(v_k, a_k, v_t, a_t, exact_tie_slot=None):
+    """Kernels H, I, J against their twins: the keys' tolerance, the
+    padding tiles (the last 300 slots hold +inf norms, two whole tiles among
+    them) at their first slot, and in the exact reduce the tile whose rows
+    are all equal (slots 512..639) at its first slot."""
+    assert_keys_match(*_np(v_k, a_k, v_t, a_t))
+    pad = ~torch.isfinite(v_t)
+    assert torch.equal(a_k[pad], a_t[pad])
+    if exact_tie_slot is not None:
+        assert (a_k[:, exact_tie_slot // 128] == exact_tie_slot).all()
+
+
+@pytest.mark.parametrize("qn,d,packed", [(40, 70, True), (40, 70, False),
+                                         (8, 128, True), (100, 128, False)])
+def test_replica_scan_tile_minima_matches_twin(cuda, qn, d, packed):
+    """Kernel H in both reduces; D=70 takes the element-wise staging."""
+    g = torch.Generator(device=cuda).manual_seed(qn + d)
+    cap = 1 << 15
+    dec = (torch.rand((cap, d), generator=g, device=cuda) * 0.08).to(torch.bfloat16)
+    dec[512:640] = dec[512]
+    norms = (dec.float() ** 2).sum(1, keepdim=True)
+    norms[-300:] = float("inf")
+    q = torch.rand((qn, d), generator=g, device=cuda) * 0.08
+    before = H.replica_scan_tile_minima.launches
+    v_k, a_k = H.replica_scan_tile_minima(q, dec, norms, packed=packed)
+    torch.cuda.synchronize()
+    assert H.replica_scan_tile_minima.launches == before + 1
+    v_t, a_t = H.replica_scan_tile_minima_plain(q, dec, norms, packed=packed)
+    _assert_minima(v_k, a_k, v_t, a_t, None if packed else 512)
+
+
+@pytest.mark.parametrize("qn,d", [(8, 128), (20, 70), (100, 128)])
+def test_replica_i8_scan_tile_minima_matches_twin(cuda, qn, d):
+    """Kernel I at a D that is not a multiple of 16 and at two Q; the
+    cross term is exact, so the minima are bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(qn + d)
+    cap = 1 << 15
+    rows, scales, norms = _i8_rows(g, cap, d, cuda)
+    norms = norms[:, None].contiguous()
+    norms[-300:] = float("inf")
+    q = torch.rand((qn, d), generator=g, device=cuda) * 0.1
+    before = HI.replica_i8_scan_tile_minima.launches
+    v_k, a_k = HI.replica_i8_scan_tile_minima(q, rows, scales, norms)
+    torch.cuda.synchronize()
+    assert HI.replica_i8_scan_tile_minima.launches == before + 1
+    v_t, a_t = HI.replica_i8_scan_tile_minima_plain(q, rows, scales, norms)
+    _assert_minima(v_k, a_k, v_t, a_t)
+    assert torch.equal(v_k.view(torch.int32), v_t.view(torch.int32))
+    assert torch.equal(a_k, a_t)
+
+
+@pytest.mark.parametrize("qn,m,ks,ds,packed", [
+    (13, 8, 256, 16, False), (8, 32, 256, 4, True), (40, 5, 100, 3, False),
+    (40, 5, 100, 3, True)])
+def test_pq_scan_tile_minima_matches_twin(cuda, qn, m, ks, ds, packed):
+    """Kernel J at 8 queries per block (M=8), at 4 (M=32) and at a ragged
+    shape (M=5: codes staged byte by byte) in both reduces."""
+    g = torch.Generator(device=cuda).manual_seed(qn + m)
+    cap = 1 << 15
+    cw = torch.rand((m, ks, ds), generator=g, device=cuda) * (0.4 / ds)
+    codes = torch.randint(0, ks, (cap, m), generator=g, device=cuda,
+                          dtype=torch.uint8)
+    codes[512:640] = codes[512]
+    cwp = HP.build_padded_codewords(cw.cpu().numpy(), device=cuda)
+    cw16 = cw.to(torch.bfloat16).float()
+    dec = cw16[torch.arange(m, device=cuda), codes.long()].reshape(cap, -1)
+    norms = (dec * dec).sum(1, keepdim=True)
+    norms[-300:] = float("inf")
+    q = torch.rand((qn, m * ds), generator=g, device=cuda) * 0.1
+    before = HP.pq_scan_tile_minima.launches
+    v_k, a_k = HP.pq_scan_tile_minima(q, codes, norms, cwp, packed=packed)
+    torch.cuda.synchronize()
+    assert HP.pq_scan_tile_minima.launches == before + 1
+    v_t, a_t = HP.pq_scan_tile_minima_plain(q, codes, norms, cwp, packed=packed)
+    _assert_minima(v_k, a_k, v_t, a_t, None if packed else 512)
+
+
 def test_wrapper_raises_on_mixed_devices(cuda):
     with pytest.raises(ValueError):
         H.replica_tile_keys(torch.zeros((2, 8)),
