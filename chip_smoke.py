@@ -14,7 +14,10 @@ Phases, each of which must pass (no exception is caught):
    with CUDA events (median of 7), beside its bound (the larger of its
    bytes over 3.35 TB/s and its operations over the dense peak of their
    type) and, for kernels A, F, H and I, the time of one PyTorch call that
-   computes the scores' product (not the tile reduce).
+   computes the scores' product (not the tile reduce). Kernels A and H (one
+   tensor-core kernel) also report their share of the bf16 tensor-core peak
+   at Q=1024 (``tensor_core_share``), and A its time at a GIST-shaped D=960
+   (``*_d960``), where the kernel streams the queries through its ring.
 4. Small reference: a CUDA engine against a CPU engine on the same codes.
 5. Engine: the bf16 path through the public API at a SIFT-shaped config
    (N=2,000,000, D=128, M=32, Ks=256, nlist=1000, topk=10): PQ fit,
@@ -96,9 +99,19 @@ def bound(nbytes, ops, kind):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def tensor_core_share(ops, ms):
+    """``ops`` bf16 operations in ``ms`` milliseconds over the dense peak."""
+    return ops / (ms * 1e-3) / PEAK_OPS_PER_S["bf16"]
+
+
+def suffixed(fields, suffix):
+    """A record's fields for another shape, keyed with _<suffix>."""
+    return {f"{k}_{suffix}": v for k, v in fields.items()}
+
+
 def at_q(fields, qn):
     """A record's fields for a second shape, keyed with the suffix _q<Q>."""
-    return {f"{k}_q{qn}": v for k, v in fields.items()}
+    return suffixed(fields, f"q{qn}")
 
 
 def live(norms):
@@ -177,7 +190,7 @@ def phase_card():
 
 def phase_build():
     from rii_tpu_torch.ops import _build
-    names = ("replica_scan", "ivf_window", "pq_scan", "ivf_pq_window",
+    names = ("replica_tc", "ivf_window", "pq_scan", "ivf_pq_window",
              "replica_i8_scan", "ivf_i8_window", "rowmajor_scan")
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(names)) as pool:
@@ -187,8 +200,10 @@ def phase_build():
 
 
 def phase_kernels(dev):
-    """Kernel A at Q=128 and Q=1024 over the engine's cap (2^21 slots);
-    kernel B at U=2048 windows and the engine's IVF batch (Q=32). Inputs
+    """Kernel A at Q=128 and Q=1024 over the engine's cap (2^21 slots),
+    and at Q=1024 over a GIST-shaped replica (D=960, 2^20 slots, 1.9 GiB:
+    the queries stream through the ring); kernel B at U=2048 windows and
+    the engine's IVF batch (Q=32). Inputs
     are scaled so scores stay below 2 in magnitude: there one step of the
     packed keys (2^-16 relative) lies inside 1e-5 + 1e-5*|s|, and the two
     sides, which sum in different orders, may land one step apart."""
@@ -222,15 +237,36 @@ def phase_kernels(dev):
                      2 * qn * nl * d, "bf16")
 
     records.append({"name": "replica_tile_keys", "route": "cuda",
-                    "source": "rii_tpu_torch/csrc/replica_scan.cu",
+                    "source": "rii_tpu_torch/csrc/replica_tc.cu",
                     "replaces": "rii_tpu/ops/pallas_scan.py:244 _replica_t_kernel, "
                                 ":342 _replica_tn_kernel",
                     "max_abs_err": max(errs), "ms": ms[1024],
                     "plain_ms": plain_ms[1024], "ms_q128": ms[128],
                     "plain_ms_q128": plain_ms[128], "cap": cap, "Q": 1024,
                     **a_bound(1024), "library_ms": lib[1024],
-                    **at_q(a_bound(128), 128), "library_ms_q128": lib[128]})
+                    **at_q(a_bound(128), 128), "library_ms_q128": lib[128],
+                    "tensor_core_share": tensor_core_share(2 * 1024 * nl * d, ms[1024])})
     del dec_t, norms, q16, qs
+
+    dw, capw, qw = 960, 1 << 20, 1024
+    dec_t = (torch.rand((dw, capw), generator=g, device=dev) * 0.08).to(torch.bfloat16)
+    norms = (dec_t.float() ** 2).sum(0)
+    q = torch.rand((qw, dw), generator=g, device=dev) * 0.08
+    v_k, l_k = H._unpack(H.replica_tile_keys(q, dec_t, norms), 0x7F)
+    v_t, l_t = H._unpack(H.replica_tile_keys_plain(q, dec_t, norms), 0x7F)
+    records[-1]["max_abs_err"] = max(records[-1]["max_abs_err"],
+                                     compare_keys(f"kernel A Q={qw} D={dw}", v_k, l_k, v_t, l_t))
+    wide = {"ms": cuda_ms(lambda: H.replica_tile_keys(q, dec_t, norms)),
+            "plain_ms": cuda_ms(lambda: H.replica_tile_keys_plain(q, dec_t, norms))}
+    q16 = q.to(torch.bfloat16)
+    wide["library_ms"] = cuda_ms(lambda: torch.matmul(q16, dec_t))
+    wide.update(bound(capw * dw * 2 + capw * 4 + qw * dw * 2 + qw * (capw // 128) * 4,
+                      2 * qw * capw * dw, "bf16"))
+    log(f"  kernel A Q={qw} D={dw} cap={capw}: kernel {wide['ms']:.3f} ms, plain "
+        f"{wide['plain_ms']:.3f} ms, torch.matmul {wide['library_ms']:.3f} ms")
+    records[-1].update(suffixed(wide, "d960"), cap_d960=capw,
+                       tensor_core_share_d960=tensor_core_share(2 * qw * capw * dw, wide["ms"]))
+    del dec_t, norms, q, q16, v_k, l_k, v_t, l_t
 
     cap_v, nwin, qn, u = 256, 10240, 32, 2048
     total = nwin * cap_v
@@ -438,10 +474,17 @@ def phase_kernels_i8(dev, g):
         log(f"  kernel F Q={qn} cap={cap} n_valid={n_valid}: kernel {ms[qn]:.3f} ms, "
             f"plain {plain_ms[qn]:.3f} ms")
     # the record's main shape is Q=128: at Q=1024 the product's int32
-    # output alone would take 64 GiB
+    # output alone would take 64 GiB, so there it is timed in column chunks
+    # of 2^20 (a 4 GiB output each, freed before the next) and summed
     q_i8, _ = HI.quantize_queries_i8(qs[128], scales)
     lib_ms = cuda_ms(lambda: torch._int_mm(q_i8, rows_all.T))
     log(f"  torch._int_mm (128, {d}) x ({d}, {cap}): {lib_ms:.3f} ms")
+    q_i8, _ = HI.quantize_queries_i8(qs[1024], scales)
+    chunk = 1 << 20
+    lib_ms_1024 = sum(cuda_ms(lambda: torch._int_mm(q_i8, rows_all[s0:s0 + chunk].T))
+                      for s0 in range(0, cap, chunk))
+    log(f"  torch._int_mm (1024, {d}) x ({d}, {cap}) in {cap // chunk} column chunks: "
+        f"{lib_ms_1024:.3f} ms")
     nl = live(norms)
 
     def f_bound(qn):
@@ -455,7 +498,7 @@ def phase_kernels_i8(dev, g):
                     "plain_ms": plain_ms[128], "ms_q1024": ms[1024],
                     "plain_ms_q1024": plain_ms[1024], "cap": cap, "n_valid": n_valid,
                     "Q": 128, **f_bound(128), "library_ms": lib_ms,
-                    **at_q(f_bound(1024), 1024)})
+                    **at_q(f_bound(1024), 1024), "library_ms_q1024": lib_ms_1024})
     del dec_w, norms, rows_all, q_i8
 
     cap_v, nwin, wv = 256, 20_480, 64
@@ -560,14 +603,17 @@ def phase_kernels_rowmajor(dev, g):
                      2 * qn * nl * d, "bf16")
 
     records.append({"name": "replica_scan_tile_minima", "route": "cuda",
-                    "source": "rii_tpu_torch/csrc/rowmajor_scan.cu",
+                    "source": "rii_tpu_torch/csrc/replica_tc.cu",
                     "replaces": "rii_tpu/ops/pallas_scan.py:128 _replica_scan_kernel",
                     "max_abs_err": err, "ms": ms["packed", 1024],
                     "plain_ms": plain["packed", 1024], "ms_q128": ms["packed", 128],
                     "plain_ms_q128": plain["packed", 128], "ms_exact": ms["exact", 1024],
                     "plain_ms_exact": plain["exact", 1024], "cap": cap, "Q": 1024,
                     **h_bound(1024), "library_ms": lib[1024],
-                    **at_q(h_bound(128), 128), "library_ms_q128": lib[128]})
+                    **at_q(h_bound(128), 128), "library_ms_q128": lib[128],
+                    "tensor_core_share": tensor_core_share(2 * 1024 * nl * d, ms["packed", 1024]),
+                    "tensor_core_share_exact": tensor_core_share(2 * 1024 * nl * d,
+                                                                 ms["exact", 1024])})
     del dec, norms, q16, qs
 
     # I: the ops-level int8 replica
@@ -784,7 +830,7 @@ def phase_engine(dev):
                              "the exact-mode walk")
     if results["ivf_L10000"][1] < 0.95:
         raise AssertionError(f"IVF recall@10 at L=10000 {results['ivf_L10000'][1]} < 0.95")
-    log("  stages: " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    log("  stages: " + json.dumps({k: round(v, 4) for k, v in stages.items()}))
     return launches, {"e": e, "x": x, "queries": queries, "gt": gt}
 
 

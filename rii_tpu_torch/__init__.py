@@ -6,9 +6,12 @@ kernels for NVIDIA Hopper on the bf16, int8 and pq query paths
 Module names follow ``rii_tpu`` so that each counterpart is easy to find.
 This package imports ``torch`` and never ``jax``.
 
-The device is always explicit: ``PQ(..., device="cuda")`` and ``Rii(pq)``
-(which takes the codec's device, or ``device=``). The default is ``"cpu"``;
-asking for CUDA without a card raises.
+The entry points run on the card unless the caller asks for the CPU:
+``PQ(...)``, ``PQ.from_codewords(...)``, ``pqkmeans_fit``,
+``pqkmeans_predict`` and ``engine_from_arrays`` default to
+``device="cuda"``, and ``Rii(pq)`` takes the codec's device (or
+``device=``). Asking for CUDA without a card raises; pass ``device="cpu"``
+to run on the CPU.
 """
 
 from rii_tpu_torch.models.pq import PQ

@@ -1,8 +1,8 @@
 """Device resolution shared by the codec and the engine.
 
-The device is always given by the caller (default ``"cpu"``) and is never
-detected. Asking for CUDA where no card is visible raises; nothing falls
-back to the CPU.
+The device is given by the caller (the entry points default to
+``"cuda"``) and is never detected. Asking for CUDA where no card is visible
+raises; nothing falls back to the CPU.
 """
 
 import torch

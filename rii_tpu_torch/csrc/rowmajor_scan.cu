@@ -1,8 +1,9 @@
-// Kernels H, I and J: the linear scans over row-major (cap, ...) arrays,
-// each reporting per 128-slot tile the best score and its slot.
+// Kernels I and J: the linear scans over row-major (cap, ...) int8 rows and
+// uint8 PQ codes, each reporting per 128-slot tile the best score and its
+// slot. (Kernel H, the bf16 rows, is the tensor-core kernel of
+// replica_tc.cu.)
 //
 // Replace rii_tpu/ops/pallas_scan.py
-//   H  _replica_scan_kernel (entry replica_scan_tile_minima): bf16 rows
 //   I  _replica_i8_kernel   (entry replica_i8_scan_tile_minima): int8 rows
 //   J  _scan_kernel         (entry pq_scan_tile_minima): uint8 PQ codes
 // On the TPU each is a (blk, D) x (D, Q) product on the MXU per grid step
@@ -18,9 +19,6 @@
 //     >= 2.9e38.
 //   exact: vmin is the exact minimum and amin the lowest slot among ties.
 //   norms (cap,) f32: ||decode||^2, +inf on padding and excluded slots.
-//   H: score = norm - 2 * (q . x); q (Q, D) and rows (cap, D) bf16, the
-//      products summed in float32 (exact products, sums in another order
-//      than XLA's).
 //   I: score = norm - 2 * float(cross) * alpha rounded once (an fma, as
 //      kernel F), cross the exact int32 dot of the int8 row (cap, D) and the
 //      per-query quantized query (words of 4 int8, zero past D); always
@@ -28,17 +26,17 @@
 //   J: score = norm - 2 * (q . decode(code)); codes (cap, M) uint8, the row
 //      decoded through the bf16 codebook cw (M, Ks, Ds), q bf16, f32 sums.
 //
-// Design. H and I: one block of 128 threads per tile, one thread per slot.
-// The tile's 128 rows are contiguous in device memory; the block stages them
-// in shared memory with coalesced 16-byte loads, at a row stride of an odd
+// Design. I: one block of 128 threads per tile, one thread per slot. The
+// tile's 128 rows are contiguous in device memory; the block stages them in
+// shared memory with coalesced 16-byte loads, at a row stride of an odd
 // number of 16-byte units, so the 16-byte loads of eight neighbouring threads
 // (one row each) fall in eight different bank groups. It then takes the
-// queries in passes of 32, staged in shared memory (H as float, I as int8
-// words with their alphas): each thread reads 8 (H) or 16 (I) dims of its
-// row with one 16-byte load and, per query, broadcast loads of the same dims
-// of the query, and keeps 32 sums in registers (H: float FMAs; I: __dp4a).
-// The tile reduce is a warp shuffle and a combine of the four warps' results
-// in shared memory. A tile is read from device memory once for all Q.
+// queries in passes of 32, staged in shared memory as int8 words with their
+// alphas: each thread reads 16 dims of its row with one 16-byte load and,
+// per query, broadcast loads of the same dims of the query, and keeps 32
+// sums in registers (__dp4a). The tile reduce is a warp shuffle and a
+// combine of the four warps' results in shared memory. A tile is read from
+// device memory once for all Q.
 // J: kernel C's ADC form. A block builds the float32 table
 //   T[m][k][q] = sum_{j < Ds} q[m*Ds + j] * cw[m][k][j]
 // for QB queries (8, or 4 when M * Ks is large) in shared memory, laid out
@@ -48,12 +46,11 @@
 // that share a run of slots are numbered consecutively, so the codes come
 // from device memory once and from L2 for the other query blocks.
 //
-// What bounds them on the H100. H: the float32 FMAs on the CUDA cores,
-// Q * cap * D of them (the 2 * cap * D bytes of rows matter below Q of a few
-// dozen). I: the __dp4a issue rate, Q * cap * D / 4. J: the shared-memory
-// lookups, Q * cap * M / 4 of 16 bytes; at M=32, Ks=256 the table of 4
-// queries takes 128 KiB, so one block of 16 warps runs on an SM. Tensor
-// cores (mma.sync / wgmma bf16 and s8) and TMA are for a later change.
+// What bounds them on the H100. I: the __dp4a issue rate, Q * cap * D / 4.
+// J: the shared-memory lookups, Q * cap * M / 4 of 16 bytes; at M=32,
+// Ks=256 the table of 4 queries takes 128 KiB, so one block of 16 warps
+// runs on an SM. Tensor cores (mma.sync / wgmma s8) and TMA are for a later
+// change.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,8 +59,8 @@
 
 namespace {
 
-constexpr int kTile = 128;   // slots per tile, and threads per block of H, I
-constexpr int kQT = 32;      // queries per pass of H and I
+constexpr int kTile = 128;   // slots per tile, and threads per block of I
+constexpr int kQT = 32;      // queries per pass of I
 constexpr int kJThreads = 512;
 constexpr int kJWarps = kJThreads / 32;
 constexpr int kJIters = 8;   // tiles per warp: a J block's run is 16 * 8 tiles
@@ -75,7 +72,7 @@ __device__ __forceinline__ float bf16f(uint32_t bits) { return __uint_as_float(b
 // A staged row of `bytes` bytes: rounded up to an odd number of 16-byte units.
 inline int row_stride(int bytes) { return (((bytes + 15) / 16) | 1) * 16; }
 
-// ---- the tile reduce, shared by the three kernels ------------------------
+// ---- the tile reduce, shared by the two kernels ------------------------
 // A candidate is (v, l): in packed mode v is the key (the lane rides in its
 // low bits), in exact mode v is the score and l the lane within the tile.
 
@@ -124,10 +121,9 @@ __device__ __forceinline__ void store_min(float v, int l, long long at, long lon
   }
 }
 
-// H and I: thread t holds the scores of slot t for the pass's kQT queries;
-// the block's minimum per query goes to (q0 + i, tile). Every thread of the
-// block must call it.
-template <bool kPacked>
+// I: thread t holds the scores of slot t for the pass's kQT queries; the
+// block's minimum packed key per query goes to (q0 + i, tile). Every thread
+// of the block must call it.
 __device__ __forceinline__ void block_tile_min(const float (&s)[kQT], int t, int q0, int Q,
                                                long long nt, long long tile, float* red_v,
                                                int* red_l, float* vmin, int* amin) {
@@ -136,8 +132,8 @@ __device__ __forceinline__ void block_tile_min(const float (&s)[kQT], int t, int
   for (int i = 0; i < kQT; ++i) {
     float v;
     int l;
-    cand<kPacked>(s[i], t, v, l);
-    warp_min<kPacked>(v, l);
+    cand<true>(s[i], t, v, l);
+    warp_min<true>(v, l);
     if ((t & 31) == 0) {
       red_v[warp * kQT + i] = v;
       red_l[warp * kQT + i] = l;
@@ -148,8 +144,8 @@ __device__ __forceinline__ void block_tile_min(const float (&s)[kQT], int t, int
     float v = red_v[t];
     int l = red_l[t];
 #pragma unroll
-    for (int w = 1; w < kTile / 32; ++w) take_min<kPacked>(v, l, red_v[w * kQT + t], red_l[w * kQT + t]);
-    store_min<kPacked>(v, l, static_cast<long long>(q0 + t) * nt + tile, tile, vmin, amin);
+    for (int w = 1; w < kTile / 32; ++w) take_min<true>(v, l, red_v[w * kQT + t], red_l[w * kQT + t]);
+    store_min<true>(v, l, static_cast<long long>(q0 + t) * nt + tile, tile, vmin, amin);
   }
 }
 
@@ -171,65 +167,6 @@ __device__ __forceinline__ void stage_rows(unsigned char* rows, const unsigned c
       const int c = i - r * rbp;
       rows[r * stride + c] = c < rb ? src[static_cast<long long>(r) * rb + c] : 0;
     }
-  }
-}
-
-// ---- H: bf16 rows --------------------------------------------------------
-
-template <bool kPacked>
-__global__ void __launch_bounds__(kTile)
-bf16_tile_minima_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ dec,
-                        const float* __restrict__ norms, float* __restrict__ vmin,
-                        int* __restrict__ amin, int Q, int D, int Dp, int stride, long long cap) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* rows = smem;                                                       // kTile x stride
-  float* qs = reinterpret_cast<float*>(smem + static_cast<size_t>(kTile) * stride);  // kQT x Dp
-  float* red_v = qs + kQT * Dp;                                                     // 4 x kQT
-  int* red_l = reinterpret_cast<int*>(red_v + 4 * kQT);
-  const long long tile = blockIdx.x;
-  const int t = threadIdx.x;
-  stage_rows(rows, reinterpret_cast<const unsigned char*>(dec + tile * kTile * D), 2 * D, 2 * Dp,
-             stride, t);
-  const float n = norms[tile * kTile + t];
-  const unsigned char* row = rows + t * stride;
-
-  for (int q0 = 0; q0 < Q; q0 += kQT) {
-    __syncthreads();  // rows staged; the previous pass is done with qs and red
-    for (int i = t; i < kQT * Dp; i += kTile) {
-      const int qi = i / Dp;
-      const int c = i - qi * Dp;
-      qs[i] = (q0 + qi < Q && c < D) ? bf16f(q[static_cast<long long>(q0 + qi) * D + c]) : 0.0f;
-    }
-    __syncthreads();
-    float acc[kQT];
-#pragma unroll
-    for (int i = 0; i < kQT; ++i) acc[i] = 0.0f;
-    for (int c = 0; c < Dp; c += 8) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(row + 2 * c);
-      const float x0 = bf16f(raw.x & 0xffffu), x1 = bf16f(raw.x >> 16);
-      const float x2 = bf16f(raw.y & 0xffffu), x3 = bf16f(raw.y >> 16);
-      const float x4 = bf16f(raw.z & 0xffffu), x5 = bf16f(raw.z >> 16);
-      const float x6 = bf16f(raw.w & 0xffffu), x7 = bf16f(raw.w >> 16);
-#pragma unroll
-      for (int i = 0; i < kQT; ++i) {
-        const float4 a = *reinterpret_cast<const float4*>(&qs[i * Dp + c]);
-        const float4 b = *reinterpret_cast<const float4*>(&qs[i * Dp + c + 4]);
-        float s = acc[i];
-        s = fmaf(x0, a.x, s);
-        s = fmaf(x1, a.y, s);
-        s = fmaf(x2, a.z, s);
-        s = fmaf(x3, a.w, s);
-        s = fmaf(x4, b.x, s);
-        s = fmaf(x5, b.y, s);
-        s = fmaf(x6, b.z, s);
-        s = fmaf(x7, b.w, s);
-        acc[i] = s;
-      }
-    }
-    float sc[kQT];
-#pragma unroll
-    for (int i = 0; i < kQT; ++i) sc[i] = n - 2.0f * acc[i];
-    block_tile_min<kPacked>(sc, t, q0, Q, cap / kTile, tile, red_v, red_l, vmin, amin);
   }
 }
 
@@ -282,7 +219,7 @@ i8_tile_minima_kernel(const int* __restrict__ q_w, const float* __restrict__ alp
     float sc[kQT];
 #pragma unroll
     for (int i = 0; i < kQT; ++i) sc[i] = __fmaf_rn(-2.0f * static_cast<float>(acc[i]), as[i], n);
-    block_tile_min<true>(sc, t, q0, Q, cap / kTile, tile, red_v, red_l, vmin, amin);
+    block_tile_min(sc, t, q0, Q, cap / kTile, tile, red_v, red_l, vmin, amin);
   }
 }
 
@@ -421,22 +358,6 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <bool kPacked>
-int launch_bf16(const void* q, const void* dec, const void* norms, void* vmin, void* amin, int Q,
-                int D, long long cap, cudaStream_t stream) {
-  const int Dp = (D + 7) / 8 * 8;
-  const int stride = row_stride(2 * Dp);
-  const size_t smem = static_cast<size_t>(kTile) * stride + static_cast<size_t>(kQT) * Dp * 4 +
-                      static_cast<size_t>(8) * kQT * 4;
-  const cudaError_t e = allow_smem(bf16_tile_minima_kernel<kPacked>, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  bf16_tile_minima_kernel<kPacked><<<static_cast<unsigned>(cap / kTile), kTile, smem, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(dec),
-      static_cast<const float*>(norms), static_cast<float*>(vmin), static_cast<int*>(amin), Q, D,
-      Dp, stride, cap);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int QB, bool kPacked>
 int launch_pq(const void* q, const void* codes, const void* norms, const void* cw, void* vmin,
               void* amin, int Q, int M, int Ks, int Ds, long long cap, cudaStream_t stream) {
@@ -460,15 +381,6 @@ bool bad_cap(long long cap) { return cap <= 0 || cap % kTile != 0 || cap >= (1LL
 
 // Each entry returns cudaGetLastError() after the launch (0 when it was
 // accepted), or cudaErrorInvalidValue for a shape it does not take.
-
-extern "C" int rii_rowmajor_bf16_tile_minima(const void* q, const void* dec, const void* norms,
-                                             void* vmin, void* amin, int Q, int D, long long cap,
-                                             int packed, void* stream) {
-  if (Q <= 0 || D <= 0 || bad_cap(cap)) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return packed ? launch_bf16<true>(q, dec, norms, vmin, amin, Q, D, cap, s)
-                : launch_bf16<false>(q, dec, norms, vmin, amin, Q, D, cap, s);
-}
 
 extern "C" int rii_rowmajor_i8_tile_minima(const void* q_w, const void* alpha, const void* dec,
                                            const void* norms, void* vmin, void* amin, int Q,

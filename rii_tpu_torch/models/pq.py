@@ -24,11 +24,11 @@ class PQ:
         Ks: codewords per sub-space, at most 256 so that codes fit in uint8.
         verbose: print training info.
         seed: seed of the ``torch.Generator`` that picks the k-means init.
-        device: where fit/encode/decode run ("cpu" or "cuda"); never
-            detected.
+        device: where fit/encode/decode run: "cuda" (the default; raises
+            where no card is visible) or "cpu". Never detected.
     """
 
-    def __init__(self, M, Ks=256, verbose=False, seed=123, device="cpu"):
+    def __init__(self, M, Ks=256, verbose=False, seed=123, device="cuda"):
         assert 0 < Ks <= 256, "Ks must be <= 256 so that each code fits in uint8"
         self.M = int(M)
         self.Ks = int(Ks)
@@ -40,7 +40,7 @@ class PQ:
         self.Ds = None
 
     @classmethod
-    def from_codewords(cls, codewords, verbose=False, device="cpu"):
+    def from_codewords(cls, codewords, verbose=False, device="cuda"):
         """A fitted codec from an existing (M, Ks, Ds) codeword array (for
         example one trained by ``rii_tpu.PQ``): codes decode identically."""
         codewords = np.ascontiguousarray(codewords, dtype=np.float32)

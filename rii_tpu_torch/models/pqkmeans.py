@@ -24,6 +24,7 @@ Semantics kept from the reference and the JAX module:
 import numpy as np
 import torch
 
+from rii_tpu_torch._device import resolve_device
 from rii_tpu_torch.ops.decode import onehot_decode
 
 _CANON_GROUPS = 8  # canonical reduction-group count (see module docstring)
@@ -72,10 +73,12 @@ def _update_centers(codewords, centers, sums, counts):
 
 
 def pqkmeans_fit(codewords, codes, k, iters=5, seed=0, block=4096,
-                 device="cpu", verbose=False):
+                 device="cuda", verbose=False):
     """Cluster (N, M) uint8 codes into k centers that are themselves codes.
 
+    Runs on ``device`` ("cuda" by default; raises where no card is visible).
     Returns (centers (k, M) uint8 numpy, assignments (N,) int32 numpy)."""
+    device = resolve_device(device)
     codes = np.asarray(codes)
     n = codes.shape[0]
     assert 1 <= k <= n, (k, n)
@@ -126,11 +129,13 @@ def pqkmeans_fit(codewords, codes, k, iters=5, seed=0, block=4096,
             assign.cpu().numpy().astype(np.int32))
 
 
-def pqkmeans_predict(codewords, centers, codes, device="cpu"):
-    """Nearest center of each (N, M) uint8 code: (N,) int32 numpy.
+def pqkmeans_predict(codewords, centers, codes, device="cuda"):
+    """Nearest center of each (N, M) uint8 code: (N,) int32 numpy, computed
+    on ``device`` ("cuda" by default; raises where no card is visible).
 
     With k <= 65535 the ids come back from the device as uint16 and are
     widened on the host."""
+    device = resolve_device(device)
     codes = np.asarray(codes)
     n = codes.shape[0]
     if n == 0:

@@ -10,11 +10,14 @@ windows:
 - **Kernel B**, :func:`ivf_window_tile_minima`, replaces
   ``_ivf_window_multi_kernel`` and ``_ivf_window_kernel``: per-8-slot top-2
   over the probed IVF windows.
-- **Kernel H**, :func:`replica_scan_tile_minima` (``csrc/rowmajor_scan.cu``),
-  replaces ``_replica_scan_kernel``: per-128-slot (min, argmin) over the
-  row-major (cap, D) bf16 replica, packed or exact. The engine reaches it
-  when a cache built in exact mode (``topk_recall=None``, which keeps the
+- **Kernel H**, :func:`replica_scan_tile_minima`, replaces
+  ``_replica_scan_kernel``: per-128-slot (min, argmin) over the row-major
+  (cap, D) bf16 replica, packed or exact. The engine reaches it when a
+  cache built in exact mode (``topk_recall=None``, which keeps the
   row-major replica) is queried after ``topk_recall`` is set again.
+
+A and H are one tensor-core kernel (``csrc/replica_tc.cu``), templated on
+the replica's layout; B is ``csrc/ivf_window.cu``.
 
 Each wrapper runs its plain twin for tensors on the CPU, and launches its
 kernel for CUDA tensors (or raises); it never falls back from one to the
@@ -86,13 +89,37 @@ def _on_cpu(*tensors):
     raise ValueError(f"tensors must all be on the CPU or all on CUDA, got {kinds}")
 
 
+def _check_replica(rep, norms, name, d, cap):
+    """Kernels A and H's rules for the bf16 replica and its norms, held on
+    both devices so that a twin takes what its kernel takes."""
+    _require(rep.dtype == torch.bfloat16 and rep.is_contiguous(),
+             f"{name} must be contiguous bf16")
+    _require(norms.dtype == torch.float32 and norms.is_contiguous(),
+             "norms must be contiguous float32")
+    _require(cap < 1 << 31, "cap must be below 2^31 (int32 slots)")
+
+
+def _tc_queries(queries):
+    """Queries as kernels A and H read them, which TMA can copy: bf16 rows
+    of a multiple of 8 elements (zero past D) from a 16-byte aligned base.
+    Returns (q16, ldq), ldq the row stride in elements."""
+    qn, d = queries.shape
+    ldq = -(-d // 8) * 8
+    q16 = queries.to(torch.bfloat16)
+    if ldq == d and q16.is_contiguous() and q16.data_ptr() % 16 == 0:
+        return q16, ldq
+    out = torch.zeros((qn, ldq), dtype=torch.bfloat16, device=queries.device)
+    out[:, :d] = q16
+    return out, ldq
+
+
 # --------------------------------------------------------------------------- #
 # Kernel A: packed per-128-slot keys over the transposed bf16 replica
 # --------------------------------------------------------------------------- #
 
 def replica_tile_keys_plain(queries, decoded_t, norms):
     """Plain twin of kernel A. queries (Q, D), decoded_t (D, cap) bf16,
-    norms (cap,) f32 -> keys (Q, cap/128) f32 (see csrc/replica_scan.cu).
+    norms (cap,) f32 -> keys (Q, cap/128) f32 (see csrc/replica_tc.cu).
     Works through cap in chunks, so no (Q, cap) float32 array is held."""
     qf = queries.to(torch.bfloat16).float()
     qn = qf.shape[0]
@@ -112,31 +139,32 @@ def replica_tile_keys_plain(queries, decoded_t, norms):
 def replica_tile_keys(queries, decoded_t, norms):
     """Kernel A: packed per-128-slot minimum keys (Q, cap/128).
 
-    queries (Q, D) (cast to bf16), decoded_t (D, cap) bf16 contiguous,
-    norms (cap,) f32 with +inf on padding and excluded slots. CPU tensors
-    take the plain twin; CUDA tensors launch the kernel."""
+    queries (Q, D) (cast to bf16), decoded_t (D, cap) bf16 contiguous and
+    16-byte aligned, any D, norms (cap,) f32 contiguous with +inf on
+    padding and excluded slots. These rules hold on both devices; CPU
+    tensors take the plain twin, CUDA tensors launch the kernel."""
     d, cap = decoded_t.shape
     _require(queries.dim() == 2 and queries.shape[1] == d,
              f"queries must be (Q, {d}), got {tuple(queries.shape)}")
     _require(norms.shape == (cap,), f"norms must be ({cap},)")
     _require(cap % _TILE == 0, f"cap={cap} must be a multiple of {_TILE}")
+    _check_replica(decoded_t, norms, "decoded_t", d, cap)
+    _require(decoded_t.data_ptr() % 16 == 0,
+             "decoded_t must start 16-byte aligned (its tiles are TMA copies)")
     if _on_cpu(queries, decoded_t, norms):
         return replica_tile_keys_plain(queries, decoded_t, norms)
-    _require(decoded_t.dtype == torch.bfloat16 and decoded_t.is_contiguous(),
-             "decoded_t must be contiguous bf16")
-    _require(norms.dtype == torch.float32 and norms.is_contiguous(),
-             "norms must be contiguous float32")
-    q16 = queries.to(torch.bfloat16).contiguous()
+    q16, ldq = _tc_queries(queries)
     qn = q16.shape[0]
     keys = torch.empty((qn, cap // _TILE), dtype=torch.float32,
                        device=decoded_t.device)
-    lib = _build.load_library("replica_scan")
-    fn = lib.rii_replica_tile_keys
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_longlong, ctypes.c_void_p]
+    lib = _build.load_library("replica_tc")
+    fn = lib.rii_tc_tile_keys
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    _build.check(fn(_ptr(q16), _ptr(decoded_t), _ptr(norms), _ptr(keys), qn,
-                    d, cap, _stream(decoded_t.device)), "replica_tile_keys")
+    _build.check(fn(_ptr(q16), ldq, _ptr(decoded_t), _ptr(norms), _ptr(keys),
+                    qn, d, cap, _stream(decoded_t.device)), "replica_tile_keys")
     replica_tile_keys.launches += 1
     return keys
 
@@ -270,7 +298,7 @@ def _tile_outputs(qn, cap, device):
 
 
 def replica_scan_tile_minima_plain(queries, decoded, norms_col, packed=True):
-    """Plain twin of kernel H (see csrc/rowmajor_scan.cu for the contract):
+    """Plain twin of kernel H (see csrc/replica_tc.cu for the contract):
     bf16 queries against the bf16 rows, products summed in float32."""
     qf = queries.to(torch.bfloat16).float()
     cap, d = decoded.shape
@@ -288,34 +316,31 @@ def replica_scan_tile_minima(queries, decoded, norms_col, blk=1024,
 
     queries (Q, D) (cast to bf16); decoded (cap, D) bf16; norms_col (cap, 1)
     f32 with +inf on padding and excluded slots; ``blk`` is checked as the
-    JAX entry checks it. Returns (vmin (Q, cap/128) f32 WITHOUT ||q||^2,
-    amin (Q, cap/128) int32 global slots); ``packed`` selects the packed-key
-    reduce (2^-16 relative values) or the exact one (lowest slot among
-    ties). CPU tensors take the plain twin; CUDA tensors launch the
-    kernel."""
+    JAX entry checks it. decoded and norms_col are contiguous (rules held on
+    both devices), any D. Returns (vmin (Q, cap/128) f32 WITHOUT
+    ||q||^2, amin (Q, cap/128) int32 global slots); ``packed`` selects the
+    packed-key reduce (2^-16 relative values) or the exact one (lowest slot
+    among ties). CPU tensors take the plain twin; CUDA tensors launch the
+    kernel (TMA for D % 8 == 0 on a 16-byte aligned replica, ordinary
+    loads otherwise)."""
     cap, d = decoded.shape
     _check_rowmajor(cap, blk, norms_col)
     _require(queries.dim() == 2 and queries.shape[1] == d,
              f"queries must be (Q, {d}), got {tuple(queries.shape)}")
+    _check_replica(decoded, norms_col, "decoded", d, cap)
     if _on_cpu(queries, decoded, norms_col):
         return replica_scan_tile_minima_plain(queries, decoded, norms_col,
                                               packed)
-    _require(decoded.dtype == torch.bfloat16 and decoded.is_contiguous(),
-             "decoded must be contiguous bf16")
-    _require(norms_col.dtype == torch.float32 and norms_col.is_contiguous(),
-             "norms_col must be contiguous float32")
-    _require(d <= 512, "D must be <= 512 (a tile's rows and a pass of "
-             "queries in shared memory)")
-    _require(cap < 1 << 31, "cap must be below 2^31 (int32 slots)")
-    q16 = queries.to(torch.bfloat16).contiguous()
+    q16, ldq = _tc_queries(queries)
     qn = q16.shape[0]
     vmin, amin = _tile_outputs(qn, cap, decoded.device)
-    lib = _build.load_library("rowmajor_scan")
-    fn = lib.rii_rowmajor_bf16_tile_minima
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+    lib = _build.load_library("replica_tc")
+    fn = lib.rii_tc_tile_minima
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 2
                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    _build.check(fn(_ptr(q16), _ptr(decoded), _ptr(norms_col), _ptr(vmin),
+    _build.check(fn(_ptr(q16), ldq, _ptr(decoded), _ptr(norms_col), _ptr(vmin),
                     _ptr(amin), qn, d, cap, int(bool(packed)),
                     _stream(decoded.device)), "replica_scan_tile_minima")
     replica_scan_tile_minima.launches += 1

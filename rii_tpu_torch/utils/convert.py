@@ -13,10 +13,11 @@ from rii_tpu_torch.rii import Rii
 
 
 def engine_from_arrays(codewords, codes, coarse_centers, assignments,
-                       device="cpu"):
+                       device="cuda"):
     """A configured :class:`Rii` from numpy arrays: codewords (M, Ks, Ds)
     float32, codes (N, M) uint8, coarse_centers (nlist, M) uint8 and
-    assignments (N,) int (the posting list of each id, -1 for none)."""
+    assignments (N,) int (the posting list of each id, -1 for none), on
+    ``device`` ("cuda" by default; raises where no card is visible)."""
     codes = np.ascontiguousarray(codes, dtype=np.uint8)
     assignments = np.asarray(assignments, dtype=np.int32)
     assert assignments.shape == (codes.shape[0],)

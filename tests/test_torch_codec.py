@@ -24,7 +24,7 @@ def data():
     rng = np.random.RandomState(0)
     X = rng.random((3000, 32)).astype(np.float32)
     jpq = JPQ(M=4, Ks=16).fit(X[:1000], iter=5)
-    return X, jpq, PQ.from_codewords(jpq.codewords)
+    return X, jpq, PQ.from_codewords(jpq.codewords, device="cpu")
 
 
 def test_encode_equal(data):
@@ -72,7 +72,7 @@ def _quantization_error(pq, X):
 
 def test_own_fit_quantization_error_within_5pct(data):
     X, jpq, _ = data
-    own = PQ(M=4, Ks=16).fit(X[:1000], iter=5)
+    own = PQ(M=4, Ks=16, device="cpu").fit(X[:1000], iter=5)
     assert own.codewords.shape == jpq.codewords.shape
     assert own.codewords.dtype == np.float32
     assert _quantization_error(own, X) <= 1.05 * _quantization_error(jpq, X)
@@ -80,8 +80,8 @@ def test_own_fit_quantization_error_within_5pct(data):
 
 def test_fit_is_reproducible_for_a_seed(data):
     X = data[0]
-    a = PQ(M=4, Ks=16, seed=3).fit(X[:500], iter=3)
-    b = PQ(M=4, Ks=16, seed=3).fit(X[:500], iter=3)
+    a = PQ(M=4, Ks=16, seed=3, device="cpu").fit(X[:500], iter=3)
+    b = PQ(M=4, Ks=16, seed=3, device="cpu").fit(X[:500], iter=3)
     assert a == b
 
 
@@ -89,3 +89,42 @@ def test_cuda_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         PQ(M=4, Ks=16, device="cuda")
+
+
+def _make_pq(cw):
+    return PQ(M=4, Ks=16)
+
+
+def _from_codewords(cw):
+    return PQ.from_codewords(cw)
+
+
+def _engine_from_arrays(cw):
+    from rii_tpu_torch.utils.convert import engine_from_arrays
+    codes = np.zeros((8, cw.shape[0]), np.uint8)
+    return engine_from_arrays(cw, codes, codes[:2], np.zeros(8, np.int32))
+
+
+def _pqkmeans_fit(cw):
+    from rii_tpu_torch.models.pqkmeans import pqkmeans_fit
+    return pqkmeans_fit(cw, np.zeros((8, cw.shape[0]), np.uint8), k=2)
+
+
+def _pqkmeans_predict(cw):
+    from rii_tpu_torch.models.pqkmeans import pqkmeans_predict
+    codes = np.zeros((8, cw.shape[0]), np.uint8)
+    return pqkmeans_predict(cw, codes[:2], codes)
+
+
+@pytest.mark.parametrize("entry", [_make_pq, _from_codewords, _engine_from_arrays,
+                                   _pqkmeans_fit, _pqkmeans_predict],
+                         ids=["PQ", "from_codewords", "engine_from_arrays",
+                              "pqkmeans_fit", "pqkmeans_predict"])
+def test_entry_points_default_to_the_card(data, monkeypatch, entry):
+    """With no ``device`` the entry points ask for the card, so where none
+    is visible they raise (torch.cuda.is_available is patched to False, so
+    that this holds on a machine with a card too); nothing falls back to
+    the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        entry(data[1].codewords)

@@ -39,7 +39,7 @@ def setup():
     engines = {}
     for mode in ("exact", "fast"):
         je = rii_tpu.Rii(jpq)
-        te = Rii(PQ.from_codewords(jpq.codewords))
+        te = Rii(PQ.from_codewords(jpq.codewords, device="cpu"))
         if mode == "exact":
             je.topk_recall = te.topk_recall = None
         else:
@@ -148,7 +148,7 @@ def test_ivf_widens_when_probes_find_too_few(setup):
 def test_engine_from_arrays_gives_jax_answers(setup):
     je, _ = setup["engines"]["exact"]
     ce = engine_from_arrays(je.codewords, je.codes, je.coarse_centers,
-                            je._assignments())
+                            je._assignments(), device="cpu")
     ce.topk_recall = None
     assert ce.posting_lists == je.posting_lists
     for method in ("linear", "ivf"):
@@ -160,7 +160,7 @@ def test_engine_from_arrays_gives_jax_answers(setup):
 def test_add_after_configure_rebuilds_cache(setup):
     """add() drops the cache; the rebuilt one answers as a fresh engine."""
     X = setup["X"]
-    te = Rii(PQ.from_codewords(setup["jpq"].codewords))
+    te = Rii(PQ.from_codewords(setup["jpq"].codewords, device="cpu"))
     te.topk_recall = None
     te.add_configure(X[:4000], nlist=NLIST, iter=3)
     te.query_batch(setup["Q"], topk=5)
@@ -183,7 +183,7 @@ def test_unported_tiers_raise(setup, scan_mode, kernel):
     F's twin, rii_tpu through Pallas interpret mode, both rescoring
     exactly."""
     je = rii_tpu.Rii(setup["jpq"])
-    te = Rii(PQ.from_codewords(setup["jpq"].codewords))
+    te = Rii(PQ.from_codewords(setup["jpq"].codewords, device="cpu"))
     je.scan_mode = te.scan_mode = scan_mode
     je.pallas_interpret = True
     te.force_kernel_routing = True
@@ -202,7 +202,7 @@ def test_ivf_falls_back_to_linear_before_the_window_tier_matters(setup):
     budget = 8192 * 160 + 16384 * 64  # the replica fits, bf16 windows do not
     X = setup["X"]
     je = rii_tpu.Rii(setup["jpq"])
-    te = Rii(PQ.from_codewords(setup["jpq"].codewords))
+    te = Rii(PQ.from_codewords(setup["jpq"].codewords, device="cpu"))
     je.scan_mode = te.scan_mode = "bf16"
     je.decoded_cache_budget = te.decoded_cache_budget = budget
     je.pallas_interpret = True
@@ -227,7 +227,7 @@ def pq_setup(setup):
     rng = np.random.RandomState(19)
     X = rng.random((PQ_N, D)).astype(np.float32)
     je = rii_tpu.Rii(setup["jpq"])
-    te = Rii(PQ.from_codewords(setup["jpq"].codewords))
+    te = Rii(PQ.from_codewords(setup["jpq"].codewords, device="cpu"))
     je.scan_mode = te.scan_mode = "pq"
     je.pallas_interpret = True
     te.force_kernel_routing = True
@@ -244,7 +244,7 @@ def test_int8_windows_raise_where_ivf_reads_them(setup, pq_setup, monkeypatch):
     import rii_tpu_torch.ops.ivf as TI
     budget = 32768 * 160 + 51200 * 64
     je = rii_tpu.Rii(setup["jpq"])
-    te = Rii(PQ.from_codewords(setup["jpq"].codewords))
+    te = Rii(PQ.from_codewords(setup["jpq"].codewords, device="cpu"))
     je.scan_mode = te.scan_mode = "bf16"
     je.decoded_cache_budget = te.decoded_cache_budget = budget
     je.pallas_interpret = True
@@ -299,7 +299,7 @@ def i8_setup(setup, pq_setup):
     """The int8 tier on its kernel routes (default budget: the int8 replica
     and int8 windows) over pq_setup's data, in both packages."""
     je = rii_tpu.Rii(setup["jpq"])
-    te = Rii(PQ.from_codewords(setup["jpq"].codewords))
+    te = Rii(PQ.from_codewords(setup["jpq"].codewords, device="cpu"))
     je.scan_mode = te.scan_mode = "int8"
     je.pallas_interpret = True
     te.force_kernel_routing = True
@@ -371,7 +371,7 @@ def test_int8_window_budget_counts_the_int8_replica(setup):
     port chose int8 windows beyond the budget)."""
     budget = 800_000  # cap*D = 524288, cap*(D+32) = 786432 at cap 8192
     je = rii_tpu.Rii(setup["jpq"])
-    te = Rii(PQ.from_codewords(setup["jpq"].codewords))
+    te = Rii(PQ.from_codewords(setup["jpq"].codewords, device="cpu"))
     je.scan_mode = te.scan_mode = "int8"
     je.decoded_cache_budget = te.decoded_cache_budget = budget
     je.pallas_interpret = True
@@ -403,7 +403,7 @@ def test_memory_breakdown_within_budget_at_int8_bands(setup, pq_setup, band,
     X = setup["X"] if budget == 800_000 else pq_setup["X"]
     nlist = NLIST if budget == 800_000 else PQ_NLIST
     je = rii_tpu.Rii(setup["jpq"])
-    te = Rii(PQ.from_codewords(setup["jpq"].codewords))
+    te = Rii(PQ.from_codewords(setup["jpq"].codewords, device="cpu"))
     je.scan_mode = te.scan_mode = scan_mode
     je.decoded_cache_budget = te.decoded_cache_budget = budget
     je.pallas_interpret = True
@@ -427,7 +427,7 @@ def test_memory_breakdown_within_budget_at_int8_bands(setup, pq_setup, band,
 def test_cuda_without_a_card_raises(setup, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
-        Rii(PQ.from_codewords(setup["jpq"].codewords), device="cuda")
+        Rii(PQ.from_codewords(setup["jpq"].codewords, device="cpu"), device="cuda")
 
 
 def test_imports_without_jax():
@@ -438,3 +438,58 @@ def test_imports_without_jax():
                          text=True, timeout=120,
                          cwd=Path(__file__).resolve().parents[1])
     assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("ds", [64, 65])
+def test_wide_rows_stay_on_kernels_a_and_h(ds):
+    """Kernels A and H take any D: on the kernel routes a bf16 replica of
+    rows wider than 512 (D = 8 * 65 = 520) is chosen as at D = 512, in both
+    modes, as rii_tpu chooses it (the replica fits the budget)."""
+    cw = np.random.RandomState(0).random((8, 16, ds)).astype(np.float32)
+    e = Rii(PQ.from_codewords(cw, device="cpu"))
+    e.scan_mode = "bf16"
+    e.force_kernel_routing = True
+    assert e._resolve_scan_mode(1024) == "bf16"
+    e.topk_recall = None
+    assert e._resolve_scan_mode(1024) == "bf16"
+
+
+def test_wide_rowmajor_cache_takes_kernel_h(monkeypatch):
+    """A cache built in exact mode over rows wider than 512 (D = 8 * 65 =
+    520) is scanned by kernel H (its twin here) once topk_recall is set
+    again, and answers as rii_tpu's K11 route (Pallas interpret mode) on the
+    same arrays: one candidate a 128-slot tile, rescored in exact ADC."""
+    import jax.numpy as jnp
+    from rii_tpu.ops import pallas_scan as P
+    from rii_tpu_torch import rii as port_rii
+
+    rng = np.random.RandomState(4)
+    cw = rng.random((8, 16, 65)).astype(np.float32)
+    codes = rng.randint(0, 16, (600, 8)).astype(np.uint8)
+    # queries away from the rows: distances of tens, so the float32 sums
+    # of a few hundred do not cancel below the tolerance
+    q = rng.random((5, 520)).astype(np.float32)
+    e = Rii(PQ.from_codewords(cw, device="cpu"))
+    e.scan_mode = "bf16"
+    e.force_kernel_routing = True
+    e.topk_recall = None
+    e.add_codes(codes)
+    e.reconfigure(nlist=4, iter=2)
+    e.query_batch(q, topk=5, method="linear")
+    dc = e._ensure_cache()
+    assert "decoded_flat" in dc
+    calls = []
+    real = port_rii.replica_scan_topk
+    monkeypatch.setattr(port_rii, "replica_scan_topk",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    e.topk_recall = 0.99
+    ids, dists = e.query_batch(q, topk=5, method="linear")
+    assert calls == [1]
+    d_j, i_j = P.replica_scan_topk(
+        jnp.asarray(q), jnp.asarray(dc["decoded_flat"].float().numpy()).astype(jnp.bfloat16),
+        jnp.asarray(dc["norms_flat"].numpy()[:, None]), topk=5,
+        blk=min(8192, dc["cap"]), interpret=True, recall_target=None,
+        packed=True, codes=jnp.asarray(dc["codes_flat"].numpy()),
+        codewords=jnp.asarray(dc["codewords"].float().numpy()))
+    assert_ranked_ids_match(ids, dists, np.asarray(i_j), np.asarray(d_j),
+                            rtol=RESCORE_RTOL)

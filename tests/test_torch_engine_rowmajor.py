@@ -46,7 +46,7 @@ def _engines(n):
     x = rng.random((n, D)).astype(np.float32)
     jpq = rii_tpu.PQ(M=8, Ks=32).fit(x[:1024], iter=3)
     je = rii_tpu.Rii(jpq)
-    te = Rii(PQ.from_codewords(jpq.codewords))
+    te = Rii(PQ.from_codewords(jpq.codewords, device="cpu"))
     te.force_kernel_routing = True
     for e in (je, te):
         e.scan_mode = "bf16"

@@ -52,6 +52,102 @@ def test_replica_tile_keys_matches_twin(cuda, qn, d):
     assert_keys_match(*_np(v_k, l_k, v_t, l_t))
 
 
+# The tensor-core kernel's edges (A and H): Q around its 64-row m-tile and
+# past 128 (two m-tiles a warpgroup), D below one 64-dim chunk, ragged
+# (70: H's loaded path), a multiple of 8 but not of 64 (72: H's TMA path)
+# and whole chunks; one tile or three. Wider D and Q cover the other
+# shared-memory configurations: up to D=512 the queries stay in shared
+# memory, past it they stream through the ring (962 and 1700 ragged: H's
+# loaded path, zero-padded queries).
+_TC_EDGES = ([(qn, d, cap) for qn in (1, 63, 65, 200) for d in (16, 70, 72, 128)
+              for cap in (128, 384)]
+             + [(300, 256, 384), (130, 200, 384), (70, 320, 384), (300, 512, 384)]
+             + [(1, 520, 384), (200, 520, 128), (65, 960, 384), (300, 962, 384),
+                (130, 1700, 384)])
+
+
+def _tc_scale(d):
+    """Input scale: 0.08 up to D=512, smaller past it so that the products
+    sum to no more than at D=512 (float32 sums in another order then differ
+    by no more than there, inside the tolerance with the key's 2^-16 step)."""
+    return 0.08 * min(1.0, (512 / d) ** 0.5)
+
+
+def _tc_replica(g, cap, d, cuda):
+    """A (cap, d) bf16 replica and (cap,) norms: with three tiles, tile 1's
+    norms are all +inf and tile 2's rows all equal (every slot ties); with
+    one, its last 40 slots are +inf. Returns (rows, norms, tied slot)."""
+    dec = (torch.rand((cap, d), generator=g, device=cuda) * _tc_scale(d)).to(torch.bfloat16)
+    tied = None
+    if cap >= 384:
+        dec[256:384] = dec[256]
+        tied = 256
+    norms = (dec.float() ** 2).sum(1)
+    if cap >= 384:
+        # equal rows, equal norms: a float32 row sum may round differently
+        # from row to row when the rows' alignment differs (D=962)
+        norms[256:384] = norms[256]
+        norms[128:256] = float("inf")
+    else:
+        norms[-40:] = float("inf")
+    return dec, norms, tied
+
+
+@pytest.mark.parametrize("qn,d,cap", _TC_EDGES)
+def test_replica_tile_keys_edges(cuda, qn, d, cap):
+    g = torch.Generator(device=cuda).manual_seed(qn * 1000 + d)
+    dec, norms, tied = _tc_replica(g, cap, d, cuda)
+    dec_t = dec.T.contiguous()
+    q = torch.rand((qn, d), generator=g, device=cuda) * _tc_scale(d)
+    before = H.replica_tile_keys.launches
+    k = H.replica_tile_keys(q, dec_t, norms)
+    torch.cuda.synchronize()
+    assert H.replica_tile_keys.launches == before + 1
+    t = H.replica_tile_keys_plain(q, dec_t, norms)
+    v_k, l_k = H._unpack(k, 0x7F)
+    v_t, l_t = H._unpack(t, 0x7F)
+    assert_keys_match(*_np(v_k, l_k, v_t, l_t))
+    pad = ~torch.isfinite(v_t)
+    assert torch.equal(l_k[pad], l_t[pad])
+    if tied is not None:  # the tied tile's key: its sign decides which lane wins
+        assert torch.equal(l_k[:, 2], l_t[:, 2])
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "exact"])
+@pytest.mark.parametrize("qn,d,cap", _TC_EDGES)
+def test_replica_scan_tile_minima_edges(cuda, monkeypatch, qn, d, cap, packed):
+    """Kernel H below the JAX entries' 1024-slot block rule (the kernel
+    itself steps by 128 slots): the wrapper without its blk check."""
+    monkeypatch.setattr(H, "_check_rowmajor", lambda cap, blk, norms_col: None)
+    g = torch.Generator(device=cuda).manual_seed(qn * 1000 + d + 7)
+    dec, norms, tied = _tc_replica(g, cap, d, cuda)
+    norms = norms[:, None].contiguous()
+    q = torch.rand((qn, d), generator=g, device=cuda) * _tc_scale(d)
+    before = H.replica_scan_tile_minima.launches
+    v_k, a_k = H.replica_scan_tile_minima(q, dec, norms, packed=packed)
+    torch.cuda.synchronize()
+    assert H.replica_scan_tile_minima.launches == before + 1
+    v_t, a_t = H.replica_scan_tile_minima_plain(q, dec, norms, packed=packed)
+    _assert_minima(v_k, a_k, v_t, a_t, None if packed else tied)
+    if tied is not None:
+        assert torch.equal(a_k[:, 2], a_t[:, 2])
+
+
+def test_replica_scan_tile_minima_misaligned_rows(cuda):
+    """D=128 rows whose base is not 16-byte aligned take the loaded path."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    cap, d = 1 << 12, 128
+    buf = (torch.rand(cap * d + 1, generator=g, device=cuda) * 0.08).to(torch.bfloat16)
+    dec = buf[1:].view(cap, d)
+    assert dec.data_ptr() % 16 != 0
+    norms = (dec.float() ** 2).sum(1, keepdim=True)
+    q = torch.rand((100, d), generator=g, device=cuda) * 0.08
+    for packed in (True, False):
+        v_k, a_k = H.replica_scan_tile_minima(q, dec, norms, packed=packed)
+        v_t, a_t = H.replica_scan_tile_minima_plain(q, dec, norms, packed=packed)
+        _assert_minima(v_k, a_k, v_t, a_t)
+
+
 @pytest.mark.parametrize("d,cap_v,with_pen", [(37, 40, True), (128, 256, False)])
 def test_ivf_window_matches_twin(cuda, d, cap_v, with_pen):
     g = torch.Generator(device=cuda).manual_seed(d)

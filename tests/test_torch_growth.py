@@ -39,7 +39,7 @@ def _data(seed, *sizes):
 
 
 def _engine(cw, tier, exact=False):
-    e = Rii(PQ.from_codewords(cw))
+    e = Rii(PQ.from_codewords(cw, device="cpu"))
     e.scan_mode = tier
     e.force_kernel_routing = True
     if exact:
@@ -279,6 +279,6 @@ def test_merge(cw, tier):
     ids_e, d_e = e1.query_batch(q, topk=5, method="linear")
     _assert_close_to(ids_e, d_e, *j1.query_batch(q, topk=5, method="linear"))
     assert (ids_e[:, 0] >= 3000).mean() >= 0.75
-    other = Rii(PQ(M=4, Ks=32).fit(X1[:500], iter=2))
+    other = Rii(PQ(M=4, Ks=32, device="cpu").fit(X1[:500], iter=2))
     with pytest.raises(AssertionError):
         e1.merge(other)

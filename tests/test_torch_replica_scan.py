@@ -133,3 +133,54 @@ def test_wrapper_rejects_bad_shapes(replica):
     with pytest.raises(ValueError):
         H.replica_tile_keys(torch.zeros((2, D)), replica["dec_t"][:, :100],
                             torch.from_numpy(replica["norms"][:100]))
+
+
+def test_wrapper_rejects_what_the_kernel_cannot_read(replica):
+    """The rules of kernel A's replica hold on both devices: contiguous,
+    16-byte aligned bf16 (its tiles are TMA copies) and contiguous float32
+    norms. Any D is taken."""
+    q = torch.zeros((2, D))
+    norms = torch.from_numpy(replica["norms"])
+    dec_t = replica["dec_t"]
+    buf = torch.zeros(D * CAP + 1, dtype=torch.bfloat16)
+    misaligned = buf[1:].view(D, CAP)
+    assert misaligned.is_contiguous() and misaligned.data_ptr() % 16 != 0
+    cases = [
+        (q, misaligned, norms),
+        (q, dec_t.T.contiguous().T, norms),  # non-contiguous (D, cap)
+        (q, dec_t.float(), norms),
+        (q, dec_t, norms.double()),
+        (q, dec_t, torch.stack([norms, norms], 1)[:, 0]),  # strided norms
+    ]
+    for args in cases:
+        with pytest.raises(ValueError):
+            H.replica_tile_keys(*args)
+    H.replica_tile_keys(q, dec_t, norms)  # the same inputs, well formed
+
+
+@pytest.mark.parametrize("d", [70, 520, 960])
+def test_wide_rows_take_kernel_a(d):
+    """Rows wider than 512 (whose queries the kernel streams through its
+    ring) are taken as any other D, and give the twin's keys."""
+    rng = np.random.RandomState(d)
+    dec_t = torch.from_numpy(rng.random((d, 256)).astype(np.float32) * 0.1).to(torch.bfloat16)
+    norms = (dec_t.float() ** 2).sum(0)
+    q = torch.from_numpy(rng.random((3, d)).astype(np.float32) * 0.1)
+    assert torch.equal(H.replica_tile_keys(q, dec_t, norms),
+                       H.replica_tile_keys_plain(q, dec_t, norms))
+
+
+@pytest.mark.parametrize("d,offset", [(64, 0), (64, 1), (70, 0), (960, 3)])
+def test_kernel_queries_are_tma_rows(d, offset):
+    """The queries handed to kernels A and H: bf16 rows of a multiple of 8
+    elements, zero past D, from a 16-byte aligned base, equal to the
+    queries cast to bf16 (a view of the input where it already is so)."""
+    buf = torch.from_numpy(np.random.RandomState(d).random(5 * d + offset).astype(np.float32))
+    src = buf[offset:].view(5, d).to(torch.bfloat16)
+    q16, ldq = H._tc_queries(src)
+    assert ldq % 8 == 0 and d <= ldq < d + 8 and q16.shape == (5, ldq)
+    assert q16.dtype == torch.bfloat16 and q16.is_contiguous()
+    assert q16.data_ptr() % 16 == 0
+    assert torch.equal(q16[:, :d], src) and not q16[:, d:].any()
+    if ldq == d and src.data_ptr() % 16 == 0:
+        assert q16.data_ptr() == src.data_ptr()

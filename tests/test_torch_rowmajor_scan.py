@@ -318,3 +318,47 @@ def test_wrappers_reject_bad_shapes(data):
     with pytest.raises(ValueError):
         HP.pq_scan_tile_minima(q, data["codes_t"][:, :4], data["nc_t"],
                                data["cwp_t"])
+
+
+def test_kernel_h_wrapper_rules(data):
+    """Kernel H's replica: contiguous bf16 rows and contiguous float32
+    norms, on both devices, any D; rows need no alignment (the kernel loads
+    unaligned rows itself), and such rows give the aligned result."""
+    q = torch.from_numpy(_queries(data, 2))
+    dec, nc = data["dec_t"], data["nc_t"]
+    for bad in (dec.T.contiguous().T, dec.float()):
+        with pytest.raises(ValueError):
+            H.replica_scan_tile_minima(q, bad, nc)
+    with pytest.raises(ValueError):
+        H.replica_scan_tile_minima(q, dec, nc.double())
+    buf = torch.zeros(CAP * D + 1, dtype=torch.bfloat16)
+    shifted = buf[1:].view(CAP, D)
+    shifted.copy_(dec)
+    assert shifted.data_ptr() % 16 != 0
+    v, a = H.replica_scan_tile_minima(q, shifted, nc)
+    v0, a0 = H.replica_scan_tile_minima(q, dec, nc)
+    assert torch.equal(v, v0) and torch.equal(a, a0)
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "exact"])
+def test_wide_rows_take_kernel_h(packed):
+    """Rows wider than 512 (D = 520, whose queries the kernel streams
+    through its ring) give rii_tpu's K11 tile minima within TOL, slots
+    equal or tied within TOL in float64, as at D = 64."""
+    rng = np.random.RandomState(520)
+    cap, d = 1024, 520
+    dec16 = torch.from_numpy((rng.random((cap, d)) * 0.1).astype(np.float32)).to(torch.bfloat16)
+    nc = (dec16.float() ** 2).sum(1, keepdim=True)
+    q = (rng.random((4, d)) * 0.1).astype(np.float32)
+    v, a = H.replica_scan_tile_minima(torch.from_numpy(q), dec16, nc,
+                                      packed=packed)
+    vj, aj = P.replica_scan_tile_minima(
+        jnp.asarray(q), jnp.asarray(dec16.float().numpy()).astype(jnp.bfloat16),
+        jnp.asarray(nc.numpy()), blk=BLK, interpret=True, packed=packed)
+    vj, aj = np.asarray(vj), np.asarray(aj)
+    np.testing.assert_allclose(v.numpy(), vj, rtol=TOL, atol=TOL)
+    s64 = (nc.double().numpy()[:, 0][None, :] - 2.0 * torch.from_numpy(q)
+           .to(torch.bfloat16).double().numpy() @ dec16.double().numpy().T)
+    qi, ti = np.nonzero(a.numpy() != aj)
+    np.testing.assert_allclose(s64[qi, a.numpy()[qi, ti]], s64[qi, aj[qi, ti]],
+                               rtol=TOL, atol=TOL)
