@@ -14,10 +14,11 @@ Phases, each of which must pass (no exception is caught):
    with CUDA events (median of 7), beside its bound (the larger of its
    bytes over 3.35 TB/s and its operations over the dense peak of their
    type) and, for kernels A, F, H and I, the time of one PyTorch call that
-   computes the scores' product (not the tile reduce). Kernels A and H (one
-   tensor-core kernel) also report their share of the bf16 tensor-core peak
-   at Q=1024 (``tensor_core_share``), and A its time at a GIST-shaped D=960
-   (``*_d960``), where the kernel streams the queries through its ring.
+   computes the scores' product (not the tile reduce). Kernels A and H also
+   report their share of the bf16 tensor-core peak at Q=1024
+   (``tensor_core_share``), and A and F their time at a GIST-shaped D=960
+   (``*_d960``; not a gate). A, H, F and I are one tensor-core kernel, on
+   bf16 or int8 operands; F and I must be bit-equal to their twins.
 4. Small reference: a CUDA engine against a CPU engine on the same codes.
 5. Engine: the bf16 path through the public API at a SIFT-shaped config
    (N=2,000,000, D=128, M=32, Ks=256, nlist=1000, topk=10): PQ fit,
@@ -119,6 +120,12 @@ def live(norms):
     return int(torch.isfinite(norms).sum())
 
 
+def live_norm_bytes(n_valid):
+    """Bytes of norms a scan that skips the padding-only tiles reads: those
+    of the 128-slot tiles below ``n_valid``."""
+    return -(-n_valid // 128) * 128 * 4
+
+
 def cuda_ms(fn, reps=7):
     """Median milliseconds of fn() over reps runs, timed with CUDA events."""
     fn()
@@ -191,7 +198,7 @@ def phase_card():
 def phase_build():
     from rii_tpu_torch.ops import _build
     names = ("replica_tc", "ivf_window", "pq_scan", "ivf_pq_window",
-             "replica_i8_scan", "ivf_i8_window", "rowmajor_scan")
+             "ivf_i8_window", "rowmajor_scan")
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(lambda nm: _build.load_library(nm, verbose=True), names))
@@ -355,8 +362,8 @@ def phase_kernels_pq(dev, g):
     nl = live(norms)
 
     def c_bound(qn):
-        return bound(nl * m + cap * 4 + m * ks * ds * 2 + qn * d * 2 + qn * (cap // 128) * 4,
-                     2 * qn * nl * d, "bf16")
+        return bound(nl * m + live_norm_bytes(n_valid) + m * ks * ds * 2 + qn * d * 2
+                     + qn * (cap // 128) * 4, 2 * qn * nl * d, "bf16")
 
     records.append({"name": "pq_tile_keys", "route": "cuda",
                     "source": "rii_tpu_torch/csrc/pq_scan.cu",
@@ -427,7 +434,8 @@ def phase_kernels_i8(dev, g):
     """Kernels F and G against their twins at the int8 phases' shapes
     (D=128). Kernel F at Q=128 and 1024 over the 10M band's cap=2^24 with
     n_valid = 10,000,000 + 100,000, as the engine passes it after the add
-    (+inf norms past it). Kernel G at Q=8 and 64 over the unions the 4M
+    (+inf norms past it), and at Q=1024 over a GIST-shaped replica (D=960,
+    2^20 slots). Kernel G at Q=8 and 64 over the unions the 4M
     band builds (Q*64 windows of 256 rows out of ~20k), drawn from a pool
     four times the union's size (duplicates), with vlen padding, with and
     without a pen stream. Rows are random int8 with column scales below
@@ -438,18 +446,29 @@ def phase_kernels_i8(dev, g):
     d, records = 128, []
     scales = torch.rand(d, generator=g, device=dev) * (0.1 / 127) + 1e-5
 
-    def rows_of(n):
-        rows = torch.randint(-127, 128, (n, d), generator=g, device=dev,
+    def rows_of(n, dim=d, sc=scales):
+        rows = torch.randint(-127, 128, (n, dim), generator=g, device=dev,
                              dtype=torch.int32).to(torch.int8)
-        return rows, ((rows.float() * scales) ** 2).sum(1)
+        return rows, ((rows.float() * sc) ** 2).sum(1)
+
+    def check_f(label, q, rows, sc, norms, **kw):
+        keys_k = HI.replica_i8_tile_keys(q, rows, sc, norms, **kw)
+        keys_t = HI.replica_i8_tile_keys_plain(q, rows, sc, norms)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(keys_k.view(torch.int32), keys_t.view(torch.int32)))
+        v_k, l_k = H._unpack(keys_k, 0x7F)
+        v_t, l_t = H._unpack(keys_t, 0x7F)
+        del keys_k, keys_t
+        err = compare_keys(label, v_k, l_k, v_t, l_t)
+        if not same:
+            raise AssertionError(f"{label}: keys not bit-equal to the twin's")
+        return err
 
     cap, n_valid = 1 << 24, 10_100_000
-    dec_w = torch.empty((d // 4, cap), dtype=torch.int32, device=dev)
-    rows_all = torch.empty((cap, d), dtype=torch.int8, device=dev)  # for _int_mm
+    rows_all = torch.empty((cap, d), dtype=torch.int8, device=dev)  # the replica
     norms = torch.empty(cap, device=dev)
     for s0 in range(0, cap, 1 << 22):
         rows, nr = rows_of(1 << 22)
-        dec_w[:, s0:s0 + (1 << 22)] = HI.pack_words(rows).T
         rows_all[s0:s0 + (1 << 22)] = rows
         norms[s0:s0 + (1 << 22)] = nr
     del rows, nr
@@ -458,21 +477,14 @@ def phase_kernels_i8(dev, g):
     ms, plain_ms, errs, qs = {}, {}, [], {}
     for qn in (128, 1024):
         q = qs[qn] = torch.rand((qn, d), generator=g, device=dev) * 0.1
-        keys_k = HI.replica_i8_tile_keys(q, dec_w, scales, norms, n_valid=n_valid)
-        keys_t = HI.replica_i8_tile_keys_plain(q, dec_w, scales, norms)
-        torch.cuda.synchronize()
-        same = (keys_k.view(torch.int32) == keys_t.view(torch.int32)).float().mean().item()
-        v_k, l_k = H._unpack(keys_k, 0x7F)
-        v_t, l_t = H._unpack(keys_t, 0x7F)
-        del keys_k, keys_t
-        errs.append(compare_keys(f"kernel F Q={qn} n_valid={n_valid}", v_k, l_k, v_t, l_t))
-        log(f"  kernel F Q={qn}: keys bit-equal to the twin's on {same:.6f} of tiles")
-        del v_k, l_k, v_t, l_t
-        ms[qn] = cuda_ms(lambda: HI.replica_i8_tile_keys(q, dec_w, scales, norms,
+        errs.append(check_f(f"kernel F Q={qn} n_valid={n_valid}", q, rows_all, scales,
+                            norms, n_valid=n_valid))
+        ms[qn] = cuda_ms(lambda: HI.replica_i8_tile_keys(q, rows_all, scales, norms,
                                                          n_valid=n_valid))
-        plain_ms[qn] = cuda_ms(lambda: HI.replica_i8_tile_keys_plain(q, dec_w, scales, norms))
+        plain_ms[qn] = cuda_ms(lambda: HI.replica_i8_tile_keys_plain(q, rows_all, scales,
+                                                                     norms))
         log(f"  kernel F Q={qn} cap={cap} n_valid={n_valid}: kernel {ms[qn]:.3f} ms, "
-            f"plain {plain_ms[qn]:.3f} ms")
+            f"plain {plain_ms[qn]:.3f} ms (keys bit-equal)")
     # the record's main shape is Q=128: at Q=1024 the product's int32
     # output alone would take 64 GiB, so there it is timed in column chunks
     # of 2^20 (a 4 GiB output each, freed before the next) and summed
@@ -488,10 +500,11 @@ def phase_kernels_i8(dev, g):
     nl = live(norms)
 
     def f_bound(qn):
-        return bound(nl * d + cap * 4 + qn * d + qn * (cap // 128) * 4, 2 * qn * nl * d, "int8")
+        return bound(nl * d + live_norm_bytes(n_valid) + qn * d + qn * 4
+                     + qn * (cap // 128) * 4, 2 * qn * nl * d, "int8")
 
     records.append({"name": "replica_i8_tile_keys", "route": "cuda",
-                    "source": "rii_tpu_torch/csrc/replica_i8_scan.cu",
+                    "source": "rii_tpu_torch/csrc/replica_tc.cu",
                     "replaces": "rii_tpu/ops/pallas_scan.py:538 _replica_i8t_kernel, "
                                 ":559 _replica_i8tn_kernel",
                     "max_abs_err": max(errs), "ms": ms[128],
@@ -499,7 +512,25 @@ def phase_kernels_i8(dev, g):
                     "plain_ms_q1024": plain_ms[1024], "cap": cap, "n_valid": n_valid,
                     "Q": 128, **f_bound(128), "library_ms": lib_ms,
                     **at_q(f_bound(1024), 1024), "library_ms_q1024": lib_ms_1024})
-    del dec_w, norms, rows_all, q_i8
+    del norms, rows_all, q_i8, qs
+
+    # F at the GIST shape of kernel A's record (not a gate)
+    dw, capw, qw = 960, 1 << 20, 1024
+    sw = torch.rand(dw, generator=g, device=dev) * (0.1 / 127) + 1e-5
+    rows, norms = rows_of(capw, dw, sw)
+    q = torch.rand((qw, dw), generator=g, device=dev) * 0.1
+    records[-1]["max_abs_err"] = max(records[-1]["max_abs_err"],
+                                     check_f(f"kernel F Q={qw} D={dw}", q, rows, sw, norms))
+    wide = {"ms": cuda_ms(lambda: HI.replica_i8_tile_keys(q, rows, sw, norms)),
+            "plain_ms": cuda_ms(lambda: HI.replica_i8_tile_keys_plain(q, rows, sw, norms))}
+    q_i8, _ = HI.quantize_queries_i8(q, sw)
+    wide["library_ms"] = cuda_ms(lambda: torch._int_mm(q_i8, rows.T))
+    wide.update(bound(capw * dw + capw * 4 + qw * dw + qw * 4 + qw * (capw // 128) * 4,
+                      2 * qw * capw * dw, "int8"))
+    log(f"  kernel F Q={qw} D={dw} cap={capw}: kernel {wide['ms']:.3f} ms, plain "
+        f"{wide['plain_ms']:.3f} ms, torch._int_mm {wide['library_ms']:.3f} ms")
+    records[-1].update(suffixed(wide, "d960"), cap_d960=capw)
+    del rows, norms, q, q_i8
 
     cap_v, nwin, wv = 256, 20_480, 64
     dec_g, _ = rows_of(nwin * cap_v)
@@ -637,7 +668,7 @@ def phase_kernels_rowmajor(dev, g):
                      2 * qn * nl * d, "int8")
 
     records.append({"name": "replica_i8_scan_tile_minima", "route": "cuda",
-                    "source": "rii_tpu_torch/csrc/rowmajor_scan.cu",
+                    "source": "rii_tpu_torch/csrc/replica_tc.cu",
                     "replaces": "rii_tpu/ops/pallas_scan.py:669 _replica_i8_kernel",
                     "max_abs_err": err, "ms": ms[None, 1024], "plain_ms": plain[None, 1024],
                     "ms_q128": ms[None, 128], "plain_ms_q128": plain[None, 128],
@@ -1197,7 +1228,7 @@ def phase_engine_i8_replica(dev):
         "n_add": 100_000, "n_subset": 1_000_000, "ivf_qs": (8, 64), "ivf_L0s": 2,
         "tiers": ("int8", "pq"), "linear": "replica_i8_tile_keys",
         "linear_exact": True, "ivf": lambda qn: "ivf_dt_window_top2",
-        "budget_keys": ("decoded_i8_t",)})
+        "budget_keys": ("decoded_i8",)})
 
 
 def phase_engine_i8_windows(dev):

@@ -1,15 +1,13 @@
-// Kernels I and J: the linear scans over row-major (cap, ...) int8 rows and
-// uint8 PQ codes, each reporting per 128-slot tile the best score and its
-// slot. (Kernel H, the bf16 rows, is the tensor-core kernel of
+// Kernel J: the linear scan over row-major (cap, M) uint8 PQ codes,
+// reporting per 128-slot tile the best score and its slot. (Kernels H and
+// I, the row-major bf16 and int8 rows, are the tensor-core kernel of
 // replica_tc.cu.)
 //
-// Replace rii_tpu/ops/pallas_scan.py
-//   I  _replica_i8_kernel   (entry replica_i8_scan_tile_minima): int8 rows
-//   J  _scan_kernel         (entry pq_scan_tile_minima): uint8 PQ codes
-// On the TPU each is a (blk, D) x (D, Q) product on the MXU per grid step
-// followed by a reduce over the 128 rows of each tile.
+// Replaces rii_tpu/ops/pallas_scan.py _scan_kernel (entry
+// pq_scan_tile_minima). On the TPU it is a (blk, D) x (D, Q) product on the
+// MXU per grid step followed by a reduce over the 128 rows of each tile.
 //
-// Contract (the Pallas kernels'):
+// Contract (the Pallas kernel's):
 //   vmin, amin (Q, cap/128): per 128-slot tile the minimum over its slots of
 //     the score (without ||q||^2) as f32, and its global slot
 //     tile * 128 + lane as int32.
@@ -19,25 +17,10 @@
 //     >= 2.9e38.
 //   exact: vmin is the exact minimum and amin the lowest slot among ties.
 //   norms (cap,) f32: ||decode||^2, +inf on padding and excluded slots.
-//   I: score = norm - 2 * float(cross) * alpha rounded once (an fma, as
-//      kernel F), cross the exact int32 dot of the int8 row (cap, D) and the
-//      per-query quantized query (words of 4 int8, zero past D); always
-//      packed. Bit-equal to the twin and to the Pallas kernel on the CPU.
-//   J: score = norm - 2 * (q . decode(code)); codes (cap, M) uint8, the row
-//      decoded through the bf16 codebook cw (M, Ks, Ds), q bf16, f32 sums.
+//   score = norm - 2 * (q . decode(code)); codes (cap, M) uint8, the row
+//     decoded through the bf16 codebook cw (M, Ks, Ds), q bf16, f32 sums.
 //
-// Design. I: one block of 128 threads per tile, one thread per slot. The
-// tile's 128 rows are contiguous in device memory; the block stages them in
-// shared memory with coalesced 16-byte loads, at a row stride of an odd
-// number of 16-byte units, so the 16-byte loads of eight neighbouring threads
-// (one row each) fall in eight different bank groups. It then takes the
-// queries in passes of 32, staged in shared memory as int8 words with their
-// alphas: each thread reads 16 dims of its row with one 16-byte load and,
-// per query, broadcast loads of the same dims of the query, and keeps 32
-// sums in registers (__dp4a). The tile reduce is a warp shuffle and a
-// combine of the four warps' results in shared memory. A tile is read from
-// device memory once for all Q.
-// J: kernel C's ADC form. A block builds the float32 table
+// Design: kernel C's ADC form. A block builds the float32 table
 //   T[m][k][q] = sum_{j < Ds} q[m*Ds + j] * cw[m][k][j]
 // for QB queries (8, or 4 when M * Ks is large) in shared memory, laid out
 // [m][q/4][k] as float4, then each warp walks 128-slot tiles: it stages the
@@ -46,11 +29,10 @@
 // that share a run of slots are numbered consecutively, so the codes come
 // from device memory once and from L2 for the other query blocks.
 //
-// What bounds them on the H100. I: the __dp4a issue rate, Q * cap * D / 4.
-// J: the shared-memory lookups, Q * cap * M / 4 of 16 bytes; at M=32,
-// Ks=256 the table of 4 queries takes 128 KiB, so one block of 16 warps
-// runs on an SM. Tensor cores (mma.sync / wgmma s8) and TMA are for a later
-// change.
+// What bounds it on the H100: the shared-memory lookups, Q * cap * M / 4 of
+// 16 bytes; at M=32, Ks=256 the table of 4 queries takes 128 KiB, so one
+// block of 16 warps runs on an SM. Tensor cores (the decoded tile fed to
+// wgmma) are for a later change.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,8 +41,7 @@
 
 namespace {
 
-constexpr int kTile = 128;   // slots per tile, and threads per block of I
-constexpr int kQT = 32;      // queries per pass of I
+constexpr int kTile = 128;   // slots per tile
 constexpr int kJThreads = 512;
 constexpr int kJWarps = kJThreads / 32;
 constexpr int kJIters = 8;   // tiles per warp: a J block's run is 16 * 8 tiles
@@ -69,10 +50,7 @@ constexpr size_t kMaxSmem = 200 * 1024;
 // bf16 bits -> float
 __device__ __forceinline__ float bf16f(uint32_t bits) { return __uint_as_float(bits << 16); }
 
-// A staged row of `bytes` bytes: rounded up to an odd number of 16-byte units.
-inline int row_stride(int bytes) { return (((bytes + 15) / 16) | 1) * 16; }
-
-// ---- the tile reduce, shared by the two kernels ------------------------
+// ---- the tile reduce ----------------------------------------------------
 // A candidate is (v, l): in packed mode v is the key (the lane rides in its
 // low bits), in exact mode v is the score and l the lane within the tile.
 
@@ -118,108 +96,6 @@ __device__ __forceinline__ void store_min(float v, int l, long long at, long lon
   } else {
     vmin[at] = v;
     amin[at] = base + l;
-  }
-}
-
-// I: thread t holds the scores of slot t for the pass's kQT queries; the
-// block's minimum packed key per query goes to (q0 + i, tile). Every thread
-// of the block must call it.
-__device__ __forceinline__ void block_tile_min(const float (&s)[kQT], int t, int q0, int Q,
-                                               long long nt, long long tile, float* red_v,
-                                               int* red_l, float* vmin, int* amin) {
-  const int warp = t >> 5;
-#pragma unroll
-  for (int i = 0; i < kQT; ++i) {
-    float v;
-    int l;
-    cand<true>(s[i], t, v, l);
-    warp_min<true>(v, l);
-    if ((t & 31) == 0) {
-      red_v[warp * kQT + i] = v;
-      red_l[warp * kQT + i] = l;
-    }
-  }
-  __syncthreads();
-  if (t < kQT && q0 + t < Q) {
-    float v = red_v[t];
-    int l = red_l[t];
-#pragma unroll
-    for (int w = 1; w < kTile / 32; ++w) take_min<true>(v, l, red_v[w * kQT + t], red_l[w * kQT + t]);
-    store_min<true>(v, l, static_cast<long long>(q0 + t) * nt + tile, tile, vmin, amin);
-  }
-}
-
-// Stage the tile's kTile rows of `rb` bytes (contiguous from src) at `stride`
-// bytes each, zero from rb up to `rbp` (a multiple of 16): 16-byte loads when
-// rows and source allow, else byte by byte.
-__device__ __forceinline__ void stage_rows(unsigned char* rows, const unsigned char* src, int rb,
-                                           int rbp, int stride, int t) {
-  if ((rb & 15) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const int cpr = rb / 16;
-    const uint4* s4 = reinterpret_cast<const uint4*>(src);
-    for (int i = t; i < kTile * cpr; i += kTile) {
-      const int r = i / cpr;
-      *reinterpret_cast<uint4*>(rows + r * stride + (i - r * cpr) * 16) = s4[i];
-    }
-  } else {
-    for (int i = t; i < kTile * rbp; i += kTile) {
-      const int r = i / rbp;
-      const int c = i - r * rbp;
-      rows[r * stride + c] = c < rb ? src[static_cast<long long>(r) * rb + c] : 0;
-    }
-  }
-}
-
-// ---- I: int8 rows --------------------------------------------------------
-
-__global__ void __launch_bounds__(kTile)
-i8_tile_minima_kernel(const int* __restrict__ q_w, const float* __restrict__ alpha,
-                      const int8_t* __restrict__ dec, const float* __restrict__ norms,
-                      float* __restrict__ vmin, int* __restrict__ amin, int Q, int D, int Dp,
-                      int stride, long long cap) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int Dw = (D + 3) / 4;
-  const int Dwp = Dp / 4;
-  unsigned char* rows = smem;                                                   // kTile x stride
-  int* qs = reinterpret_cast<int*>(smem + static_cast<size_t>(kTile) * stride);  // kQT x Dwp
-  float* as = reinterpret_cast<float*>(qs + kQT * Dwp);                         // kQT
-  float* red_v = as + kQT;                                                      // 4 x kQT
-  int* red_l = reinterpret_cast<int*>(red_v + 4 * kQT);
-  const long long tile = blockIdx.x;
-  const int t = threadIdx.x;
-  stage_rows(rows, reinterpret_cast<const unsigned char*>(dec + tile * kTile * D), D, Dp, stride, t);
-  const float n = norms[tile * kTile + t];
-  const unsigned char* row = rows + t * stride;
-
-  for (int q0 = 0; q0 < Q; q0 += kQT) {
-    __syncthreads();  // rows staged; the previous pass is done with qs and red
-    for (int i = t; i < kQT * Dwp; i += kTile) {
-      const int qi = i / Dwp;
-      const int c = i - qi * Dwp;
-      qs[i] = (q0 + qi < Q && c < Dw) ? q_w[static_cast<long long>(q0 + qi) * Dw + c] : 0;
-    }
-    if (t < kQT) as[t] = q0 + t < Q ? alpha[q0 + t] : 0.0f;
-    __syncthreads();
-    int acc[kQT];
-#pragma unroll
-    for (int i = 0; i < kQT; ++i) acc[i] = 0;
-    for (int c = 0; c < Dwp; c += 4) {
-      const int4 v = *reinterpret_cast<const int4*>(row + 4 * c);
-#pragma unroll
-      for (int i = 0; i < kQT; ++i) {
-        const int4 qv = *reinterpret_cast<const int4*>(&qs[i * Dwp + c]);
-        int a = acc[i];
-        a = __dp4a(v.x, qv.x, a);
-        a = __dp4a(v.y, qv.y, a);
-        a = __dp4a(v.z, qv.z, a);
-        a = __dp4a(v.w, qv.w, a);
-        acc[i] = a;
-      }
-    }
-    float sc[kQT];
-#pragma unroll
-    for (int i = 0; i < kQT; ++i) sc[i] = __fmaf_rn(-2.0f * static_cast<float>(acc[i]), as[i], n);
-    block_tile_min(sc, t, q0, Q, cap / kTile, tile, red_v, red_l, vmin, amin);
   }
 }
 
@@ -381,24 +257,6 @@ bool bad_cap(long long cap) { return cap <= 0 || cap % kTile != 0 || cap >= (1LL
 
 // Each entry returns cudaGetLastError() after the launch (0 when it was
 // accepted), or cudaErrorInvalidValue for a shape it does not take.
-
-extern "C" int rii_rowmajor_i8_tile_minima(const void* q_w, const void* alpha, const void* dec,
-                                           const void* norms, void* vmin, void* amin, int Q,
-                                           int D, long long cap, void* stream) {
-  if (Q <= 0 || D <= 0 || bad_cap(cap)) return static_cast<int>(cudaErrorInvalidValue);
-  const int Dp = (D + 15) / 16 * 16;
-  const int stride = row_stride(Dp);
-  const size_t smem = static_cast<size_t>(kTile) * stride + static_cast<size_t>(kQT) * Dp +
-                      static_cast<size_t>(kQT) * 4 + static_cast<size_t>(8) * kQT * 4;
-  const cudaError_t e = allow_smem(i8_tile_minima_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  i8_tile_minima_kernel<<<static_cast<unsigned>(cap / kTile), kTile, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(q_w), static_cast<const float*>(alpha),
-      static_cast<const int8_t*>(dec), static_cast<const float*>(norms),
-      static_cast<float*>(vmin), static_cast<int*>(amin), Q, D, Dp, stride, cap);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // Queries per block of kernel J: 8 when the ADC table fits the shared-memory
 // budget, else 4, else 0 (the shape is not supported).

@@ -24,8 +24,8 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _lock = threading.Lock()  # guards _name_locks
-_name_locks = {}  # library name -> lock held while it is built and loaded
-_loaded = {}  # library name -> ctypes.CDLL
+_name_locks = {}  # (name, defines, csrc) -> lock held while it is built and loaded
+_loaded = {}  # (name, defines, csrc) -> ctypes.CDLL
 build_seconds = {}  # library name -> seconds its build (or load) took
 
 
@@ -41,30 +41,44 @@ def _nvcc():
     return found
 
 
-def library_path(name):
+def _flags(defines):
+    return _FLAGS + [f"-D{d}" for d in defines]
+
+
+def library_path(name, defines=(), csrc=None):
     """Where ``csrc/<name>.cu`` is built for the current source, the shared
-    headers (``csrc/*.cuh``) and the flags."""
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    headers = b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
-    key = hashlib.sha256(src + headers + " ".join(_FLAGS).encode()).hexdigest()[:16]
+    headers (``csrc/*.cuh``), the flags and the preprocessor ``defines``;
+    ``csrc`` another directory of sources (default: this package's)."""
+    csrc = Path(csrc) if csrc is not None else _CSRC
+    src = (csrc / f"{name}.cu").read_bytes()
+    headers = b"".join(p.read_bytes() for p in sorted(csrc.glob("*.cuh")))
+    key = hashlib.sha256(src + headers + " ".join(_flags(defines)).encode()).hexdigest()[:16]
     return _BUILD_DIR / f"lib{name}-{key}.so"
 
 
-def load_library(name, verbose=False):
+def load_library(name, verbose=False, defines=(), csrc=None):
     """Build ``csrc/<name>.cu`` if needed and return the loaded library.
-    Different libraries may build at the same time (one nvcc each)."""
+    ``defines`` ("NAME=VALUE" strings) build a variant of it, as the
+    benchmarks' probe builds do; ``csrc`` builds the source of another
+    checkout (``<checkout>/rii_tpu_torch/csrc``), as a benchmark's
+    comparison with an earlier commit does. The kernels' wrappers load the
+    plain one. Different libraries may build at the same time (one nvcc
+    each)."""
+    defines = tuple(defines)
+    csrc = Path(csrc).resolve() if csrc is not None else _CSRC
+    key = (name, defines, csrc)
     with _lock:
-        lock = _name_locks.setdefault(name, threading.Lock())
+        lock = _name_locks.setdefault(key, threading.Lock())
     with lock:
-        if name in _loaded:
-            return _loaded[name]
+        if key in _loaded:
+            return _loaded[key]
         t0 = time.perf_counter()
-        out = library_path(name)
+        out = library_path(name, defines, csrc)
         if not out.exists():
             _BUILD_DIR.mkdir(parents=True, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
             os.close(fd)
-            cmd = [_nvcc(), *_FLAGS, "-o", tmp, str(_CSRC / f"{name}.cu")]
+            cmd = [_nvcc(), *_flags(defines), "-o", tmp, str(csrc / f"{name}.cu")]
             if verbose:
                 cmd.insert(1, "-Xptxas=-v")
             res = subprocess.run(cmd, capture_output=True, text=True)
@@ -75,8 +89,9 @@ def load_library(name, verbose=False):
                 print(res.stderr, end="")
             os.replace(tmp, out)  # atomic: a concurrent build sees all or none
         lib = ctypes.CDLL(str(out))
-        build_seconds[name] = time.perf_counter() - t0
-        _loaded[name] = lib
+        if not defines and csrc == _CSRC:
+            build_seconds[name] = time.perf_counter() - t0
+        _loaded[key] = lib
         return lib
 
 

@@ -4,26 +4,26 @@
 The middle memory tier holds the decoded rows quantized to int8 per column
 (half the bytes of the bf16 replica) and selects candidates at int8
 precision; every caller then re-ranks them in exact float32 ADC from the
-uint8 codes. Two hand-written CUDA kernels carry it:
+uint8 codes. Hand-written CUDA kernels carry it:
 
-- **Kernel F**, :func:`replica_i8_tile_keys` (``csrc/replica_i8_scan.cu``),
-  replaces ``_replica_i8t_kernel`` and ``_replica_i8tn_kernel``: packed
-  per-128-slot minimum keys of the linear scan over the transposed int8
-  replica, one kernel for every Q.
+- **Kernel F**, :func:`replica_i8_tile_keys`, replaces
+  ``_replica_i8t_kernel`` and ``_replica_i8tn_kernel``: packed
+  per-128-slot minimum keys of the linear scan over the int8 replica, one
+  kernel for every Q.
+- **Kernel I**, :func:`replica_i8_scan_tile_minima`, replaces
+  ``_replica_i8_kernel``: per-128-slot (min, argmin) over the same rows, the
+  ops-level entry :func:`replica_i8_scan_topk`.
 - **Kernel G**, :func:`ivf_i8_window_tile_minima`
   (``csrc/ivf_i8_window.cu``), replaces ``_ivf_i8_window_multi_kernel`` and
   ``_ivf_i8_window_kernel``: per-8-slot top-2 over the probed int8 windows.
-- **Kernel I**, :func:`replica_i8_scan_tile_minima`
-  (``csrc/rowmajor_scan.cu``), replaces ``_replica_i8_kernel``: per-128-slot
-  (min, argmin) over the row-major (cap, D) int8 replica, the ops-level
-  entry :func:`replica_i8_scan_topk`.
 
-Layouts are the port's: kernel F reads the replica as (ceil(D/4), cap)
-int32 words, each holding dims 4j..4j+3 of one slot (zero past D), so a
-warp's 32 neighbouring slots read one 128-byte line per word row; the
-windows and kernel I's replica stay (n, D) int8 rows. Queries reach the
-kernels as int8 words (Q, ceil(D/4)) with a float32 dequantization factor
-per query.
+F and I are the tensor-core kernel of kernels A and H
+(``csrc/replica_tc.cu``) on int8 operands (``wgmma`` s8, int32 sums). Both
+read the row-major (cap, D) int8 replica, K-major as ``wgmma`` takes 8-bit
+operands (the JAX package's F reads it transposed, which suits the TPU's
+matrix unit); the windows are (n, D) int8 rows too. Queries reach F and I
+as int8 rows of a multiple of 16 bytes, zero past D, and G as int8 words
+(Q, ceil(D/4)), each with a float32 dequantization factor per query.
 
 The int32 cross term is exact, and so is its float32 value (|cross| <=
 127^2 * D < 2^24 for D <= 1040). The twins form it as a float32 product
@@ -86,7 +86,7 @@ def quantize_rows_i8(rows, col_scales):
 
 def pack_words(q_i8):
     """(n, D) int8 -> (n, ceil(D/4)) int32 words, dims 4j..4j+3 in word j
-    (lowest byte first), zero past D."""
+    (lowest byte first), zero past D: kernel G's queries."""
     n, d = q_i8.shape
     dp = -(-d // 4) * 4
     if dp != d or not q_i8.is_contiguous():
@@ -96,20 +96,14 @@ def pack_words(q_i8):
     return q_i8.view(torch.int32)
 
 
-def unpack_words(words, d):
-    """(n, ceil(D/4)) int32 words -> (n, D) int8, the inverse of pack_words."""
-    return words.contiguous().view(torch.int8)[:, :d]
-
-
-def quantize_replica_i8(codes, codewords, words_t=False, block=_QUANT_BLOCK):
+def quantize_replica_i8(codes, codewords, block=_QUANT_BLOCK):
     """Quantize the bf16 decode of (n, M) codes per column, as the JAX
     package's ``quantize_replica_i8(build_decoded_cache(codes))``, bit for
     bit, without holding the decode: one pass over blocks of rows takes each
     column's max |x| (exact in any order), a second decodes again and
     quantizes. Every row counts, padding rows (code 0) included, as in JAX.
 
-    Returns (q, col_scales (D,) f32): q is (n, D) int8, or with ``words_t``
-    kernel F's (ceil(D/4), n) int32 words."""
+    Returns (q (n, D) int8, col_scales (D,) f32)."""
     n = codes.shape[0]
     d = codewords.shape[0] * codewords.shape[2]
     amax = torch.zeros(d, dtype=torch.float32, device=codes.device)
@@ -117,17 +111,10 @@ def quantize_replica_i8(codes, codewords, words_t=False, block=_QUANT_BLOCK):
         dec = onehot_decode(codes[s:s + block], codewords, torch.bfloat16)
         amax = torch.maximum(amax, dec.float().abs().amax(0))
     col_scales = amax.clamp(min=_EPS) / 127.0
-    if words_t:
-        out = torch.empty((-(-d // 4), n), dtype=torch.int32, device=codes.device)
-    else:
-        out = torch.empty((n, d), dtype=torch.int8, device=codes.device)
+    out = torch.empty((n, d), dtype=torch.int8, device=codes.device)
     for s in range(0, n, block):
         dec = onehot_decode(codes[s:s + block], codewords, torch.bfloat16)
-        q = quantize_rows_i8(dec, col_scales)
-        if words_t:
-            out[:, s:s + block] = pack_words(q).T
-        else:
-            out[s:s + block] = q
+        out[s:s + block] = quantize_rows_i8(dec, col_scales)
     return out, col_scales
 
 
@@ -147,24 +134,65 @@ def _fused_score(norms, cross, alpha):
     return (norms.double() - (2.0 * cross).double() * alpha.double()).float()
 
 
+def _aligned(t):
+    """``t`` itself when it starts 16-byte aligned, which the bulk copies
+    of kernels F and I's norms need, else an aligned copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _tc_queries_i8(lib, queries, col_scales):
+    """Queries as kernels F and I read them, quantized on the card in one
+    launch, bit for bit as :func:`quantize_queries_i8`: int8 rows of a
+    multiple of 16 bytes (zero past D) from a 16-byte aligned base, which
+    TMA can copy. Returns (q_i8 (Q, ldq), ldq, alpha (Q,) f32)."""
+    q = queries.to(torch.float32).contiguous()
+    scales = col_scales.to(torch.float32).contiguous()
+    qn, d = q.shape
+    ldq = -(-d // 16) * 16
+    out = torch.empty((qn, ldq), dtype=torch.int8, device=q.device)
+    alpha = torch.empty(qn, dtype=torch.float32, device=q.device)
+    fn = lib.rii_tc_quantize_queries
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.check(fn(_ptr(q), _ptr(scales), _ptr(out), _ptr(alpha), qn, d, ldq,
+                    _stream(q.device)), "quantize_queries_i8")
+    return out, ldq, alpha
+
+
+def _check_i8_replica(queries, decoded_i8, col_scales, norms):
+    """Kernels F and I's rules for the int8 replica, held on both devices
+    so that a twin takes what its kernel takes. Returns (cap, D)."""
+    _require(decoded_i8.dim() == 2, "decoded_i8 must be (cap, D)")
+    cap, d = decoded_i8.shape
+    _require(col_scales.shape == (d,), f"col_scales must be ({d},)")
+    _require(queries.dim() == 2 and queries.shape[1] == d,
+             f"queries must be (Q, {d}), got {tuple(queries.shape)}")
+    _require(cap % _TILE == 0, f"cap={cap} must be a multiple of {_TILE}")
+    _require(cap < 1 << 31, "cap must be below 2^31 (int32 slots)")
+    _require(decoded_i8.dtype == torch.int8 and decoded_i8.is_contiguous(),
+             "decoded_i8 must be contiguous int8")
+    _require(norms.dtype == torch.float32 and norms.is_contiguous(),
+             "norms must be contiguous float32")
+    return cap, d
+
+
 # --------------------------------------------------------------------------- #
-# Kernel F: packed per-128-slot keys over the transposed int8 replica
+# Kernel F: packed per-128-slot keys over the int8 replica
 # --------------------------------------------------------------------------- #
 
-def replica_i8_tile_keys_plain(queries, dec_w, col_scales, norms):
-    """Plain twin of kernel F (see csrc/replica_i8_scan.cu for the
-    contract). Works through cap in chunks, so no (Q, cap) float32 array is
-    held."""
+def replica_i8_tile_keys_plain(queries, decoded_i8, col_scales, norms):
+    """Plain twin of kernel F (see csrc/replica_tc.cu for the contract).
+    Works through cap in chunks, so no (Q, cap) float32 array is held."""
     q_i8, alpha = quantize_queries_i8(queries, col_scales)
     qf = q_i8.float()
-    qn, d = qf.shape
-    cap = dec_w.shape[1]
+    qn = qf.shape[0]
+    cap, d = decoded_i8.shape
     chunk = max(_TILE, min(_TWIN_SCORES // max(qn, 1), _TWIN_SCORES // d)
                 // _TILE * _TILE)
     lane = torch.arange(_TILE, dtype=torch.int32, device=qf.device)
     out = []
     for s in range(0, cap, chunk):
-        rows = unpack_words(dec_w[:, s:s + chunk].T, d).float()  # (n, D)
+        rows = decoded_i8[s:s + chunk].float()
         scores = _fused_score(norms[None, s:s + chunk], qf @ rows.T,
                               alpha[:, None])
         n = scores.shape[1]
@@ -173,43 +201,36 @@ def replica_i8_tile_keys_plain(queries, dec_w, col_scales, norms):
     return torch.cat(out, dim=1)
 
 
-def replica_i8_tile_keys(queries, dec_w, col_scales, norms, n_valid=None):
+def replica_i8_tile_keys(queries, decoded_i8, col_scales, norms, n_valid=None):
     """Kernel F: packed per-128-slot minimum keys (Q, cap/128) of the scan
     over the int8 replica.
 
-    queries (Q, D) f32 (quantized here, as in the JAX package); dec_w
-    (ceil(D/4), cap) int32 words of :func:`quantize_replica_i8`;
+    queries (Q, D) f32 (quantized here, as in the JAX package); decoded_i8
+    (cap, D) int8 rows of :func:`quantize_replica_i8`, contiguous, any D;
     col_scales (D,) f32; norms (cap,) f32 exact ||decode||^2 with +inf on
     padding and excluded slots. ``n_valid`` (default cap) promises that
     every slot from it on is padding: the kernel then writes those tiles'
     keys without reading them. CPU tensors take the plain twin; CUDA tensors
-    launch the kernel."""
-    dw, cap = dec_w.shape
-    d = col_scales.shape[0]
-    _require(queries.dim() == 2 and queries.shape[1] == d,
-             f"queries must be (Q, {d}), got {tuple(queries.shape)}")
-    _require(dw == -(-d // 4), f"dec_w must have ceil({d}/4) word rows, has {dw}")
+    launch the kernel (TMA for D % 16 == 0 on a 16-byte aligned replica,
+    ordinary loads otherwise)."""
+    cap, d = _check_i8_replica(queries, decoded_i8, col_scales, norms)
     _require(norms.shape == (cap,), f"norms must be ({cap},)")
-    _require(cap % _TILE == 0, f"cap={cap} must be a multiple of {_TILE}")
-    if _on_cpu(queries, dec_w, col_scales, norms):
-        return replica_i8_tile_keys_plain(queries, dec_w, col_scales, norms)
-    _require(dec_w.dtype == torch.int32 and dec_w.is_contiguous(),
-             "dec_w must be contiguous int32")
-    _require(norms.dtype == torch.float32 and norms.is_contiguous(),
-             "norms must be contiguous float32")
-    q_i8, alpha = quantize_queries_i8(queries, col_scales)
-    q_w = pack_words(q_i8).contiguous()
-    qn = q_w.shape[0]
+    if _on_cpu(queries, decoded_i8, col_scales, norms):
+        return replica_i8_tile_keys_plain(queries, decoded_i8, col_scales, norms)
+    lib = _build.load_library("replica_tc")
+    q_i8, ldq, alpha = _tc_queries_i8(lib, queries, col_scales)
+    qn = q_i8.shape[0]
     keys = torch.empty((qn, cap // _TILE), dtype=torch.float32,
-                       device=dec_w.device)
-    lib = _build.load_library("replica_i8_scan")
-    fn = lib.rii_replica_i8_tile_keys
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+                       device=decoded_i8.device)
+    fn = lib.rii_tc_i8_tile_keys
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     nv = cap if n_valid is None else max(0, min(int(n_valid), cap))
-    _build.check(fn(_ptr(q_w), _ptr(alpha), _ptr(dec_w), _ptr(norms),
-                    _ptr(keys), qn, dw, cap, nv, _stream(dec_w.device)),
+    norms = _aligned(norms)
+    _build.check(fn(_ptr(q_i8), ldq, _ptr(alpha), _ptr(decoded_i8), _ptr(norms),
+                    _ptr(keys), qn, d, cap, nv, _stream(decoded_i8.device)),
                  "replica_i8_tile_keys")
     replica_i8_tile_keys.launches += 1
     return keys
@@ -218,15 +239,16 @@ def replica_i8_tile_keys(queries, dec_w, col_scales, norms, n_valid=None):
 replica_i8_tile_keys.launches = 0
 
 
-def replica_i8_scan_topk_t(queries, dec_w, col_scales, norms_rep, codes,
+def replica_i8_scan_topk_t(queries, decoded_i8, col_scales, norms_rep, codes,
                            codewords, topk, n_valid=None):
-    """Full scan of the int8 replica through kernel F, then the merge over
+    """Full scan of the int8 replica through kernel F (the JAX entry of
+    the same name, which reads the replica transposed), then the merge over
     the packed keys to ``k_fetch = min(max(2*topk, topk+8), cap/128)``
     candidates and their exact float32 ADC re-rank from the uint8
     codes (the int8 tier always rescores). norms_rep (1, cap) f32, masked
     with +inf where excluded. Returns (dists (Q, topk) f32, ids (Q, topk)
     int64, -1 where exhausted)."""
-    keys = replica_i8_tile_keys(queries, dec_w, col_scales, norms_rep[0],
+    keys = replica_i8_tile_keys(queries, decoded_i8, col_scales, norms_rep[0],
                                 n_valid=n_valid)
     k_fetch = min(max(2 * topk, topk + 8), keys.shape[1])
     _, ids_a = _merge_packed_keys(queries, keys, k_fetch)
@@ -240,7 +262,7 @@ def replica_i8_scan_topk_t(queries, dec_w, col_scales, norms_rep, codes,
 
 def replica_i8_scan_tile_minima_plain(queries, decoded_i8, col_scales,
                                       norms_col):
-    """Plain twin of kernel I (see csrc/rowmajor_scan.cu for the contract):
+    """Plain twin of kernel I (see csrc/replica_tc.cu for the contract):
     exact float32 products of the int8 values, the score rounded once,
     packed-key tile minima."""
     q_i8, alpha = quantize_queries_i8(queries, col_scales)
@@ -261,38 +283,30 @@ def replica_i8_scan_tile_minima(queries, decoded_i8, col_scales, norms_col,
     always at packed-key precision (as the Pallas kernel).
 
     queries (Q, D) f32 (quantized here, as in the JAX package); decoded_i8
-    (cap, D) int8 from :func:`quantize_replica_i8` (``words_t=False``);
-    col_scales (D,) f32; norms_col (cap, 1) f32 exact ||decode||^2 with +inf
-    on padding and excluded slots; ``blk`` is checked as the JAX entry
-    checks it. Returns (vmin (Q, cap/128) f32 WITHOUT ||q||^2, amin
-    (Q, cap/128) int32 global slots). CPU tensors take the plain twin; CUDA
-    tensors launch the kernel."""
-    cap, d = decoded_i8.shape
+    (cap, D) int8 from :func:`quantize_replica_i8`, D <= 1024; col_scales
+    (D,) f32; norms_col (cap, 1) f32 exact ||decode||^2 with +inf on
+    padding and excluded slots; ``blk`` is checked as the JAX entry checks
+    it. Returns (vmin (Q, cap/128) f32 WITHOUT ||q||^2, amin (Q, cap/128)
+    int32 global slots). CPU tensors take the plain twin; CUDA tensors
+    launch the kernel."""
+    cap, d = _check_i8_replica(queries, decoded_i8, col_scales, norms_col)
     _check_rowmajor(cap, blk, norms_col)
-    _require(queries.dim() == 2 and queries.shape[1] == d,
-             f"queries must be (Q, {d}), got {tuple(queries.shape)}")
-    _require(col_scales.shape == (d,), f"col_scales must be ({d},)")
+    _require(d <= 1024, "D must be <= 1024 (an exact int32 cross term in "
+             "float32, and the queries resident in shared memory)")
     if _on_cpu(queries, decoded_i8, col_scales, norms_col):
         return replica_i8_scan_tile_minima_plain(queries, decoded_i8,
                                                  col_scales, norms_col)
-    _require(decoded_i8.dtype == torch.int8 and decoded_i8.is_contiguous(),
-             "decoded_i8 must be contiguous int8")
-    _require(norms_col.dtype == torch.float32 and norms_col.is_contiguous(),
-             "norms_col must be contiguous float32")
-    _require(d <= 1024, "D must be <= 1024 (an exact int32 cross term in "
-             "float32, and a tile's rows in shared memory)")
-    _require(cap < 1 << 31, "cap must be below 2^31 (int32 slots)")
-    q_i8, alpha = quantize_queries_i8(queries, col_scales)
-    q_w = pack_words(q_i8).contiguous()
-    qn = q_w.shape[0]
+    lib = _build.load_library("replica_tc")
+    q_i8, ldq, alpha = _tc_queries_i8(lib, queries, col_scales)
+    qn = q_i8.shape[0]
     vmin, amin = _tile_outputs(qn, cap, decoded_i8.device)
-    lib = _build.load_library("rowmajor_scan")
-    fn = lib.rii_rowmajor_i8_tile_minima
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
-                   + [ctypes.c_longlong, ctypes.c_void_p])
+    fn = lib.rii_tc_i8_tile_minima
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    _build.check(fn(_ptr(q_w), _ptr(alpha), _ptr(decoded_i8), _ptr(norms_col),
-                    _ptr(vmin), _ptr(amin), qn, d, cap,
+    norms_col = _aligned(norms_col)
+    _build.check(fn(_ptr(q_i8), ldq, _ptr(alpha), _ptr(decoded_i8),
+                    _ptr(norms_col), _ptr(vmin), _ptr(amin), qn, d, cap,
                     _stream(decoded_i8.device)), "replica_i8_scan_tile_minima")
     replica_i8_scan_tile_minima.launches += 1
     return vmin, amin

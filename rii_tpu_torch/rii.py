@@ -42,7 +42,6 @@ from rii_tpu_torch.ops.decode import (
     onehot_decode,
 )
 from rii_tpu_torch.ops.hopper_i8 import (
-    pack_words,
     quantize_replica_i8,
     quantize_rows_i8,
     replica_i8_scan_topk_t,
@@ -458,18 +457,17 @@ class Rii:
         dc["norms_flat"][idx] = norms_d
         dec_new = None
         if any(key in dc for key in ("decoded_t", "decoded_flat", "decoded_g",
-                                     "decoded_i8_t", "decoded_g_i8")):
+                                     "decoded_i8", "decoded_g_i8")):
             dec_new = onehot_decode(codes_d, dc["codewords"], torch.bfloat16)
         if "decoded_t" in dc:
             dc["decoded_t"][:, idx] = dec_new.T
         if "decoded_flat" in dc:
             dc["decoded_flat"][idx] = dec_new
-        if "decoded_i8_t" in dc:
+        if "decoded_i8" in dc:
             # requantized with the existing column scales (clipped), as in
             # the JAX package: the exact rescore absorbs the lost precision
             # of rows beyond the old column maxima until the next rebuild
-            dc["decoded_i8_t"][:, idx] = pack_words(
-                quantize_rows_i8(dec_new, dc["i8_scales"])).T
+            dc["decoded_i8"][idx] = quantize_rows_i8(dec_new, dc["i8_scales"])
         if "codes_t" in dc:
             dc["codes_t"][:, idx] = codes_d.T
 
@@ -609,12 +607,12 @@ class Rii:
         else:
             # mid/large subsets: a masked full scan (+inf norms exclude)
             mask = None if tids is None else self._subset_mask(dc, tids)
-            if "decoded_i8_t" in dc:
+            if "decoded_i8" in dc:
                 # the int8 tier: kernel F, always rescored exactly
                 if mask is not None:
                     norms = torch.where(mask, norms, float("inf"))
                 d, i = replica_i8_scan_topk_t(
-                    qd, dc["decoded_i8_t"], dc["i8_scales"], norms[None, :],
+                    qd, dc["decoded_i8"], dc["i8_scales"], norms[None, :],
                     dc["codes_flat"], dc["codewords"], topk,
                     n_valid=dc["n_dev"])
             elif "decoded_t" in dc:
@@ -703,14 +701,17 @@ class Rii:
                 nlist_pad=dc["nlist_v_pad"], target_mask=tm,
                 recall_target=rt, probe_recall=self.probe_recall)
         else:
-            # uint8 code windows: kernels D/E on the card, exact rescore
+            # uint8 code windows: kernels D/E on the card when the cache was
+            # built on the kernel route (as rii_tpu gates on "pallas_cw"),
+            # else the plain union scan; exact rescore
             d, i = ivf_union_scan_topk_pq(
                 qd, dc["codes_g"], dc["norms_g"], dc["order_g"],
                 dc["codewords"], dc["centers_dec_v"], dc["centers_norms_v"],
                 w=wv, topk=topk, cap_u=dc["cap_v"],
                 nlist_pad=dc["nlist_v_pad"], target_mask=tm,
                 recall_target=rt, probe_recall=self.probe_recall,
-                vlen=dc["vlen_g"], use_kernel=use_kernels,
+                vlen=dc["vlen_g"],
+                use_kernel=use_kernels and dc["pq_kernel_route"],
                 cw_norms=dc["cw_norms"])
         d = d[:qn].cpu().numpy()
         i = i[:qn].cpu().numpy()
@@ -870,10 +871,10 @@ class Rii:
         resolved = self._resolve_scan_mode(cap)
         dc["mode"] = resolved
         if resolved == "int8":
-            # the int8 replica in kernel F's layout, (ceil(D/4), cap) words;
-            # its norms are norms_flat itself (the tier needs the kernels)
-            dc["decoded_i8_t"], dc["i8_scales"] = quantize_replica_i8(
-                dc["codes_flat"], dc["codewords"], words_t=True)
+            # the int8 replica (cap, D), row-major for kernel F; its norms
+            # are norms_flat itself (the tier needs the kernels)
+            dc["decoded_i8"], dc["i8_scales"] = quantize_replica_i8(
+                dc["codes_flat"], dc["codewords"])
         elif resolved == "bf16":
             decoded = build_decoded_cache(dc["codes_flat"], dc["codewords"])
             if self._use_kernels():
@@ -936,7 +937,7 @@ class Rii:
         # JAX package's accounting: the replica's bytes plus 32 a row)
         if "decoded_flat" in dc or "decoded_t" in dc:
             flat_bytes = dc["cap"] * (d_dim * 2 + 8 * 4)
-        elif "decoded_i8_t" in dc:
+        elif "decoded_i8" in dc:
             flat_bytes = dc["cap"] * (d_dim + 8 * 4)
         else:
             flat_bytes = 0
@@ -969,5 +970,9 @@ class Rii:
             dc["codes_g"] = self._tensor(ul["codes_grouped"])
             dc["vlen_g"] = self._tensor(ul["vlen"])
             dc["windows"] = "pq"
+            # whether this build is on the kernel route: a later change of
+            # topk_recall keeps the cache, and IVF takes kernels D/E only
+            # when it was (rii_tpu's "pallas_cw"); add() keeps the key
+            dc["pq_kernel_route"] = self._use_kernels()
             # the constant term of kernel E's per-batch ADC table
             dc["cw_norms"] = codeword_norms(dc["codewords"])

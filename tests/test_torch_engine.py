@@ -189,7 +189,7 @@ def test_unported_tiers_raise(setup, scan_mode, kernel):
     te.force_kernel_routing = True
     je.add_configure(setup["X"], nlist=NLIST, iter=3)
     te.add_configure(setup["X"], nlist=NLIST, iter=3)
-    assert "decoded_i8_t" in te._ensure_cache()
+    assert "decoded_i8" in te._ensure_cache()
     ij, dj = je.query_batch(setup["Q"], topk=5, method="linear")
     it, dt = te.query_batch(setup["Q"], topk=5, method="linear")
     assert_ranked_ids_match(it, dt, ij, dj, rtol=RESCORE_RTOL)
@@ -324,7 +324,7 @@ def test_int8_tier_kernel_routes_match(i8_setup, monkeypatch, method, subset,
     import rii_tpu_torch.rii as TR
     je, te = i8_setup["je"], i8_setup["te"]
     dc = te._ensure_cache()
-    assert dc["mode"] == "int8" and "decoded_i8_t" in dc
+    assert dc["mode"] == "int8" and "decoded_i8" in dc
     assert dc["windows"] == "int8" and "codes_g" not in dc
     calls = []
     for mod, name in ((TI, "ivf_i8_window_tile_minima"),
@@ -349,19 +349,18 @@ def test_int8_tier_kernel_routes_match(i8_setup, monkeypatch, method, subset,
 
 
 def test_int8_windows_hold_what_jax_holds(i8_setup):
-    """The int8 replica and windows equal the JAX engine's bit for bit; the
+    """The int8 replica and windows equal the JAX engine's bit for bit (the
+    port's replica row-major, the transpose of JAX's decoded_i8_t); the
     windows keep their own scales and member counts, and no grouped codes
     (the rescore reads codes_flat through order_g)."""
-    from rii_tpu_torch.ops.hopper_i8 import unpack_words
     jdc, dc = i8_setup["je"]._ensure_cache(), i8_setup["te"]._ensure_cache()
     assert "codes_g" not in jdc and "codes_g" not in dc
     for key in ("i8_scales", "i8_scales_g", "decoded_g_i8", "vlen_g",
                 "order_g"):
         np.testing.assert_array_equal(dc[key].numpy(), np.asarray(jdc[key]),
                                       err_msg=key)
-    np.testing.assert_array_equal(
-        unpack_words(dc["decoded_i8_t"].T, D).numpy(),
-        np.asarray(jdc["decoded_i8_t"]).T)
+    np.testing.assert_array_equal(dc["decoded_i8"].numpy(),
+                                  np.asarray(jdc["decoded_i8_t"]).T)
 
 
 def test_int8_window_budget_counts_the_int8_replica(setup):
@@ -385,7 +384,7 @@ def test_int8_window_budget_counts_the_int8_replica(setup):
     assert dc["mode"] == "int8" and "decoded_i8_t" in jdc
     assert dc["windows"] == ("int8" if "decoded_g_i8" in jdc else "pq") == "pq"
     mem = te.memory_breakdown()
-    assert mem["device:decoded_i8_t"] <= budget
+    assert mem["device:decoded_i8"] == dc["cap"] * D <= budget
 
 
 @pytest.mark.parametrize("band,scan_mode,budget,replica,windows", [
@@ -399,7 +398,9 @@ def test_memory_breakdown_within_budget_at_int8_bands(setup, pq_setup, band,
                                                       replica, windows):
     """memory_breakdown reports the device bytes of each cache entry as the
     JAX engine's does; at each band the replica and the decoded windows
-    stay within decoded_cache_budget (the gate's intent)."""
+    stay within decoded_cache_budget (the gate's intent). ``replica`` is
+    the JAX engine's key; the port keeps its int8 replica row-major, as
+    ``decoded_i8``, in the same bytes."""
     X = setup["X"] if budget == 800_000 else pq_setup["X"]
     nlist = NLIST if budget == 800_000 else PQ_NLIST
     je = rii_tpu.Rii(setup["jpq"])
@@ -412,10 +413,11 @@ def test_memory_breakdown_within_budget_at_int8_bands(setup, pq_setup, band,
     te.add_configure(X, nlist=nlist, iter=3)
     mj, mt = je.memory_breakdown(), te.memory_breakdown()
     assert mt["host_codes"] == mj["host_codes"]
-    for key in (replica, windows, "codes_flat", "norms_flat", "order_g",
-                "norms_g"):
+    port_replica = {"decoded_i8_t": "decoded_i8"}.get(replica, replica)
+    assert mt[f"device:{port_replica}"] == mj[f"device:{replica}"]
+    for key in (windows, "codes_flat", "norms_flat", "order_g", "norms_g"):
         assert mt[f"device:{key}"] == mj[f"device:{key}"], key
-    held = mt[f"device:{replica}"]
+    held = mt[f"device:{port_replica}"]
     if windows != "codes_g":
         held += mt[f"device:{windows}"]
     assert held <= budget, band

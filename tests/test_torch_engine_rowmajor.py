@@ -18,7 +18,13 @@ D=64, M=8, Ks=32, topk=10; N=2000 (cap 2048, 16 tiles) for the full scan,
 N=6000 (cap 8192) for a subset of 5000 ids. Tolerances: rescored distances
 1e-5 relative (exact ADC summed in other orders), selection-only ones 1e-4
 (the packed key's 2^-16 step at scores near 10); ids per rank except at
-tied distances."""
+tied distances.
+
+The same holds in the other direction for the pq windows (N=40,000,
+nlist=200, ``scan_mode="pq"``): a cache built in exact mode has no kernel
+route, and once ``topk_recall`` is set again rii_tpu's IVF runs its plain
+union scan (it takes its window kernels only when the build set
+``pallas_cw``); the port must too, not kernels D/E."""
 
 import functools
 
@@ -110,6 +116,71 @@ def test_fast_mode_takes_the_k11_route(h_calls, qn, rtol):
     i_j, d_j = _oracle(je, q[:qn], rescore=qn < 512)
     assert_ranked_ids_match(ids, dists, i_j, d_j, rtol=rtol)
     assert h_calls == [qn]
+
+
+PQ_N, PQ_NLIST = 40_000, 200
+
+
+@functools.lru_cache(maxsize=None)
+def _pq_engines(exact_build):
+    """Both packages at scan_mode="pq" (pq windows), their cache built by a
+    first linear query in exact mode or in fast mode, then set to fast
+    mode: rii_tpu through Pallas interpret mode, the port on its kernel
+    routes through the twins."""
+    rng = np.random.RandomState(5)
+    x = rng.random((PQ_N, D)).astype(np.float32)
+    jpq = rii_tpu.PQ(M=8, Ks=32).fit(x[:1024], iter=3)
+    je = rii_tpu.Rii(jpq)
+    je.pallas_interpret = True
+    te = Rii(PQ.from_codewords(jpq.codewords, device="cpu"))
+    te.force_kernel_routing = True
+    for e in (je, te):
+        e.scan_mode = "pq"
+        e.topk_recall = None if exact_build else 0.99
+        e.add_configure(x, nlist=PQ_NLIST, iter=3)
+        e.query_batch(x[:1], topk=TOPK, method="linear")  # builds the cache
+        e.topk_recall = 0.99
+    q = (x[rng.choice(PQ_N, 8, replace=False)]
+         + rng.normal(0, 0.01, (8, D))).astype(np.float32)
+    return je, te, q
+
+
+@pytest.mark.parametrize("exact_build", [True, False],
+                         ids=["exact-built", "fast-built"])
+def test_pq_windows_take_kernels_d_e_only_on_a_kernel_route_cache(
+        monkeypatch, exact_build):
+    """A cache built in exact mode keeps its pq windows when topk_recall is
+    set again, and IVF then runs the plain union scan, as rii_tpu does (it
+    takes its window kernels only when the build set "pallas_cw"): ids per
+    rank and distances within 1e-5 of rii_tpu's, kernels D and E untouched.
+    A cache built in fast mode takes kernels D/E (their twins here) and
+    answers in the bf16 class with rii_tpu's nearest neighbours."""
+    import rii_tpu_torch.ops.hopper_pq as HP
+    je, te, q = _pq_engines(exact_build)
+    dc = te._ensure_cache()
+    assert dc["mode"] == "pq" and dc["windows"] == "pq"
+    assert dc["pq_kernel_route"] is not exact_build
+    assert ("pallas_cw" in je._ensure_cache()) is not exact_build
+    routes = []
+    real = port_rii.ivf_union_scan_topk_pq
+
+    def counted(*args, **kw):
+        routes.append(kw["use_kernel"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(port_rii, "ivf_union_scan_topk_pq", counted)
+    launches = (HP.ivf_dt_window_tile_minima.launches,
+                HP.ivf_pq_window_tile_minima.launches)
+    ij, dj = je.query_batch(q, topk=TOPK, L=100, method="ivf")
+    it, dt = te.query_batch(q, topk=TOPK, L=100, method="ivf")
+    assert routes == [not exact_build]  # one batch, kept off the linear scan
+    assert (HP.ivf_dt_window_tile_minima.launches,
+            HP.ivf_pq_window_tile_minima.launches) == launches
+    if exact_build:
+        assert_ranked_ids_match(it, dt, ij, dj, rtol=RESCORE_RTOL)
+    else:
+        np.testing.assert_allclose(dt, dj, rtol=3e-2, atol=3e-2)
+        assert (it[:, 0] == ij[:, 0]).all()
 
 
 def test_masked_subset_above_4096_takes_the_k11_route(h_calls):

@@ -245,25 +245,58 @@ def _i8_rows(g, n, d, cuda):
     return rows, scales, norms
 
 
-@pytest.mark.parametrize("qn,d", [(8, 128), (20, 70), (100, 128)])
+# Kernels F and I (the tensor-core kernel on int8 operands): Q around one
+# and two m64 tiles a warpgroup (kMT 1 and 2 from Q > 128), D a whole chunk
+# (128: TMA), a multiple of 16 below it (48: TMA, zero-filled past D) and
+# ragged (70: loaded rows); D past the resident queries' 1024 (F at 1040:
+# queries streamed through the ring; the twin's float32 sums stay exact up
+# to there), and I's widest, 1024.
+_I8_EDGES = [(qn, d) for qn in (8, 100, 128, 300) for d in (128, 70, 48)]
+
+
+@pytest.mark.parametrize("qn,d", _I8_EDGES + [(8, 1040), (300, 1040)])
 def test_replica_i8_tile_keys_matches_twin(cuda, qn, d):
-    """Kernel F at each query tile (8, 32, 64) and at a D that is not a
-    multiple of 4; the last 20000 slots are padding that n_valid skips.
-    The cross term is exact, so the keys are bit-equal."""
-    g = torch.Generator(device=cuda).manual_seed(qn)
+    """Kernel F; the last 20000 slots are padding that n_valid skips, and
+    n_valid cuts a tile. The cross term is exact, so the keys are
+    bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(qn + d)
     cap = 1 << 16
     rows, scales, norms = _i8_rows(g, cap, d, cuda)
     norms[-20000:] = float("inf")
-    dec_w = HI.pack_words(rows).T.contiguous()
+    assert (cap - 20000) % 128 != 0
     q = torch.rand((qn, d), generator=g, device=cuda) * 0.1
     before = HI.replica_i8_tile_keys.launches
-    k = HI.replica_i8_tile_keys(q, dec_w, scales, norms, n_valid=cap - 20000)
+    k = HI.replica_i8_tile_keys(q, rows, scales, norms, n_valid=cap - 20000)
     torch.cuda.synchronize()
     assert HI.replica_i8_tile_keys.launches == before + 1
-    t = HI.replica_i8_tile_keys_plain(q, dec_w, scales, norms)
+    t = HI.replica_i8_tile_keys_plain(q, rows, scales, norms)
     v_k, l_k = H._unpack(k, 0x7F)
     v_t, l_t = H._unpack(t, 0x7F)
     assert_keys_match(*_np(v_k, l_k, v_t, l_t))
+    assert torch.equal(k.view(torch.int32), t.view(torch.int32))
+
+
+def test_replica_i8_tile_keys_unaligned_and_empty(cuda):
+    """Kernel F over D=128 rows whose base is not 16-byte (nor 4-byte)
+    aligned, which takes the loaded path; and n_valid = 0, where every key
+    is the padding key and nothing is read."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    cap, d = 1 << 13, 128
+    rows, scales, norms = _i8_rows(g, cap, d, cuda)
+    buf = torch.empty(cap * d + 1, dtype=torch.int8, device=cuda)
+    dec = buf[1:].view(cap, d)
+    dec.copy_(rows)
+    assert dec.data_ptr() % 4 != 0
+    nbuf = torch.empty(cap + 1, device=cuda)
+    norms_odd = nbuf[1:]
+    norms_odd.copy_(norms)  # not 16-byte aligned: the wrapper copies it
+    q = torch.rand((100, d), generator=g, device=cuda) * 0.1
+    k = HI.replica_i8_tile_keys(q, dec, scales, norms_odd)
+    t = HI.replica_i8_tile_keys_plain(q, rows, scales, norms)
+    assert torch.equal(k.view(torch.int32), t.view(torch.int32))
+    pad = torch.full_like(norms, float("inf"))
+    k = HI.replica_i8_tile_keys(q, rows, scales, pad, n_valid=0)
+    t = HI.replica_i8_tile_keys_plain(q, rows, scales, pad)
     assert torch.equal(k.view(torch.int32), t.view(torch.int32))
 
 
@@ -330,10 +363,26 @@ def test_replica_scan_tile_minima_matches_twin(cuda, qn, d, packed):
     _assert_minima(v_k, a_k, v_t, a_t, None if packed else 512)
 
 
-@pytest.mark.parametrize("qn,d", [(8, 128), (20, 70), (100, 128)])
+@pytest.mark.parametrize("qn,d", [(5, 70), (300, 128), (8, 1040)])
+def test_tc_queries_i8_match_quantize_queries(cuda, qn, d):
+    """F and I's one-launch query quantization equals quantize_queries_i8
+    (the twins' torch ops) bit for bit, rows zero past D."""
+    from rii_tpu_torch.ops import _build
+    g = torch.Generator(device=cuda).manual_seed(qn + d)
+    q = torch.randn((qn, d), generator=g, device=cuda)
+    q[0] = 0.0  # an all-zero row: the scale's floor
+    scales = torch.rand(d, generator=g, device=cuda) * (0.1 / 127) + 1e-5
+    out, ldq, alpha = HI._tc_queries_i8(_build.load_library("replica_tc"), q, scales)
+    q_i8, a_t = HI.quantize_queries_i8(q, scales)
+    assert ldq % 16 == 0 and out.shape == (qn, ldq)
+    assert torch.equal(out[:, :d], q_i8) and not out[:, d:].any()
+    assert torch.equal(alpha, a_t)
+
+
+@pytest.mark.parametrize("qn,d", _I8_EDGES + [(8, 1024), (300, 1024)])
 def test_replica_i8_scan_tile_minima_matches_twin(cuda, qn, d):
-    """Kernel I at a D that is not a multiple of 16 and at two Q; the
-    cross term is exact, so the minima are bit-equal."""
+    """Kernel I; the cross term is exact, so the minima and slots are
+    bit-equal."""
     g = torch.Generator(device=cuda).manual_seed(qn + d)
     cap = 1 << 15
     rows, scales, norms = _i8_rows(g, cap, d, cuda)
@@ -346,6 +395,24 @@ def test_replica_i8_scan_tile_minima_matches_twin(cuda, qn, d):
     assert HI.replica_i8_scan_tile_minima.launches == before + 1
     v_t, a_t = HI.replica_i8_scan_tile_minima_plain(q, rows, scales, norms)
     _assert_minima(v_k, a_k, v_t, a_t)
+    assert torch.equal(v_k.view(torch.int32), v_t.view(torch.int32))
+    assert torch.equal(a_k, a_t)
+
+
+def test_replica_i8_scan_tile_minima_misaligned_rows(cuda):
+    """Kernel I over D=128 rows whose base is not 16-byte aligned: the
+    loaded path, bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    cap, d = 1 << 12, 128
+    rows, scales, norms = _i8_rows(g, cap, d, cuda)
+    buf = torch.empty(cap * d + 2, dtype=torch.int8, device=cuda)
+    dec = buf[2:].view(cap, d)
+    dec.copy_(rows)
+    assert dec.data_ptr() % 16 != 0
+    norms = norms[:, None].contiguous()
+    q = torch.rand((130, d), generator=g, device=cuda) * 0.1
+    v_k, a_k = HI.replica_i8_scan_tile_minima(q, dec, scales, norms)
+    v_t, a_t = HI.replica_i8_scan_tile_minima_plain(q, rows, scales, norms)
     assert torch.equal(v_k.view(torch.int32), v_t.view(torch.int32))
     assert torch.equal(a_k, a_t)
 

@@ -24,7 +24,7 @@ from rii_tpu_torch.ops.hopper_i8 import quantize_rows_i8
 
 D = 32
 FAST_RTOL = 3e-2
-TIERS = {"bf16": "decoded_t", "pq": "codes_t", "int8": "decoded_i8_t"}
+TIERS = {"bf16": "decoded_t", "pq": "codes_t", "int8": "decoded_i8"}
 
 
 @pytest.fixture(scope="module")
