@@ -14,11 +14,12 @@ Phases, each of which must pass (no exception is caught):
    with CUDA events (median of 7), beside its bound (the larger of its
    bytes over 3.35 TB/s and its operations over the dense peak of their
    type) and, for kernels A, F, H and I, the time of one PyTorch call that
-   computes the scores' product (not the tile reduce). Kernels A and H also
-   report their share of the bf16 tensor-core peak at Q=1024
-   (``tensor_core_share``), and A and F their time at a GIST-shaped D=960
-   (``*_d960``; not a gate). A, H, F and I are one tensor-core kernel, on
-   bf16 or int8 operands; F and I must be bit-equal to their twins.
+   computes the scores' product (not the tile reduce). Kernels A, C and H
+   also report their share of the bf16 tensor-core peak at Q=1024
+   (``tensor_core_share``; C at Q=128 too), and A and F their time at a
+   GIST-shaped D=960 (``*_d960``; not a gate). A, C, H, F and I are one
+   tensor-core kernel, on bf16 or int8 operands (C's decoded from its
+   codes); F and I must be bit-equal to their twins.
 4. Small reference: a CUDA engine against a CPU engine on the same codes.
 5. Engine: the bf16 path through the public API at a SIFT-shaped config
    (N=2,000,000, D=128, M=32, Ks=256, nlist=1000, topk=10): PQ fit,
@@ -197,8 +198,8 @@ def phase_card():
 
 def phase_build():
     from rii_tpu_torch.ops import _build
-    names = ("replica_tc", "ivf_window", "pq_scan", "ivf_pq_window",
-             "ivf_i8_window", "rowmajor_scan")
+    names = ("replica_tc", "ivf_window", "ivf_pq_window", "ivf_i8_window",
+             "rowmajor_scan")
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(lambda nm: _build.load_library(nm, verbose=True), names))
@@ -366,13 +367,15 @@ def phase_kernels_pq(dev, g):
                      + qn * (cap // 128) * 4, 2 * qn * nl * d, "bf16")
 
     records.append({"name": "pq_tile_keys", "route": "cuda",
-                    "source": "rii_tpu_torch/csrc/pq_scan.cu",
+                    "source": "rii_tpu_torch/csrc/replica_tc.cu",
                     "replaces": "rii_tpu/ops/pallas_scan.py:856 _pq_t_kernel",
                     "max_abs_err": max(errs), "ms": ms[1024],
                     "plain_ms": plain_ms[1024], "ms_q128": ms[128],
                     "plain_ms_q128": plain_ms[128], "cap": cap, "n_valid": n_valid,
                     "Q": 1024, **c_bound(1024), "library_ms": None,
-                    **at_q(c_bound(128), 128)})
+                    **at_q(c_bound(128), 128),
+                    "tensor_core_share": tensor_core_share(2 * 1024 * nl * d, ms[1024]),
+                    "tensor_core_share_q128": tensor_core_share(2 * 128 * nl * d, ms[128])})
     del codes_t, norms
 
     cap_v, nwin, wv = 256, 191_000, 32

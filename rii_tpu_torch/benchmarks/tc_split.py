@@ -1,29 +1,33 @@
-"""Where the tensor-core scan kernel's time goes: kernels F, I, A and H
+"""Where the tensor-core scan kernel's time goes: kernels F, I, A, H and C
 timed in probe builds of ``csrc/replica_tc.cu`` with the product or the
-epilogue switched off (``RII_TC_PRODUCT`` / ``RII_TC_EPILOGUE``), beside
-the full kernel; or, with ``--parent``, kernels A and H of this checkout
-against those of another one.
+epilogue switched off (``RII_TC_PRODUCT`` / ``RII_TC_EPILOGUE``), and for
+C the decoding (``RII_TC_DECODE``), beside the full kernel; or, with
+``--parent``, the kernels of this checkout against those of another one.
 
     python -m rii_tpu_torch.benchmarks.tc_split      # the card only
     python -m rii_tpu_torch.benchmarks.tc_split --parent DIR
 
 Split. Shapes are ``chip_smoke.py``'s: F over cap 2^24 with n_valid 10.1M
 (the 10M band), I over cap 2^20 (the ops level), A over cap 2^21 (the bf16
-cell) and H packed at Q=1024, D=128, at Q=128 and 1024. Each variant is
-called through its C entry with the queries prepared once (kernel time
-only, no wrapper work), timed with CUDA events (median of ``reps`` after
-two warm runs) in the order full, no epilogue, no product, neither, and
-back. A variant without the product or the epilogue computes nothing
-useful; its time bounds what the rest costs.
+cell) and H packed at Q=1024, D=128, at Q=128 and 1024; A and H at the GIST
+shape (D=960 over cap 2^20, Q=1024), where the queries stream through the
+ring; C at the SIFT1B shape (M=8, Ks=256, Ds=16 over cap 2^26 with n_valid
+2^25 + 100k) at Q=128 and 1024. Each variant is called through its C entry
+with the queries prepared once (kernel time only, no wrapper work), timed
+with CUDA events (median of ``reps`` after two warm runs) in the order
+full, no epilogue, no product, neither[, no decode], and back. A variant
+without the product or the epilogue computes nothing useful; its time
+bounds what the rest costs. "neither" leaves C's decoding alone; "no
+decode" leaves C's stages as they are (garbage keys).
 
 Parent. ``DIR`` is a checkout of an earlier commit (``git archive <commit>
 | tar -x -C DIR``); its ``rii_tpu_torch/csrc/replica_tc.cu`` is built
-beside this one's. A and H (packed and exact) run on the same inputs at
-D=128 over cap 2^21 (Q=128, 1024) and at the GIST shape, D=960 over cap
-2^20 (Q=1024), in ``rounds`` rounds of parent, change, change, parent.
-First it prints, for each bf16 instantiation of the kernel, its count of
-SASS instructions in both builds (``cuobjdump -sass``) and the opcodes
-whose counts differ.
+beside this one's. Every kernel and shape of the split (H exact too) that
+both builds hold (a parent from before kernel C moved there has no C) runs
+on the same inputs in both, in ``rounds`` rounds of parent, change,
+change, parent. First it prints, for each bf16 instantiation of the
+kernel, its count of SASS instructions in both builds (``cuobjdump
+-sass``) and the opcodes whose counts differ.
 
 Prints the card's name and power limit, then one JSON line per kernel and
 shape (and per instantiation).
@@ -47,7 +51,8 @@ from rii_tpu_torch.ops import hopper_scan as H
 
 VARIANTS = {"full": (), "no_epilogue": ("RII_TC_EPILOGUE=0",),
             "no_product": ("RII_TC_PRODUCT=0",),
-            "neither": ("RII_TC_PRODUCT=0", "RII_TC_EPILOGUE=0")}
+            "neither": ("RII_TC_PRODUCT=0", "RII_TC_EPILOGUE=0"),
+            "no_decode": ("RII_TC_DECODE=0",)}  # kernel C only
 _P = ctypes.c_void_p
 
 
@@ -71,19 +76,21 @@ def _cuda_ms(fn, reps):
     return float(np.median(times))
 
 
-def _entries(lib, names=None):
-    """The C entries (all four, or ``names``) with their argument types."""
+def _entries(lib):
+    """The kernels' C entries that ``lib`` holds, with their argument types."""
     i, ll = ctypes.c_int, ctypes.c_longlong
     spec = {"rii_tc_i8_tile_keys": [_P, i, _P, _P, _P, _P, i, i, ll, ll, _P],
             "rii_tc_i8_tile_minima": [_P, i, _P, _P, _P, _P, _P, i, i, ll, _P],
             "rii_tc_tile_keys": [_P, i, _P, _P, _P, i, i, ll, _P],
-            "rii_tc_tile_minima": [_P, i, _P, _P, _P, _P, i, i, ll, i, _P]}
+            "rii_tc_tile_minima": [_P, i, _P, _P, _P, _P, i, i, ll, i, _P],
+            "rii_tc_pq_tile_keys": [_P, i, _P, _P, _P, _P, i, i, i, i, ll, ll, _P]}
     out = {}
-    for name in names or spec:
-        fn = getattr(lib, name)
-        fn.argtypes = spec[name]
-        fn.restype = ctypes.c_int
-        out[name] = fn
+    for name, argtypes in spec.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            out[name] = fn
     return out
 
 
@@ -137,6 +144,25 @@ def _cases(dev, g, d=128):
                     _ptr(a), qn, d, cap, st)
         del rows, norms
     yield from _bf16_cases(dev, g, d, 1 << 21, (("A", 128), ("A", 1024), ("H", 1024)))
+    # the GIST shape: past 8 chunks the queries stream through the ring
+    yield from _bf16_cases(dev, g, 960, 1 << 20, (("A", 1024), ("H", 1024)))
+    yield from _pq_cases(dev, g)
+
+
+def _pq_cases(dev, g, m=8, ks=256, ds=16):
+    """Kernel C at the SIFT1B shape: (kernel, Q, D, cap, call(entries))."""
+    st = _P(torch.cuda.current_stream(dev).cuda_stream)
+    cap, n_valid, d = 1 << 26, (1 << 25) + 100_000, m * ds
+    codes_t = torch.randint(0, ks, (m, cap), generator=g, device=dev, dtype=torch.uint8)
+    cw = (torch.rand((m, ks, ds), generator=g, device=dev) * 0.025).to(torch.bfloat16)
+    norms = torch.rand(cap, generator=g, device=dev)
+    norms[n_valid:] = float("inf")
+    for qn in (128, 1024):
+        q16, ldq = H._tc_queries(torch.rand((qn, d), generator=g, device=dev) * 0.08)
+        keys = torch.empty((qn, cap // 128), device=dev)
+        yield "C", qn, d, cap, lambda e, q16=q16, ldq=ldq, keys=keys, qn=qn: e[
+            "rii_tc_pq_tile_keys"](_ptr(q16), ldq, _ptr(codes_t), _ptr(norms), _ptr(cw),
+                                   _ptr(keys), qn, m, ks, ds, cap, n_valid, st)
 
 
 def run(reps=7, seed=0):
@@ -153,7 +179,7 @@ def run(reps=7, seed=0):
     for kernel, qn, d, cap, call in _cases(dev, g):
         rec = {"kernel": kernel, "Q": qn, "cap": cap, "D": d,
                "device": torch.cuda.get_device_name(dev)}
-        for v in order:
+        for v in order if kernel == "C" else [v for v in order if v != "no_decode"]:
             _build.check(call(entries[v]), f"{kernel} {v}")
             rec.setdefault(f"{v}_ms", []).append(_cuda_ms(lambda: call(entries[v]), reps))
         records.append(rec)
@@ -198,15 +224,17 @@ def parse_sass(text):
 
 
 def ab(parent, reps=7, rounds=2, seed=0):
-    """Kernels A and H of the checkout at ``parent`` against this one's on
-    the same inputs. Returns the SASS records, then one record per kernel
-    and shape with ``parent_ms`` and ``change_ms`` (each round's two
-    timings of each, in the order parent, change, change, parent)."""
+    """The kernels of the checkout at ``parent`` against this one's on the
+    same inputs (the split's kernels and shapes, H exact beside H packed).
+    Returns the SASS records, then one record per kernel and shape with
+    ``parent_ms`` and ``change_ms`` (each round's two timings of each, in
+    the order parent, change, change, parent)."""
     dev = torch.device("cuda", 0)
     csrc = {"parent": Path(parent) / "rii_tpu_torch" / "csrc", "change": None}
-    with ThreadPoolExecutor(2) as pool:
-        libs = dict(zip(csrc, pool.map(lambda c: _build.load_library("replica_tc", csrc=c),
-                                       csrc.values())))
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per build
+        libs = list(pool.map(lambda c: _build.load_library("replica_tc", csrc=c),
+                             csrc.values()))
+    entries = {k: _entries(lib) for k, lib in zip(csrc, libs)}
     records = []
     sass = {k: _sass_counts(_build.library_path("replica_tc", csrc=c))
             for k, c in csrc.items()}
@@ -217,31 +245,35 @@ def ab(parent, reps=7, rounds=2, seed=0):
                         "parent_instr": sum(p.values()), "change_instr": sum(c.values()),
                         "differ": {op: [p[op], c[op]] for op in sorted(set(p) | set(c))
                                    if p[op] != c[op]}})
-    entries = {k: _entries(lib, ("rii_tc_tile_keys", "rii_tc_tile_minima"))
-               for k, lib in libs.items()}
     g = torch.Generator(device=dev).manual_seed(seed)
-    shapes = ((128, 1 << 21, (128, 1024)), (960, 1 << 20, (1024,)))
-    for d, cap, qns in shapes:
-        cases = [(k, qn) for qn in qns for k in ("A", "H", "H exact")]
-        for kernel, qn, d, cap, call in _bf16_cases(dev, g, d, cap, cases):
-            rec = {"kernel": kernel, "Q": qn, "cap": cap, "D": d,
-                   "device": torch.cuda.get_device_name(dev)}
-            for _ in range(rounds):
-                for k in ("parent", "change", "change", "parent"):
-                    _build.check(call(entries[k]), f"{kernel} {k}")
-                    rec.setdefault(f"{k}_ms", []).append(
-                        _cuda_ms(lambda: call(entries[k]), reps))
-            rec["change_over_parent"] = (float(np.median(rec["change_ms"]))
-                                         / float(np.median(rec["parent_ms"])))
-            records.append(rec)
+
+    def cases():
+        for kernel, qn, d, cap, call in _cases(dev, g):
+            yield kernel, qn, d, cap, call
+            if kernel == "H":  # the exact reduce on the same inputs
+                yield from _bf16_cases(dev, g, d, cap, (("H exact", qn),))
+
+    for kernel, qn, d, cap, call in cases():
+        if kernel == "C" and "rii_tc_pq_tile_keys" not in entries["parent"]:
+            continue
+        rec = {"kernel": kernel, "Q": qn, "cap": cap, "D": d,
+               "device": torch.cuda.get_device_name(dev)}
+        for _ in range(rounds):
+            for k in ("parent", "change", "change", "parent"):
+                _build.check(call(entries[k]), f"{kernel} {k}")
+                rec.setdefault(f"{k}_ms", []).append(
+                    _cuda_ms(lambda: call(entries[k]), reps))
+        rec["change_over_parent"] = (float(np.median(rec["change_ms"]))
+                                     / float(np.median(rec["parent_ms"])))
+        records.append(rec)
     return records
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=7)
-    ap.add_argument("--parent", help="a checkout of an earlier commit: time kernels A "
-                                     "and H of both instead of the split")
+    ap.add_argument("--parent", help="a checkout of an earlier commit: time the "
+                                     "kernels of both instead of the split")
     ap.add_argument("--rounds", type=int, default=2, help="--parent: rounds of "
                                                           "parent, change, change, parent")
     args = ap.parse_args(argv)

@@ -1,10 +1,13 @@
-// Kernels A, H, F and I on the tensor cores: the linear scans over the
-// bf16 and the int8 replica, one kernel templated on the operand type and
-// on the replica's layout.
+// Kernels A, C, H, F and I on the tensor cores: the linear scans over the
+// bf16 and the int8 replica and over the uint8 PQ codes, one kernel
+// templated on the operand type and on the replica's source.
 //
 // Replaces rii_tpu/ops/pallas_scan.py
 //   A  _replica_t_kernel (Q < 512) and _replica_tn_kernel (Q >= 512), entry
 //      rii_tc_tile_keys: the transposed bf16 replica dec_t (D, cap);
+//   C  _pq_t_kernel, entry rii_tc_pq_tile_keys: the codes stored transposed,
+//      codes_t (M, cap) uint8, decoded through the bf16 codebook cw
+//      (M, Ks, Ds), D = M * Ds, Ks <= 256 - A's keys over the decoded rows;
 //   H  _replica_scan_kernel, entry rii_tc_tile_minima: the row-major bf16
 //      replica (cap, D);
 //   F  _replica_i8t_kernel (Q < 512) and _replica_i8tn_kernel (Q >= 512),
@@ -23,10 +26,12 @@
 //     alpha (Q,) f32 its dequantization factor. |cross| <= 127^2 * D < 2^24
 //     up to D = 1040, so float(cross) is exact there and the keys are bit
 //     for bit those of the twins and of the Pallas kernels.
+//   C: the bf16 score over the decoded row, each value the codeword itself
+//     (what the Pallas kernel's one-hot products give, exactly).
 // Per 128-slot tile and query:
-//   keys (A, F): the minimum of the packed keys, (Q, cap/128) f32 - the
+//   keys (A, C, F): the minimum of the packed keys, (Q, cap/128) f32 - the
 //     score clamped to 3e38, the slot's lane (0..127) in the low 7 mantissa
-//     bits; F takes n_valid: the tiles from ceil(n_valid / 128) on hold
+//     bits; C and F take n_valid: the tiles from ceil(n_valid / 128) on hold
 //     padding only and get the key of +inf at lane 0 without being read;
 //   packed (H, I): that key unpacked into vmin (bits cleared, +inf restored
 //     at >= 2.9e38) and amin = tile * 128 + lane;
@@ -40,9 +45,9 @@
 // are M, one 128-slot tile is N, D is K, cut into chunks of 128 bytes a row
 // (64 bf16 or 128 int8 dims: one 128-byte swizzle row) and zero-padded; a
 // K step is 32 bytes either way. A block has two consumer warpgroups and a
-// producer warpgroup, one warp of which works; setmaxnreg hands the
-// producer's registers to the consumers, whose accumulators and epilogue
-// then fit without spills.
+// producer warpgroup, one warp of which works (C: all four, decoding);
+// setmaxnreg hands the producer's registers to the consumers, whose
+// accumulators and epilogue then fit without spills.
 // - Queries. A block owns 128 (kMT = 1) or 256 (kMT = 2, from Q > 128 at
 //   D up to 4 chunks) query rows, kMT m64 tiles a consumer warpgroup,
 //   K-major with the 128-byte swizzle (zero past Q and past D). Up to 8
@@ -50,7 +55,14 @@
 //   shared memory. Wider rows (kQS) leave no room for that beside the
 //   ring, so there each ring stage carries the block's queries for its
 //   chunk too, copied by TMA beside the replica's (from L2 after the first
-//   slot group): one kernel serves every D. There bf16 products are summed
+//   slot group): one kernel serves every D. Both operands then come from L2
+//   for every chunk of every tile (A at D=960, Q=1024: ~32 GB), and that
+//   stream alone takes as long as the whole kernel (tc_split.py: 3.77 ms
+//   with neither product nor epilogue, 3.3 whole). Clusters of 2 or 4
+//   blocks sharing each replica chunk by TMA multicast cut that stream to
+//   2.7 ms, but the blocks then moved in lockstep and no longer hid the
+//   product and the epilogue: A took 3.75-4.1 ms against 3.38-3.47 alone
+//   (PERF.md), so blocks run alone. There bf16 products are summed
 //   8 chunks at a time and the parts added in float32 on the CUDA cores,
 //   which keeps the sum as close to the twin's as at D = 512; int32 sums
 //   are exact and run whole. The wrapper hands the queries over as TMA can
@@ -75,6 +87,24 @@
 //   aligned so, else one element at a time, none past the row. A stage is
 //   released as soon as the products that read it are done, so any D fits
 //   a ring of two stages.
+// - Codes (C). The ring's stages are those of the row-major tiles, K-major
+//   and swizzled, but the whole producer warpgroup writes them: thread r
+//   decodes slot r of the tile, a 16-byte unit at a time, from the slot's
+//   code byte of each sub-space (128 threads read a code row's 128
+//   contiguous bytes) and the codebook. The codebook (Ks * D * 2 bytes,
+//   64 KB at Ks=256, D=128) is staged once a block in shared memory where
+//   it fits beside a ring of two stages, else read through L1 from device
+//   memory. Where Ds is a multiple of 8 a unit is 8 dims of one sub-space,
+//   one 16-byte load of a codeword; otherwise it is built element by
+//   element. Four warps, one unit a thread at a time, are few: a decode
+//   that divided by Ds for every unit and waited on each code load bounded
+//   C (tc_split.py: 13.2 of 13.5 ms at Q=128 with neither product nor
+//   epilogue), so a thread now walks its slot's dims without a division
+//   and issues a chunk's 8 code loads before it waits for the stage, and
+//   the next tile's code rows are prefetched into L1 while a tile is
+//   decoded (C 2.4-2.9% faster than without, PERF.md). Decoding replaces the Pallas kernel's one-hot products:
+//   the codes are read once from device memory and 16 KB of bf16 a chunk
+//   never leave the SM.
 // - Epilogue. A thread's accumulator holds two query rows x 32 slots of the
 //   tile (columns 8j + 2*(lane%4) + {0,1}); each row is reduced in-thread
 //   as 8 independent chains (their dependent min steps interleave), then
@@ -89,9 +119,11 @@
 // - Overlap. The two consumer warpgroups share the ring and free-run: one's
 //   epilogue overlaps the other's product as far as they drift apart. An
 //   ordered ping-pong between them, or two accumulators a warpgroup that
-//   overlap its own epilogue with its next product, is not used: the
-//   free-run is the simplest of the three, and no measurement kept in the
-//   repository compares them (PERF.md, open questions).
+//   overlap its own epilogue with its next product, is not used: past 8
+//   chunks, a tile's epilogue run on the parts' total after issuing the
+//   next tile's first products spilled (about 100 bytes a thread) and made
+//   A at D=960 slower (PERF.md); below, no measurement kept in the
+//   repository compares them.
 // - Reading the replica once. The grid is persistent: nqb query blocks x
 //   nsg slot groups, nqb * nsg <= #SMs, over the live tiles only. The
 //   blocks that share a slot group have consecutive indices, start together
@@ -110,7 +142,10 @@
 // live slots of cap 2^24): at Q=1024 the 2.6e12 operations (1.34 ms at
 // 1,979 TOP/s) beside an epilogue of about 4 instructions a score over
 // 1.0e10 scores (one more than bf16's: the conversion); at Q=128 the
-// 1.3 GB of live rows (0.39 ms).
+// 1.3 GB of live rows (0.39 ms). C (M=8, 2^25 live slots of cap 2^26): at
+// Q=1024 the 1.1e12 bf16 operations (8.7 ms) and A's epilogue over 3.4e10
+// scores; at Q=128 the operations too (1.1 ms), the codes being 8 bytes a
+// slot (0.27 GB).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -122,13 +157,17 @@
 
 #include "packed_keys.cuh"
 
-// Probe builds (rii_tpu_torch/benchmarks/tc_split.py) switch the product or
-// the epilogue off to split the kernel's time; a normal build keeps both.
+// Probe builds (rii_tpu_torch/benchmarks/tc_split.py) switch the product,
+// the epilogue or C's decoding off to split the kernel's time; a normal
+// build keeps all three.
 #ifndef RII_TC_PRODUCT
 #define RII_TC_PRODUCT 1
 #endif
 #ifndef RII_TC_EPILOGUE
 #define RII_TC_EPILOGUE 1
+#endif
+#ifndef RII_TC_DECODE
+#define RII_TC_DECODE 1
 #endif
 
 namespace {
@@ -154,8 +193,18 @@ constexpr int kDims = kRowBytes / static_cast<int>(sizeof(T));  // dims of a K c
 template <typename T>
 using Acc = std::conditional_t<kS8<T>, int, float>;
 
-enum Layout { kT = 0, kRowTma = 1, kRowLoad = 2 };
+enum Layout { kT = 0, kRowTma = 1, kRowLoad = 2, kCodes = 3 };
 enum Out { kKeys = 0, kPacked = 1, kExact = 2 };
+
+// Kernel C's replica: codes (M, cap) uint8 and the bf16 codebook cw
+// (M, Ks, Ds), staged in shared memory when cb_smem; vec when Ds is a
+// multiple of 8 and cw 16-byte aligned (a unit is one 16-byte load).
+struct CodeSrc {
+  const uint8_t* codes;
+  const uint16_t* cw;
+  long long cap;
+  int M, Ks, Ds, cb_smem, vec;
+};
 
 // ---- shared memory, barriers, copies ------------------------------------------
 
@@ -227,6 +276,10 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
 
 __device__ __forceinline__ void named_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(reinterpret_cast<uint64_t>(p)));
 }
 
 // ---- wgmma -----------------------------------------------------------------
@@ -359,6 +412,92 @@ __device__ __forceinline__ int sw128_offset(int r, int k8) {
   return r * 128 + ((k8 ^ (r & 7)) << 4);
 }
 
+// Kernel C, Ds a multiple of 8 (cs.vec): a 16-byte unit is 8 dims of one
+// sub-space. Producer thread r owns slot tile * 128 + r and walks its dims
+// in order, a chunk of 8 units at a time, without a division: cp is the
+// code row of the next unit's sub-space at this slot, mo that sub-space's
+// offset in the codebook (m * Ks * Ds) and j the unit's first dim in it.
+// chunk_codes issues the chunk's code loads (before the stage is free) and
+// keeps each unit's code and offset (-1 past D); chunk_store then copies
+// the codewords' units into row r of the K-major swizzled stage.
+__device__ __forceinline__ void chunk_codes(const CodeSrc& cs, int D, int c, const uint8_t*& cp,
+                                            int& mo, int& j, int (&code)[8], int (&off)[8]) {
+#pragma unroll
+  for (int k8 = 0; k8 < 8; ++k8) {
+    const bool in = c * 64 + 8 * k8 < D;
+    code[k8] = in ? __ldg(cp) : 0;
+    off[k8] = in ? mo + j : -1;
+    j += 8;
+    if (j == cs.Ds) {
+      j = 0;
+      mo += cs.Ks * cs.Ds;
+      cp += cs.cap;
+    }
+  }
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t a) {
+  uint4 v;
+  asm("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "r"(a));
+  return v;
+}
+
+// cb_s: the codebook's shared-memory address when cs.cb_smem.
+__device__ __forceinline__ void chunk_store(uint8_t* dst, const CodeSrc& cs, uint32_t cb_s,
+                                            const int (&code)[8], const int (&off)[8], int r) {
+#pragma unroll
+  for (int k8 = 0; k8 < 8; ++k8) {
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (off[k8] >= 0) {
+      const int e = off[k8] + code[k8] * cs.Ds;  // element of the codebook
+      w = cs.cb_smem ? lds128(cb_s + 2 * e) : __ldg(reinterpret_cast<const uint4*>(cs.cw + e));
+    }
+    *reinterpret_cast<uint4*>(dst + sw128_offset(r, k8)) = w;
+  }
+}
+
+// Kernel C, any Ds: chunk c of tile `tile` decoded by producer thread r into
+// row r (slot tile * 128 + r) of a K-major swizzled stage, element by
+// element: dim d is cw[m][code][d - m * Ds], m = d / Ds, code the slot's
+// byte of code row m; zero past D. cb is the codebook in shared or device
+// memory.
+__device__ __forceinline__ void decode_chunk_elems(uint8_t* dst, const uint16_t* cb,
+                                                   const CodeSrc& cs, int D, int tile, int c,
+                                                   int r) {
+  const uint8_t* col = cs.codes + static_cast<long long>(tile) * kTile + r;
+  for (int k8 = 0; k8 < 8; ++k8) {
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int d = c * 64 + 8 * k8 + e;
+      if (d < D) {
+        const int m = d / cs.Ds;
+        const uint32_t v = cb[(m * cs.Ks + __ldg(col + m * cs.cap)) * cs.Ds + d - m * cs.Ds];
+        w[e >> 1] |= v << (16 * (e & 1));
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + sw128_offset(r, k8)) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// The keys of the padding-only tiles [nt_live, nt) that no one reads: the
+// block's share of them (by slot group) for its query rows [q0, q0 + bm),
+// written by the threads i0, i0 + n, ...
+__device__ __forceinline__ void write_padding_keys(float* out_v, int Q, int nt, int nt_live,
+                                                   int sg, int nsg, int q0, int bm, int i0,
+                                                   int n) {
+  const long long dead = nt - nt_live;
+  const int d0 = nt_live + static_cast<int>(dead * sg / nsg);
+  const int w = nt_live + static_cast<int>(dead * (sg + 1) / nsg) - d0;
+  const float pad = pack_key<7>(kPackClamp, 0);
+  for (int idx = i0; idx < bm * w; idx += n) {
+    const int r = idx / w;
+    if (q0 + r < Q) out_v[static_cast<long long>(q0 + r) * nt + d0 + idx % w] = pad;
+  }
+}
+
 // ---- the epilogue: per-tile minima of the warpgroup's accumulators ------------
 //
 // Thread (warp w of its warpgroup, lane) holds, for each m-tile i, rows
@@ -468,23 +607,24 @@ __device__ __forceinline__ void tile_minima(const A (&acc)[kMT][64], const float
 
 // ---- the kernel ------------------------------------------------------------
 
-// tmap reads the replica (unless kRowLoad), qmap the queries (kQS only);
-// the queries' rows are ldq elements apart; alpha (int8) their factors.
-// The grid walks tiles [0, nt_live); kKeys writes the padding key into
-// columns [nt_live, nt).
+// tmap reads the replica (kT, kRowTma), qmap the queries (kQS only); the
+// queries' rows are ldq elements apart; alpha (int8) their factors; cs the
+// codes (kCodes). The grid walks tiles [0, nt_live); kKeys writes the
+// padding key into columns [nt_live, nt).
 template <int kLayout, int kOut, int kMT, bool kQS, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__ CUtensorMap qmap,
                const T* __restrict__ q, const float* __restrict__ alpha,
                const T* __restrict__ rep, const float* __restrict__ norms,
                float* __restrict__ out_v, int* __restrict__ out_i, int Q, int D, int ldq, int kc,
-               int stages, int nt, int nt_live, int nqb, int nsg, int high) {
+               int stages, int nt, int nt_live, int nqb, int nsg, int high, const CodeSrc cs) {
   constexpr int kDim = kDims<T>;
   constexpr int kBM = kConsumers * kMT * 64;  // query rows of a block
   constexpr int kQBytes = kQS ? kConsumers * kMT * kQTileBytes : 0;  // streamed queries
   constexpr int kStage = kChunkBytes + kQBytes;  // replica chunk [, queries' chunk]
   constexpr bool kParts = kQS && !kS8<T>;  // bf16 past 8 chunks: float32 sums of parts
   constexpr bool kNormRing = kS8<T>;        // int8: the norms come through the ring
+  constexpr bool kDecode = kLayout == kCodes;  // C: the producer warpgroup decodes codes
   extern __shared__ uint8_t smem_raw[];
   // swizzled tiles need 1024-byte alignment
   uint8_t* smem = smem_raw + (((smem_u32(smem_raw) + 1023) & ~1023u) - smem_u32(smem_raw));
@@ -495,6 +635,8 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
   uint8_t* qs = nring + (kNormRing ? kMaxStages * kNormBytes : 0);
   uint8_t* ring = qs + (kQS ? 0 : kConsumers * kMT * kc * kQTileBytes);
   uint8_t* staged = ring + stages * kStage;  // [warpgroup][row][kOutTiles] values, lanes
+  // C: the codebook, when it is staged
+  uint16_t* cbs = reinterpret_cast<uint16_t*>(staged + 2 * kConsumers * kMT * 64 * kOutTiles * 4);
 
   const int t = threadIdx.x;
   const int warp = t >> 5;
@@ -507,10 +649,22 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
 
   if (t == 0) {
     for (int s = 0; s < stages; ++s) {
-      mbar_init(&full[s], kLayout == kRowLoad ? 32 : 1);
+      mbar_init(&full[s], kLayout == kRowLoad ? 32 : kDecode ? 128 : 1);
       mbar_init(&empty[s], kConsumers * 4);  // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if constexpr (kDecode) {
+    if (cs.cb_smem) {
+      const int n = cs.M * cs.Ks * cs.Ds;
+      if (cs.vec) {
+        for (int u = t; u < n / 8; u += kThreads) {
+          reinterpret_cast<uint4*>(cbs)[u] = __ldg(reinterpret_cast<const uint4*>(cs.cw) + u);
+        }
+      } else {
+        for (int e = t; e < n; e += kThreads) cbs[e] = cs.cw[e];
+      }
+    }
   }
   // the block's resident queries, K-major and swizzled, in 16-byte units
   for (int u = t; !kQS && u < kBM * kc * 8; u += kThreads) {
@@ -529,75 +683,97 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
 
   if (warp >= kConsumers * 4) {
     // ---- producer warpgroup: its first warp streams the block's tiles,
-    // chunk by chunk, into the ring; the others only hand their registers on
+    // chunk by chunk, into the ring (C: the whole warpgroup decodes them);
+    // the others only hand their registers on
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (warp != kConsumers * 4) {
+    const int pt = t - kConsumers * 128;  // 0..127
+    if (!kDecode && warp != kConsumers * 4) {
       if constexpr (kOut == kKeys && kS8<T>) {
         // F: the other three warps write the block's share of the keys of
-        // the padding-only tiles, which no one reads
-        const long long dead = nt - nt_live;
-        const int d0 = nt_live + static_cast<int>(dead * sg / nsg);
-        const int w = nt_live + static_cast<int>(dead * (sg + 1) / nsg) - d0;
-        const float pad = pack_key<7>(kPackClamp, 0);
-        for (int idx = t - (kConsumers * 4 + 1) * 32; idx < kBM * w; idx += 3 * 32) {
-          const int r = idx / w;
-          if (q0 + r < Q) out_v[static_cast<long long>(q0 + r) * nt + d0 + idx % w] = pad;
+        // the padding-only tiles
+        write_padding_keys(out_v, Q, nt, nt_live, sg, nsg, q0, kBM, pt - 32, 3 * 32);
+      }
+    } else {
+      const uint16_t* cb = cs.cb_smem ? cbs : cs.cw;  // C's codebook
+      int s = 0;
+      uint32_t ph = 0;
+      for (int tile = tile0; tile < tile1; ++tile) {
+        // C: the walk over this slot's dims (chunk_codes)
+        const uint8_t* cp = cs.codes + static_cast<long long>(tile) * kTile + pt;
+        int mo = 0;
+        int j = 0;
+        if constexpr (kDecode) {
+          // the next tile's code rows, into L1 while this one is decoded
+          for (int m = pt; m < cs.M && tile + 1 < tile1; m += 128) {
+            prefetch_l1(cs.codes + m * cs.cap + static_cast<long long>(tile + 1) * kTile);
+          }
+        }
+        for (int c = 0; c < kc; ++c) {
+          int code[8];
+          int off[8];
+          if (kDecode && cs.vec) chunk_codes(cs, D, c, cp, mo, j, code, off);
+          mbar_wait(&empty[s], ph ^ 1);
+          uint8_t* dst = ring + s * kStage;
+          if constexpr (kLayout == kRowLoad || kDecode) {
+            if constexpr (kDecode) {
+              if (!RII_TC_DECODE) {
+              } else if (cs.vec) {
+                chunk_store(dst, cs, smem_u32(cbs), code, off, pt);
+              } else {
+                decode_chunk_elems(dst, cb, cs, D, tile, c, pt);
+              }
+            } else {
+              const T* src = rep + static_cast<long long>(tile) * kTile * D;
+              for (int u = lane; u < kTile * 8; u += 32) {
+                const int r = u >> 3;
+                const int k8 = u & 7;
+                *reinterpret_cast<uint4*>(dst + sw128_offset(r, k8)) =
+                    load_unit(src + static_cast<long long>(r) * D, c * kDim + k8 * (kDim / 8), D);
+              }
+            }
+            fence_proxy_async();
+            // thread 0 arrives below, with the bytes of the copies
+            if (pt != 0) mbar_arrive(&full[s]);
+          }
+          if (pt == 0) {
+            // the query tiles that hold a row below Q (the rest stay unread)
+            const int mq = kQS ? min(kConsumers * kMT, (Q - q0 + 63) / 64) : 0;
+            const uint32_t tx = (kLayout == kT || kLayout == kRowTma ? kChunkBytes : 0) +
+                                mq * kQTileBytes + (kNormRing && c == 0 ? kNormBytes : 0);
+            if ((kLayout == kRowLoad || kDecode) && tx == 0) {  // only stores fill it
+              mbar_arrive(&full[s]);
+            } else {
+              mbar_expect_tx(&full[s], tx);
+            }
+            if (kNormRing && c == 0) {
+              // the tile's norms arrive with its first chunk, so that the
+              // epilogue finds them in shared memory
+              bulk_load(nring + s * kNormBytes, norms + static_cast<long long>(tile) * kTile,
+                        kNormBytes, &full[s]);
+            }
+            if constexpr (kLayout == kT) {
+              // (D, cap): two boxes of 64 slots x 64 dims, MN-major
+              tma_load_2d(dst, &tmap, &full[s], tile * kTile, c * kDim);
+              tma_load_2d(dst + kChunkBytes / 2, &tmap, &full[s], tile * kTile + 64, c * kDim);
+            } else if constexpr (kLayout == kRowTma) {
+              // (cap, D): one box of a chunk's dims x 128 rows, K-major
+              tma_load_2d(dst, &tmap, &full[s], c * kDim, tile * kTile);
+            }
+            // (Q, D) queries: a box of a chunk's dims x 64 rows a tile, K-major
+            for (int m = 0; m < mq; ++m) {
+              tma_load_2d(dst + kChunkBytes + m * kQTileBytes, &qmap, &full[s], c * kDim,
+                          q0 + 64 * m);
+            }
+          }
+          if (++s == stages) {
+            s = 0;
+            ph ^= 1;
+          }
         }
       }
-      return;
-    }
-    int s = 0;
-    uint32_t ph = 0;
-    for (int tile = tile0; tile < tile1; ++tile) {
-      for (int c = 0; c < kc; ++c) {
-        mbar_wait(&empty[s], ph ^ 1);
-        uint8_t* dst = ring + s * kStage;
-        if constexpr (kLayout == kRowLoad) {
-          const T* src = rep + static_cast<long long>(tile) * kTile * D;
-          for (int u = lane; u < kTile * 8; u += 32) {
-            const int r = u >> 3;
-            const int k8 = u & 7;
-            *reinterpret_cast<uint4*>(dst + sw128_offset(r, k8)) =
-                load_unit(src + static_cast<long long>(r) * D, c * kDim + k8 * (kDim / 8), D);
-          }
-          fence_proxy_async();
-          // lane 0 arrives below, with the bytes of the copies
-          if (lane != 0) mbar_arrive(&full[s]);
-        }
-        if (lane == 0) {
-          // the query tiles that hold a row below Q (the rest stay unread)
-          const int mq = kQS ? min(kConsumers * kMT, (Q - q0 + 63) / 64) : 0;
-          const uint32_t tx = (kLayout != kRowLoad ? kChunkBytes : 0) + mq * kQTileBytes +
-                              (kNormRing && c == 0 ? kNormBytes : 0);
-          if (kLayout == kRowLoad && tx == 0) {  // no copies: only loads fill it
-            mbar_arrive(&full[s]);
-          } else {
-            mbar_expect_tx(&full[s], tx);
-          }
-          if (kNormRing && c == 0) {
-            // the tile's norms arrive with its first chunk, so that the
-            // epilogue finds them in shared memory
-            bulk_load(nring + s * kNormBytes, norms + static_cast<long long>(tile) * kTile,
-                      kNormBytes, &full[s]);
-          }
-          if constexpr (kLayout == kT) {
-            // (D, cap): two boxes of 64 slots x 64 dims, MN-major
-            tma_load_2d(dst, &tmap, &full[s], tile * kTile, c * kDim);
-            tma_load_2d(dst + kChunkBytes / 2, &tmap, &full[s], tile * kTile + 64, c * kDim);
-          } else if constexpr (kLayout == kRowTma) {
-            // (cap, D): one box of a chunk's dims x 128 rows, K-major
-            tma_load_2d(dst, &tmap, &full[s], c * kDim, tile * kTile);
-          }
-          // (Q, D) queries: a box of a chunk's dims x 64 rows a tile, K-major
-          for (int m = 0; m < mq; ++m) {
-            tma_load_2d(dst + kChunkBytes + m * kQTileBytes, &qmap, &full[s], c * kDim,
-                        q0 + 64 * m);
-          }
-        }
-        if (++s == stages) {
-          s = 0;
-          ph ^= 1;
-        }
+      if constexpr (kDecode) {
+        // C: the padding-only tiles' keys, once the decoding is done
+        write_padding_keys(out_v, Q, nt, nt_live, sg, nsg, q0, kBM, pt, 128);
       }
     }
   } else {
@@ -784,6 +960,7 @@ struct Args {
   long long cap;
   long long n_valid;
   cudaStream_t stream;
+  CodeSrc cs;  // kernel C only
 };
 
 template <int kLayout, int kOut, int kMT, bool kQS, typename T>
@@ -794,8 +971,14 @@ int launch(const CUtensorMap& map, const Args& a) {
   const size_t fixed = 2048 + (kS8<T> ? kMaxStages * kNormBytes : 0) + (kQS ? 0 : kc * qtiles) +
                        static_cast<size_t>(2 * kConsumers) * kMT * 64 * kOutTiles * 4;
   if (fixed + 2 * stage > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const int stages = static_cast<int>(std::min<size_t>(kMaxStages, (kMaxSmem - fixed) / stage));
-  const size_t smem = fixed + static_cast<size_t>(stages) * stage;
+  CodeSrc cs = a.cs;
+  // C: the codebook goes to shared memory if a ring of two stages still fits
+  const size_t cb = kLayout == kCodes ? (static_cast<size_t>(cs.M) * cs.Ks * cs.Ds * 2 + 15) / 16 * 16
+                                      : 0;
+  cs.cb_smem = kLayout == kCodes && fixed + cb + 2 * stage <= kMaxSmem;
+  const size_t held = fixed + (cs.cb_smem ? cb : 0);
+  const int stages = static_cast<int>(std::min<size_t>(kMaxStages, (kMaxSmem - held) / stage));
+  const size_t smem = held + static_cast<size_t>(stages) * stage;
   CUtensorMap qmap;
   memset(&qmap, 0, sizeof(qmap));  // resident queries read no map
   if (kQS && !make_map<T>(&qmap, a.q, a.D, a.Q, static_cast<uint64_t>(a.ldq) * sizeof(T),
@@ -820,7 +1003,7 @@ int launch(const CUtensorMap& map, const Args& a) {
   kernel<<<static_cast<unsigned>(nqb) * nsg, kThreads, smem, a.stream>>>(
       map, qmap, static_cast<const T*>(a.q), a.alpha, static_cast<const T*>(a.rep),
       static_cast<const float*>(a.norms), static_cast<float*>(a.ov), static_cast<int*>(a.oi), a.Q,
-      a.D, a.ldq, kc, stages, nt, nt_live, nqb, nsg, ~0x7F);
+      a.D, a.ldq, kc, stages, nt, nt_live, nqb, nsg, ~0x7F, cs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -906,6 +1089,25 @@ extern "C" int rii_tc_tile_keys(const void* q, int ldq, const void* dec_t, const
   const Args a{q, ldq, nullptr, dec_t, norms, keys, nullptr, Q, D, cap, cap,
                static_cast<cudaStream_t>(stream)};
   return launch_for<kT, kKeys, uint16_t>(map, a);
+}
+
+// Kernel C: keys (Q, cap/128) over the codes codes_t (M, cap) uint8,
+// decoded through the bf16 codebook cw (M, Ks, Ds), Ks <= 256, D = M * Ds;
+// the slots from n_valid on hold padding (0 <= n_valid <= cap).
+extern "C" int rii_tc_pq_tile_keys(const void* q, int ldq, const void* codes_t, const void* norms,
+                                   const void* cw, void* keys, int Q, int M, int Ks, int Ds,
+                                   long long cap, long long n_valid, void* stream) {
+  if (M <= 0 || Ks <= 0 || Ks > 256 || Ds <= 0 || static_cast<long long>(M) * Ds >= (1LL << 20) ||
+      bad_shape<uint16_t>(q, ldq, norms, Q, M * Ds, cap) || n_valid < 0 || n_valid > cap) {
+    return kInvalid;
+  }
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));  // the codes are decoded, not copied: no map
+  const CodeSrc cs{static_cast<const uint8_t*>(codes_t), static_cast<const uint16_t*>(cw), cap,
+                   M, Ks, Ds, 0, Ds % 8 == 0 && !misaligned(cw)};
+  const Args a{q, ldq, nullptr, codes_t, norms, keys, nullptr, Q, M * Ds, cap, n_valid,
+               static_cast<cudaStream_t>(stream), cs};
+  return launch_for<kCodes, kKeys, uint16_t>(map, a);
 }
 
 // Kernel H: vmin, amin (Q, cap/128) over dec (cap, D), packed or exact.

@@ -1,12 +1,13 @@
 """Hopper kernels of the pq (memory-lean) tier and their plain PyTorch twins
 (counterpart of the pq part of ``rii_tpu.ops.pallas_scan``).
 
-Three hand-written CUDA kernels carry the tier that holds only the uint8
+Four hand-written CUDA kernels carry the tier that holds only the uint8
 codes on the device:
 
-- **Kernel C**, :func:`pq_tile_keys` (``csrc/pq_scan.cu``), replaces the
-  Pallas kernel ``_pq_t_kernel``: packed per-128-slot minimum keys of the
-  linear scan over the transposed (M, cap) codes.
+- **Kernel C**, :func:`pq_tile_keys` (``csrc/replica_tc.cu``, the
+  tensor-core scan of kernel A with the codes decoded into its operand
+  ring), replaces the Pallas kernel ``_pq_t_kernel``: packed per-128-slot
+  minimum keys of the linear scan over the transposed (M, cap) codes.
 - **Kernel D**, :func:`ivf_pq_window_tile_minima`
   (``csrc/ivf_pq_window.cu``), replaces ``_ivf_pq_window_kernel``:
   per-8-slot top-2 over the probed code windows, rows decoded through the
@@ -49,6 +50,7 @@ from rii_tpu_torch.ops.hopper_scan import (
     _require,
     _rowmajor_minima_plain,
     _stream,
+    _tc_queries,
     _tile_outputs,
     _top2_plain,
 )
@@ -124,11 +126,13 @@ def pq_tile_keys(queries, codes_t, norms, codewords, n_valid=None):
     over uint8 codes.
 
     queries (Q, D) (cast to bf16); codes_t (M, cap) uint8 contiguous; norms
-    (cap,) f32 with +inf on padding and excluded slots; codewords (M, Ks, Ds)
-    (cast to bf16). ``n_valid`` (default cap) promises that every slot from
-    it on is padding (+inf norm): the kernel then writes those tiles' keys
-    without reading their codes. CPU tensors take the plain twin; CUDA
-    tensors launch the kernel."""
+    (cap,) f32 contiguous with +inf on padding and excluded slots;
+    codewords (M, Ks, Ds), Ks <= 256 (cast to bf16). ``n_valid`` (default
+    cap) promises that every slot from it on is padding (+inf norm): the
+    kernel then writes those tiles' keys without reading their codes. CPU
+    tensors take the plain twin; CUDA tensors launch the kernel (the
+    tensor-core scan of ``csrc/replica_tc.cu``, which decodes the codes
+    itself)."""
     m, cap = codes_t.shape
     mk, ks, ds = codewords.shape
     d = m * ds
@@ -137,32 +141,26 @@ def pq_tile_keys(queries, codes_t, norms, codewords, n_valid=None):
              f"queries must be (Q, {d}), got {tuple(queries.shape)}")
     _require(norms.shape == (cap,), f"norms must be ({cap},)")
     _require(cap % _TILE == 0, f"cap={cap} must be a multiple of {_TILE}")
+    _require(ks <= 256, f"Ks={ks}: codes are uint8, Ks must be <= 256")
     if _on_cpu(queries, codes_t, norms, codewords):
         return pq_tile_keys_plain(queries, codes_t, norms, codewords)
-    _require(codes_t.dtype == torch.uint8 and codes_t.is_contiguous()
-             and codes_t.data_ptr() % 4 == 0, "codes_t must be contiguous uint8")
-    _require(norms.dtype == torch.float32 and norms.is_contiguous()
-             and norms.data_ptr() % 16 == 0,
-             "norms must be contiguous, 16-byte aligned float32")
-    _require(ks <= 256, "Ks must be <= 256")
-    lib = _build.load_library("pq_scan")
-    per_block = lib.rii_pq_queries_per_block
-    per_block.argtypes = [ctypes.c_int] * 3
-    per_block.restype = ctypes.c_int
-    _require(per_block(m, ks, ds) > 0,
-             f"M={m}, Ks={ks}, Ds={ds}: the ADC table of 4 queries does not "
-             "fit in shared memory")
-    q16 = queries.to(torch.bfloat16).contiguous()
+    _require(codes_t.dtype == torch.uint8 and codes_t.is_contiguous(),
+             "codes_t must be contiguous uint8")
+    _require(norms.dtype == torch.float32 and norms.is_contiguous(),
+             "norms must be contiguous float32")
+    _require(cap < 1 << 31, "cap must be below 2^31")
+    q16, ldq = _tc_queries(queries)
     cw16 = _bf16_codebook(codewords)
     qn = q16.shape[0]
     keys = torch.empty((qn, cap // _TILE), dtype=torch.float32,
                        device=codes_t.device)
-    fn = lib.rii_pq_tile_keys
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+    fn = _build.load_library("replica_tc").rii_tc_pq_tile_keys
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     nv = cap if n_valid is None else max(0, min(int(n_valid), cap))
-    _build.check(fn(_ptr(q16), _ptr(codes_t), _ptr(norms), _ptr(cw16),
+    _build.check(fn(_ptr(q16), ldq, _ptr(codes_t), _ptr(norms), _ptr(cw16),
                     _ptr(keys), qn, m, ks, ds, cap, nv,
                     _stream(codes_t.device)), "pq_tile_keys")
     pq_tile_keys.launches += 1

@@ -58,12 +58,16 @@ def test_replica_tile_keys_matches_twin(cuda, qn, d):
 # and whole chunks; one tile or three. Wider D and Q cover the other
 # shared-memory configurations: up to D=512 the queries stay in shared
 # memory, past it they stream through the ring (962 and 1700 ragged: H's
-# loaded path, zero-padded queries).
+# loaded path, zero-padded queries). Streamed, also with one tile only (cap
+# 128), an odd number of tiles (3, 5), an odd number of 128-row query
+# blocks (300, 520 rows) and four or eight (1000; 1024 at D=960, the GIST
+# shape).
 _TC_EDGES = ([(qn, d, cap) for qn in (1, 63, 65, 200) for d in (16, 70, 72, 128)
               for cap in (128, 384)]
              + [(300, 256, 384), (130, 200, 384), (70, 320, 384), (300, 512, 384)]
              + [(1, 520, 384), (200, 520, 128), (65, 960, 384), (300, 962, 384),
-                (130, 1700, 384)])
+                (130, 1700, 384)]
+             + [(300, 960, 384), (520, 640, 640), (1000, 576, 128), (1024, 960, 1280)])
 
 
 def _tc_scale(d):
@@ -173,30 +177,57 @@ def test_ivf_window_matches_twin(cuda, d, cap_v, with_pen):
     assert (a_k.cpu().numpy()[:, cols] == 0).all()
 
 
-@pytest.mark.parametrize("qn,m,ks,ds", [(13, 8, 256, 16), (8, 32, 256, 4),
-                                        (40, 5, 100, 3)])
-def test_pq_tile_keys_matches_twin(cuda, qn, m, ks, ds):
-    """Kernel C at 8 queries per block (M=8), at 4 (M=32) and at a ragged
-    shape; the last 20000 slots are padding and n_valid skips their tiles
-    (a whole block's run of 16384 slots among them)."""
-    g = torch.Generator(device=cuda).manual_seed(qn)
+# Kernel C (the tensor-core scan over codes decoded by its producer): Ds a
+# multiple of 8 (16-byte codeword loads: 16 at M=8, the SIFT1B shape; 8 at
+# D=72, not a multiple of 64) or not (3, 4: element by element); Ks 256 or
+# 100; Q from 1 to past 128 (two m64 tiles a warpgroup) and 300; D past 512
+# (M=40, Ds=16: queries streamed) with the codebook in shared memory (Ks=100)
+# or read from device memory (Ks=256, 320 KB). n_valid cuts a tile ("cut"),
+# is 0 (every key the padding key, no codes read), is cap, or leaves one
+# tile ("one").
+_PQ_EDGES = [(13, 8, 256, 16, "cut"), (129, 8, 256, 16, "cut"), (1, 8, 256, 16, "cut"),
+             (8, 32, 256, 4, "cut"), (300, 32, 256, 4, "cut"), (40, 5, 100, 3, "cut"),
+             (1, 5, 100, 3, "cut"), (129, 24, 256, 3, "cut"), (129, 9, 100, 8, "cut"),
+             (13, 40, 100, 16, "cut"), (300, 40, 256, 16, "cut"), (1, 40, 256, 16, "cut"),
+             (13, 8, 256, 16, "none"), (300, 8, 256, 16, "one"), (129, 8, 100, 16, "all")]
+
+
+@pytest.mark.parametrize("qn,m,ks,ds,live", _PQ_EDGES)
+def test_pq_tile_keys_matches_twin(cuda, qn, m, ks, ds, live):
+    """Kernel C against its twin; the slots from n_valid on are padding
+    (+inf norms) and their tiles' keys are written without reading codes."""
+    g = torch.Generator(device=cuda).manual_seed(qn + m + ks + ds)
     cap = 1 << 15
+    n_valid = {"cut": cap - 20000, "none": 0, "one": 100, "all": cap}[live]
     cw = torch.rand((m, ks, ds), generator=g, device=cuda) * (0.4 / ds)
     codes_t = torch.randint(0, ks, (m, cap), generator=g, device=cuda,
                             dtype=torch.uint8)
     cw16 = cw.to(torch.bfloat16).float()
     dec = cw16[torch.arange(m, device=cuda), codes_t.T.long()].reshape(cap, -1)
     norms = (dec * dec).sum(1)
-    norms[-20000:] = float("inf")
-    q = torch.rand((qn, m * ds), generator=g, device=cuda) * 0.1
+    norms[n_valid:] = float("inf")
+    d = m * ds
+    q = torch.rand((qn, d), generator=g, device=cuda) * (0.1 * min(1.0, (512 / d) ** 0.5))
     before = HP.pq_tile_keys.launches
-    k = HP.pq_tile_keys(q, codes_t, norms, cw, n_valid=cap - 20000)
+    k = HP.pq_tile_keys(q, codes_t, norms, cw, n_valid=n_valid)
     torch.cuda.synchronize()
     assert HP.pq_tile_keys.launches == before + 1
     t = HP.pq_tile_keys_plain(q, codes_t, norms, cw)
     v_k, l_k = H._unpack(k, 0x7F)
     v_t, l_t = H._unpack(t, 0x7F)
-    assert_keys_match(*_np(v_k, l_k, v_t, l_t))
+    if n_valid > 0:  # with none, every key is the padding key
+        assert_keys_match(*_np(v_k, l_k, v_t, l_t))
+    pad = ~torch.isfinite(v_t)
+    assert torch.equal(k.view(torch.int32)[pad], t.view(torch.int32)[pad])
+
+
+def test_pq_tile_keys_rejects_wide_codebooks(cuda):
+    """Codes are uint8: Ks past 256 raises, on the card as on the CPU."""
+    cw = torch.zeros((4, 300, 8), device=cuda)
+    codes_t = torch.zeros((4, 128), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        HP.pq_tile_keys(torch.zeros((2, 32), device=cuda), codes_t,
+                        torch.zeros(128, device=cuda), cw)
 
 
 @pytest.mark.parametrize("kernel,qn,ds,cap_v,with_pen", [

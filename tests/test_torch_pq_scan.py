@@ -153,3 +153,74 @@ def test_build_dtable_cached_codeword_norms(qn):
     cw_t = torch.from_numpy(cw)
     tt = build_dtable(torch.from_numpy(q), cw_t, cw_norms=codeword_norms(cw_t))
     np.testing.assert_array_equal(tt.float().numpy(), tj)
+
+
+# Kernel C on the card reads the (M, Ks, Ds) bf16 codebook as one flat
+# buffer: dim d of slot n is element (m * Ks + code[m, n]) * Ds + d - m * Ds,
+# m = d // Ds. The shapes are the GPU tests' (tests/test_torch_gpu_kernels.py
+# _PQ_EDGES): Ds a multiple of 8 or not, Ks 256 or 100, D past 512.
+_GPU_SHAPES = [(13, 8, 256, 16), (129, 8, 256, 16), (8, 32, 256, 4), (40, 5, 100, 3),
+               (129, 24, 256, 3), (129, 9, 100, 8), (13, 40, 100, 16), (300, 40, 256, 16)]
+
+
+def _pq_inputs(qn, m, ks, ds, cap, seed):
+    """Codes (cap, M), codewords (values below 0.4 / Ds), norms with +inf on
+    the last 300 slots, and queries: numpy, from ``seed``."""
+    rng = np.random.RandomState(seed)
+    d = m * ds
+    cw = (rng.random((m, ks, ds)) * (0.4 / ds)).astype(np.float32)
+    codes = rng.randint(0, ks, (cap, m)).astype(np.uint8)
+    norms = code_norms_np(cw, codes)
+    norms[-300:] = np.inf
+    q = (rng.random((qn, d)) * 0.1 * min(1.0, (512 / d) ** 0.5)).astype(np.float32)
+    return cw, codes, norms, q
+
+
+@pytest.mark.parametrize("qn,m,ks,ds", _GPU_SHAPES)
+def test_kernel_codebook_reading_is_the_pallas_decode(qn, m, ks, ds):
+    """The flat reading of the bf16 codebook that kernel C's producer
+    decodes with equals the Pallas kernel's one-hot decode through
+    build_padded_codewords_t, bit for bit (one nonzero term a dim)."""
+    cw, codes, _, _ = _pq_inputs(qn, m, ks, ds, 256, seed=qn + m)
+    flat = HP._bf16_codebook(torch.from_numpy(cw)).reshape(-1).float().numpy()
+    d = np.arange(m * ds)
+    sub = d // ds
+    dec = flat[(sub * ks + codes[:, sub].astype(np.int64)) * ds + d - sub * ds]
+    cwt = np.asarray(P.build_padded_codewords_t(cw).astype(jnp.float32))  # (M, D, Ks)
+    onehot = np.zeros((m, ks, codes.shape[0]), np.float32)
+    onehot[np.arange(m)[:, None], codes.T, np.arange(codes.shape[0])[None, :]] = 1.0
+    ref = np.einsum("mdk,mkn->nd", cwt, onehot)
+    np.testing.assert_array_equal(dec, ref)
+
+
+@pytest.mark.parametrize("qn,m,ks,ds", _GPU_SHAPES)
+def test_tile_keys_match_pallas_at_gpu_shapes(qn, m, ks, ds):
+    """Kernel C's twin against the Pallas kernel (interpret mode) at the
+    GPU tests' shapes over 1024 slots: every tile's key (1e-5 rel + 1e-5
+    abs, see the module docstring)."""
+    cap = 1024
+    cw, codes, norms, q = _pq_inputs(qn, m, ks, ds, cap, seed=qn + m + ks)
+    ct, n2, cwt = P.prepare_pq_scan_inputs_t(codes, norms, cw, cap=cap)
+    dj, ij = P.pq_scan_topk_t(jnp.asarray(q), ct, n2, cwt, topk=cap // 128,
+                              interpret=True, recall_target=None)
+    dj, ij = np.asarray(dj), np.asarray(ij)
+    qsq = (q.astype(np.float32) ** 2).sum(1)
+    vj = np.full((qn, cap // 128), np.inf, np.float32)
+    lj = np.zeros((qn, cap // 128), np.int32)
+    rows, cols = np.nonzero(ij >= 0)
+    vj[rows, ij[rows, cols] // 128] = dj[rows, cols] - qsq[rows]
+    lj[rows, ij[rows, cols] // 128] = ij[rows, cols] % 128
+    codes_t, norms_t = HP.prepare_pq_scan_inputs_t(torch.from_numpy(codes),
+                                                   torch.from_numpy(norms))
+    kt = HP.pq_tile_keys(torch.from_numpy(q), codes_t, norms_t, torch.from_numpy(cw),
+                         n_valid=cap - 300)
+    vt, lt = unpack(kt.numpy(), 0x7F)
+    assert np.abs(vt[np.isfinite(vt)]).max() < 2.0
+    assert_keys_match(vt, lt, vj, lj)
+
+
+def test_wrapper_rejects_more_than_256_codewords():
+    """Codes are uint8, so Ks past 256 raises on both devices."""
+    with pytest.raises(ValueError):
+        HP.pq_tile_keys(torch.zeros((2, 32)), torch.zeros((4, 128), dtype=torch.uint8),
+                        torch.zeros(128), torch.zeros((4, 300, 8)))
