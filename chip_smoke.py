@@ -17,9 +17,9 @@ Phases, each of which must pass (no exception is caught):
    computes the scores' product (not the tile reduce). Kernels A, C and H
    also report their share of the bf16 tensor-core peak at Q=1024
    (``tensor_core_share``; C at Q=128 too), and A and F their time at a
-   GIST-shaped D=960 (``*_d960``; not a gate). A, C, H, F and I are one
-   tensor-core kernel, on bf16 or int8 operands (C's decoded from its
-   codes); F and I must be bit-equal to their twins.
+   GIST-shaped D=960 (``*_d960``; not a gate). A, C, D, H, F, I and J are
+   one tensor-core kernel, on bf16 or int8 operands (C's, D's and J's
+   decoded from their codes); F and I must be bit-equal to their twins.
 4. Small reference: a CUDA engine against a CPU engine on the same codes.
 5. Engine: the bf16 path through the public API at a SIFT-shaped config
    (N=2,000,000, D=128, M=32, Ks=256, nlist=1000, topk=10): PQ fit,
@@ -198,8 +198,7 @@ def phase_card():
 
 def phase_build():
     from rii_tpu_torch.ops import _build
-    names = ("replica_tc", "ivf_window", "ivf_pq_window", "ivf_i8_window",
-             "rowmajor_scan")
+    names = ("replica_tc", "ivf_window", "ivf_pq_window", "ivf_i8_window")
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(lambda nm: _build.load_library(nm, verbose=True), names))
@@ -420,7 +419,9 @@ def phase_kernels_pq(dev, g):
         q_main = qns[-1]
         t_k, t_t, u, rows = times[q_main]
         rec = {"name": name, "route": "cuda",
-               "source": "rii_tpu_torch/csrc/ivf_pq_window.cu",
+               "source": ("rii_tpu_torch/csrc/ivf_pq_window.cu"
+                          if name == "ivf_dt_window_top2" else
+                          "rii_tpu_torch/csrc/replica_tc.cu"),
                "replaces": ("rii_tpu/ops/pallas_scan.py:1556 _ivf_dt_window_kernel"
                             if name == "ivf_dt_window_top2" else
                             "rii_tpu/ops/pallas_scan.py:1261 _ivf_pq_window_kernel"),
@@ -698,7 +699,7 @@ def phase_kernels_rowmajor(dev, g):
                      2 * qn * nl * d, "bf16")
 
     records.append({"name": "pq_scan_tile_minima", "route": "cuda",
-                    "source": "rii_tpu_torch/csrc/rowmajor_scan.cu",
+                    "source": "rii_tpu_torch/csrc/replica_tc.cu",
                     "replaces": "rii_tpu/ops/pallas_scan.py:57 _scan_kernel",
                     "max_abs_err": err, "ms": ms["exact", 1024],
                     "plain_ms": plain["exact", 1024], "ms_q128": ms["exact", 128],

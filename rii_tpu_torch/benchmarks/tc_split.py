@@ -1,8 +1,9 @@
-"""Where the tensor-core scan kernel's time goes: kernels F, I, A, H and C
-timed in probe builds of ``csrc/replica_tc.cu`` with the product or the
-epilogue switched off (``RII_TC_PRODUCT`` / ``RII_TC_EPILOGUE``), and for
-C the decoding (``RII_TC_DECODE``), beside the full kernel; or, with
-``--parent``, the kernels of this checkout against those of another one.
+"""Where the tensor-core scan kernel's time goes: kernels F, I, A, H, C, J
+and D timed in probe builds of ``csrc/replica_tc.cu`` with the product or
+the epilogue switched off (``RII_TC_PRODUCT`` / ``RII_TC_EPILOGUE``), and
+for C, J and D the decoding (``RII_TC_DECODE``), beside the full kernel;
+or, with ``--parent``, the kernels of this checkout against those of
+another one.
 
     python -m rii_tpu_torch.benchmarks.tc_split      # the card only
     python -m rii_tpu_torch.benchmarks.tc_split --parent DIR
@@ -12,18 +13,22 @@ Split. Shapes are ``chip_smoke.py``'s: F over cap 2^24 with n_valid 10.1M
 cell) and H packed at Q=1024, D=128, at Q=128 and 1024; A and H at the GIST
 shape (D=960 over cap 2^20, Q=1024), where the queries stream through the
 ring; C at the SIFT1B shape (M=8, Ks=256, Ds=16 over cap 2^26 with n_valid
-2^25 + 100k) at Q=128 and 1024. Each variant is called through its C entry
+2^25 + 100k) at Q=128 and 1024; J at the ops shape (M=32, Ks=256, Ds=4
+over cap 2^20) exact at Q=128 and 1024, packed at 1024; D at the SIFT1B
+shape's IVF batch (Q=512, U=16384 windows of 256 rows, M=8, Ds=16). Each
+variant is called through its C entry
 with the queries prepared once (kernel time only, no wrapper work), timed
 with CUDA events (median of ``reps`` after two warm runs) in the order
 full, no epilogue, no product, neither[, no decode], and back. A variant
 without the product or the epilogue computes nothing useful; its time
-bounds what the rest costs. "neither" leaves C's decoding alone; "no
-decode" leaves C's stages as they are (garbage keys).
+bounds what the rest costs. "neither" leaves the decoding alone; "no
+decode" leaves C's, J's and D's stages as they are (garbage keys).
 
 Parent. ``DIR`` is a checkout of an earlier commit (``git archive <commit>
 | tar -x -C DIR``); its ``rii_tpu_torch/csrc/replica_tc.cu`` is built
 beside this one's. Every kernel and shape of the split (H exact too) that
-both builds hold (a parent from before kernel C moved there has no C) runs
+both builds hold (a parent from before kernels C, J and D moved there has
+none of them) runs
 on the same inputs in both, in ``rounds`` rounds of parent, change,
 change, parent. First it prints, for each bf16 instantiation of the
 kernel, its count of SASS instructions in both builds (``cuobjdump
@@ -52,7 +57,11 @@ from rii_tpu_torch.ops import hopper_scan as H
 VARIANTS = {"full": (), "no_epilogue": ("RII_TC_EPILOGUE=0",),
             "no_product": ("RII_TC_PRODUCT=0",),
             "neither": ("RII_TC_PRODUCT=0", "RII_TC_EPILOGUE=0"),
-            "no_decode": ("RII_TC_DECODE=0",)}  # kernel C only
+            "no_decode": ("RII_TC_DECODE=0",)}  # kernels C, J and D only
+# the C entry of each kernel whose cases a parent may lack, and the kernels
+# that decode codes
+_ENTRY = {"C": "rii_tc_pq_tile_keys", "J": "rii_tc_pq_rows_tile_minima",
+          "J packed": "rii_tc_pq_rows_tile_minima", "D": "rii_tc_pq_window_top2"}
 _P = ctypes.c_void_p
 
 
@@ -83,7 +92,9 @@ def _entries(lib):
             "rii_tc_i8_tile_minima": [_P, i, _P, _P, _P, _P, _P, i, i, ll, _P],
             "rii_tc_tile_keys": [_P, i, _P, _P, _P, i, i, ll, _P],
             "rii_tc_tile_minima": [_P, i, _P, _P, _P, _P, i, i, ll, i, _P],
-            "rii_tc_pq_tile_keys": [_P, i, _P, _P, _P, _P, i, i, i, i, ll, ll, _P]}
+            "rii_tc_pq_tile_keys": [_P, i, _P, _P, _P, _P, i, i, i, i, ll, ll, _P],
+            "rii_tc_pq_rows_tile_minima": [_P, i, _P, _P, _P, _P, _P, i, i, i, i, ll, i, _P],
+            "rii_tc_pq_window_top2": [_P, i] + [_P] * 8 + [i] * 6 + [_P]}
     out = {}
     for name, argtypes in spec.items():
         if hasattr(lib, name):
@@ -147,6 +158,8 @@ def _cases(dev, g, d=128):
     # the GIST shape: past 8 chunks the queries stream through the ring
     yield from _bf16_cases(dev, g, 960, 1 << 20, (("A", 1024), ("H", 1024)))
     yield from _pq_cases(dev, g)
+    yield from _rows_cases(dev, g)
+    yield from _window_cases(dev, g)
 
 
 def _pq_cases(dev, g, m=8, ks=256, ds=16):
@@ -165,6 +178,48 @@ def _pq_cases(dev, g, m=8, ks=256, ds=16):
                                    _ptr(keys), qn, m, ks, ds, cap, n_valid, st)
 
 
+def _rows_cases(dev, g, m=32, ks=256, ds=4, cap=1 << 20):
+    """Kernel J at the ops shape: (kernel, Q, D, cap, call(entries))."""
+    st = _P(torch.cuda.current_stream(dev).cuda_stream)
+    d = m * ds
+    codes = torch.randint(0, ks, (cap, m), generator=g, device=dev, dtype=torch.uint8)
+    cw = (torch.rand((m, ks, ds), generator=g, device=dev) * 0.05).to(torch.bfloat16)
+    norms = torch.rand(cap, generator=g, device=dev)
+    for kernel, qn in (("J", 128), ("J", 1024), ("J packed", 1024)):
+        q16, ldq = H._tc_queries(torch.rand((qn, d), generator=g, device=dev) * 0.08)
+        v = torch.empty((qn, cap // 128), device=dev)
+        a = torch.empty((qn, cap // 128), dtype=torch.int32, device=dev)
+        yield kernel, qn, d, cap, lambda e, q16=q16, ldq=ldq, v=v, a=a, qn=qn, p=int(
+            kernel == "J packed"): e["rii_tc_pq_rows_tile_minima"](
+                _ptr(q16), ldq, _ptr(codes), _ptr(norms), _ptr(cw), _ptr(v), _ptr(a), qn, m,
+                ks, ds, cap, p, st)
+
+
+def _window_cases(dev, g, m=8, ks=256, ds=16, qn=512, u=16384, cap_v=256, nwin=191_000):
+    """Kernel D at the SIFT1B shape's IVF batch: the union of Q * 32 windows
+    (with duplicates, drawn as chip_smoke.py draws them), vlen from cap_v/2
+    to cap_v, no pen: (kernel, Q, D, U * cap_v, call(entries))."""
+    st = _P(torch.cuda.current_stream(dev).cuda_stream)
+    d = m * ds
+    codes_g = torch.randint(0, ks, (nwin * cap_v, m), generator=g, device=dev,
+                            dtype=torch.uint8)
+    cw = (torch.rand((m, ks, ds), generator=g, device=dev) * 0.025).to(torch.bfloat16)
+    pool = torch.randperm(nwin, generator=g, device=dev)[:4 * u]
+    flat = torch.sort(pool[torch.randint(0, 4 * u, (u,), generator=g, device=dev)]
+                      ).values.to(torch.int32)
+    dup = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                     (flat[1:] == flat[:-1]).to(torch.int32)])
+    vlen = torch.randint(cap_v // 2, cap_v + 1, (u,), generator=g, device=dev,
+                         dtype=torch.int32)
+    q16, ldq = H._tc_queries(torch.rand((qn, d), generator=g, device=dev) * 0.08)
+    ncol = u * 2 * (cap_v // 8)
+    v = torch.empty((qn, ncol), device=dev)
+    a = torch.empty((qn, ncol), dtype=torch.int32, device=dev)
+    yield "D", qn, d, u * cap_v, lambda e: e["rii_tc_pq_window_top2"](
+        _ptr(q16), ldq, _ptr(codes_g), _ptr(cw), _ptr(flat), _ptr(dup), _ptr(vlen), _P(None),
+        _ptr(v), _ptr(a), qn, m, ks, ds, u, cap_v, st)
+
+
 def run(reps=7, seed=0):
     """One record per kernel and Q: ``{variant}_ms`` (the two timings of
     each variant, in the palindrome order) and the card's name."""
@@ -179,7 +234,7 @@ def run(reps=7, seed=0):
     for kernel, qn, d, cap, call in _cases(dev, g):
         rec = {"kernel": kernel, "Q": qn, "cap": cap, "D": d,
                "device": torch.cuda.get_device_name(dev)}
-        for v in order if kernel == "C" else [v for v in order if v != "no_decode"]:
+        for v in order if kernel in _ENTRY else [v for v in order if v != "no_decode"]:
             _build.check(call(entries[v]), f"{kernel} {v}")
             rec.setdefault(f"{v}_ms", []).append(_cuda_ms(lambda: call(entries[v]), reps))
         records.append(rec)
@@ -254,7 +309,7 @@ def ab(parent, reps=7, rounds=2, seed=0):
                 yield from _bf16_cases(dev, g, d, cap, (("H exact", qn),))
 
     for kernel, qn, d, cap, call in cases():
-        if kernel == "C" and "rii_tc_pq_tile_keys" not in entries["parent"]:
+        if kernel in _ENTRY and _ENTRY[kernel] not in entries["parent"]:
             continue
         rec = {"kernel": kernel, "Q": qn, "cap": cap, "D": d,
                "device": torch.cuda.get_device_name(dev)}

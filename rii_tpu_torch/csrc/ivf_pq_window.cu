@@ -1,12 +1,12 @@
-// Kernels D and E: the IVF scan over probed uint8 code windows (the pq
-// tier's windows), per-8-slot top-2 as kernel B.
+// Kernel E: the IVF scan over probed uint8 code windows (the pq tier's
+// windows) from the ADC table, per-8-slot top-2 as kernel B.
 //
-// Kernel D, ivf_pq_window_top2, replaces rii_tpu/ops/pallas_scan.py
-// _ivf_pq_window_kernel (entry ivf_pq_window_tile_minima; the engine's
-// choice when Q >= D). Kernel E, ivf_dt_window_top2, replaces
-// _ivf_dt_window_kernel (entry ivf_dt_window_tile_minima; Q < D).
+// Kernel E, ivf_dt_window_top2, replaces rii_tpu/ops/pallas_scan.py
+// _ivf_dt_window_kernel (entry ivf_dt_window_tile_minima; the engine's
+// choice when Q < D). Kernel D, the same windows scored from decoded rows
+// (Q >= D), is a source of the tensor-core kernel in replica_tc.cu.
 //
-// Shared contract (as kernel B's, with the pq tier's masks):
+// Contract (kernel D's too, as kernel B's with the pq tier's masks):
 //   codes_g (total, M) uint8 grouped codes; window w is rows
 //           [w*cap_v, (w+1)*cap_v).
 //   flat    (U,) int32 sorted window ids; dup (U,) int32, 1 = duplicate.
@@ -19,17 +19,6 @@
 //           columns [u*2*nt, u*2*nt + nt) hold the best of each tile and the
 //           next nt the second (nt = cap_v/8). A duplicate entry reads
 //           nothing and writes +inf and 0.
-//
-// Kernel D: q (Q, D) bf16, cw (M, Ks, Ds) bf16. Score = ||dec||^2 -
-// 2 * (q . dec) with dec the bf16 codeword rows of the slot's codes and both
-// terms summed in float32 (the Pallas kernel's in-VMEM one-hot decode gives
-// the same bf16 rows). Design: kernel B's skeleton, one block per union
-// entry and one thread per window row. The codebook (64 KiB at M=8, Ks=256,
-// D=128) and the window's codes are staged in dynamic shared memory; a
-// thread reads its row straight from the codebook through its M codes, so
-// nothing is decoded into memory. Queries go through in passes of kQT,
-// staged as float, with V values of a row per load.
-// What bounds it on the H100: the CUDA-core FMAs, U * cap_v * D * Q.
 //
 // Kernel E: dt (nqc, M, Ks, 8) bf16, the ADC table ||q_m - cw[m,k]||^2 of
 // build_dtable in chunks of 8 queries. Score = sum_m dt[m][code_m][q] in
@@ -50,7 +39,6 @@
 
 namespace {
 
-constexpr int kQT = 32;  // kernel D: queries per pass
 constexpr int kQC = 8;   // kernel E: queries per table chunk
 constexpr size_t kMaxSmem = 200 * 1024;
 
@@ -67,112 +55,6 @@ __device__ void copy_bytes(unsigned char* dst, const unsigned char* src, size_t 
 // bf16 -> float is exact: the bf16 bits are the high half of the float's.
 __device__ __forceinline__ float lo_bf16(unsigned w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float hi_bf16(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
-
-template <int V>
-__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* out) {
-  if constexpr (V == 4) {
-    const uint2 r = *reinterpret_cast<const uint2*>(p);
-    out[0] = lo_bf16(r.x); out[1] = hi_bf16(r.x); out[2] = lo_bf16(r.y); out[3] = hi_bf16(r.y);
-  } else if constexpr (V == 2) {
-    const unsigned r = *reinterpret_cast<const unsigned*>(p);
-    out[0] = lo_bf16(r); out[1] = hi_bf16(r);
-  } else {
-    out[0] = __bfloat162float(*p);
-  }
-}
-
-template <int V>
-__global__ void ivf_pq_window_top2_kernel(
-    const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ codes_g,
-    const __nv_bfloat16* __restrict__ cw, const int* __restrict__ flat,
-    const int* __restrict__ dup, const int* __restrict__ vlen,
-    const float* __restrict__ pen, float* __restrict__ vmin, int* __restrict__ amin,
-    int Q, int M, int Ks, int Ds, int cap_v, int U, size_t cw_bytes, size_t codes_bytes) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* cw_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  uint8_t* codes_s = smem + cw_bytes;
-  float* qs = reinterpret_cast<float*>(smem + cw_bytes + codes_bytes);  // kQT x D
-  const int D = M * Ds;
-  const int u = blockIdx.x;
-  const int t = threadIdx.x;
-  const int nt = cap_v / 8;
-  const long long ncol = static_cast<long long>(U) * 2 * nt;
-  const long long col0 = static_cast<long long>(u) * 2 * nt;
-  if (dup[u] != 0) {
-    write_dup(vmin, amin, 0, Q, ncol, col0, nt);
-    return;
-  }
-  const int w = flat[u];
-  const int vl = vlen[u];
-  copy_bytes(reinterpret_cast<unsigned char*>(cw_s),
-             reinterpret_cast<const unsigned char*>(cw),
-             static_cast<size_t>(M) * Ks * Ds * 2);
-  copy_bytes(codes_s, codes_g + static_cast<long long>(w) * cap_v * M,
-             static_cast<size_t>(cap_v) * M);
-  __syncthreads();
-
-  const bool active = t < cap_v;
-  const int r = active ? t : 0;
-  const uint8_t* my_codes = codes_s + r * M;
-  float nrm = 0.0f;
-  for (int m = 0; m < M; ++m) {
-    const __nv_bfloat16* row = cw_s + (m * Ks + my_codes[m]) * Ds;
-    for (int j = 0; j < Ds; j += V) {
-      float x[V];
-      load_row<V>(row + j, x);
-#pragma unroll
-      for (int c = 0; c < V; ++c) nrm = fmaf(x[c], x[c], nrm);
-    }
-  }
-  const bool live = active && t < vl;
-  const float pn = (pen != nullptr && active) ? pen[static_cast<long long>(w) * cap_v + t] : 0.0f;
-  const int slot_base = w * cap_v + (t >> 3) * 8;
-
-  for (int qb = 0; qb < Q; qb += kQT) {
-    __syncthreads();  // the previous pass is done with qs
-    for (int i = t; i < kQT * D; i += blockDim.x) {
-      const int qi = i / D;
-      qs[i] = (qb + qi < Q) ? __bfloat162float(q[static_cast<long long>(qb) * D + i]) : 0.0f;
-    }
-    __syncthreads();
-    float acc[kQT];
-#pragma unroll
-    for (int i = 0; i < kQT; ++i) acc[i] = 0.0f;
-    for (int m = 0; m < M; ++m) {
-      const __nv_bfloat16* row = cw_s + (m * Ks + my_codes[m]) * Ds;
-      const float* qm = qs + m * Ds;
-      for (int j = 0; j < Ds; j += V) {
-        float x[V];
-        load_row<V>(row + j, x);
-#pragma unroll
-        for (int i = 0; i < kQT; ++i) {
-          const float* qv = qm + i * D + j;
-          float a = acc[i];
-          if constexpr (V == 4) {
-            const float4 y = *reinterpret_cast<const float4*>(qv);
-            a = fmaf(x[0], y.x, a);
-            a = fmaf(x[1], y.y, a);
-            a = fmaf(x[2], y.z, a);
-            a = fmaf(x[3], y.w, a);
-          } else if constexpr (V == 2) {
-            const float2 y = *reinterpret_cast<const float2*>(qv);
-            a = fmaf(x[0], y.x, a);
-            a = fmaf(x[1], y.y, a);
-          } else {
-            a = fmaf(x[0], qv[0], a);
-          }
-          acc[i] = a;
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kQT; ++i) {
-      const float s = live ? nrm - 2.0f * acc[i] + pn : inf_f();
-      store_top2(s, t, active && qb + i < Q, static_cast<long long>(qb + i) * ncol, col0,
-                 nt, slot_base, vmin, amin);
-    }
-  }
-}
 
 __global__ void ivf_dt_window_top2_kernel(
     const __nv_bfloat16* __restrict__ dt, const uint8_t* __restrict__ codes_g,
@@ -242,51 +124,7 @@ int set_smem(const void* kernel, size_t smem) {
   return 0;
 }
 
-size_t round16(size_t n) { return (n + 15) / 16 * 16; }
-
-template <int V>
-int launch_pq(const void* q, const void* codes_g, const void* cw, const void* flat,
-              const void* dup, const void* vlen, const void* pen, void* vmin, void* amin,
-              int Q, int M, int Ks, int Ds, int U, int cap_v, cudaStream_t stream) {
-  const size_t cw_bytes = round16(static_cast<size_t>(M) * Ks * Ds * 2);
-  const size_t codes_bytes = round16(static_cast<size_t>(cap_v) * M);
-  const size_t smem = cw_bytes + codes_bytes + static_cast<size_t>(kQT) * M * Ds * 4;
-  const int rc = set_smem(reinterpret_cast<const void*>(ivf_pq_window_top2_kernel<V>), smem);
-  if (rc != 0) return rc;
-  const int threads = (cap_v + 31) / 32 * 32;
-  ivf_pq_window_top2_kernel<V><<<U, threads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(codes_g),
-      static_cast<const __nv_bfloat16*>(cw), static_cast<const int*>(flat),
-      static_cast<const int*>(dup), static_cast<const int*>(vlen),
-      static_cast<const float*>(pen), static_cast<float*>(vmin), static_cast<int*>(amin),
-      Q, M, Ks, Ds, cap_v, U, cw_bytes, codes_bytes);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
-
-// Returns cudaGetLastError() after the launch (0 when it was accepted).
-extern "C" int rii_ivf_pq_window_top2(const void* q, const void* codes_g, const void* cw,
-                                      const void* flat, const void* dup, const void* vlen,
-                                      const void* pen, void* vmin, void* amin, int Q,
-                                      int M, int Ks, int Ds, int U, int cap_v,
-                                      void* stream) {
-  if (Q <= 0 || M <= 0 || Ks <= 0 || Ks > 256 || Ds <= 0 || U <= 0 || cap_v <= 0 ||
-      cap_v % 8 != 0 || cap_v > 1024) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Ds % 4 == 0) {
-    return launch_pq<4>(q, codes_g, cw, flat, dup, vlen, pen, vmin, amin, Q, M, Ks, Ds, U,
-                        cap_v, s);
-  }
-  if (Ds % 2 == 0) {
-    return launch_pq<2>(q, codes_g, cw, flat, dup, vlen, pen, vmin, amin, Q, M, Ks, Ds, U,
-                        cap_v, s);
-  }
-  return launch_pq<1>(q, codes_g, cw, flat, dup, vlen, pen, vmin, amin, Q, M, Ks, Ds, U,
-                      cap_v, s);
-}
 
 // dt is (ceil(Q/8), M, Ks, 8) bf16; g is the number of union entries a block
 // takes in turn. Returns cudaGetLastError() after the launch.

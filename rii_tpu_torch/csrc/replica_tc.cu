@@ -1,6 +1,7 @@
-// Kernels A, C, H, F and I on the tensor cores: the linear scans over the
-// bf16 and the int8 replica and over the uint8 PQ codes, one kernel
-// templated on the operand type and on the replica's source.
+// Kernels A, C, D, H, F, I and J on the tensor cores: the linear scans over
+// the bf16 and the int8 replica and over the uint8 PQ codes, and the IVF
+// scan over the pq tier's code windows, one kernel templated on the operand
+// type, on the replica's source and on the epilogue.
 //
 // Replaces rii_tpu/ops/pallas_scan.py
 //   A  _replica_t_kernel (Q < 512) and _replica_tn_kernel (Q >= 512), entry
@@ -14,7 +15,14 @@
 //      entry rii_tc_i8_tile_keys: the int8 replica, which the port keeps
 //      row-major (cap, D) (wgmma takes 8-bit operands K-major only, where
 //      the TPU kernels read it transposed);
-//   I  _replica_i8_kernel, entry rii_tc_i8_tile_minima: the same rows.
+//   I  _replica_i8_kernel, entry rii_tc_i8_tile_minima: the same rows;
+//   J  _scan_kernel, entry rii_tc_pq_rows_tile_minima: row-major codes
+//      (cap, M) uint8 decoded through cw as C's - H's minima over the
+//      decoded rows;
+//   D  _ivf_pq_window_kernel, entry rii_tc_pq_window_top2: the union of
+//      probed windows of the grouped row-major codes (ivf_pq_window.cu
+//      holds the contract, kernel E's too), per 8-slot group the best and
+//      second-best score, ||dec||^2 computed in the kernel.
 //
 // Contract (the Pallas kernels'): norms (cap,) f32 with +inf on padding and
 // excluded slots.
@@ -26,8 +34,10 @@
 //     alpha (Q,) f32 its dequantization factor. |cross| <= 127^2 * D < 2^24
 //     up to D = 1040, so float(cross) is exact there and the keys are bit
 //     for bit those of the twins and of the Pallas kernels.
-//   C: the bf16 score over the decoded row, each value the codeword itself
-//     (what the Pallas kernel's one-hot products give, exactly).
+//   C, J, D: the bf16 score over the decoded row, each value the codeword
+//     itself (what the Pallas kernel's one-hot products give, exactly); D's
+//     norm is the float32 sum of the decoded values' squares, +inf past the
+//     entry's vlen, in a duplicate entry and where pen is +inf (pen added).
 // Per 128-slot tile and query:
 //   keys (A, C, F): the minimum of the packed keys, (Q, cap/128) f32 - the
 //     score clamped to 3e38, the slot's lane (0..127) in the low 7 mantissa
@@ -35,7 +45,9 @@
 //     padding only and get the key of +inf at lane 0 without being read;
 //   packed (H, I): that key unpacked into vmin (bits cleared, +inf restored
 //     at >= 2.9e38) and amin = tile * 128 + lane;
-//   exact (H): vmin the exact minimum, amin the lowest slot among ties.
+//   exact (H, J): vmin the exact minimum, amin the lowest slot among ties.
+// Per 8-slot group and query (D): the best and second-best 3-bit packed
+// key, unpacked, and their grouped slots (0 in a duplicate entry).
 // The kernel clamps the norms to 3e38 rather than each score: the keys are
 // the same wherever the product term is below 5e30 in magnitude (half a
 // unit in the last place of 3e38), and a key costs one instruction fewer.
@@ -105,6 +117,36 @@
 //   decoded (C 2.4-2.9% faster than without, PERF.md). Decoding replaces the Pallas kernel's one-hot products:
 //   the codes are read once from device memory and 16 KB of bf16 a chunk
 //   never leave the SM.
+// - Row-major codes (J, D). The same producer, but a slot's M code bytes
+//   are one row: thread r loads the bytes a chunk needs with one or two
+//   16-byte loads where the row is aligned (J at M=32: one a chunk; 4-byte
+//   or single loads otherwise) before it waits for the stage, and picks
+//   each code from those registers (one PRMT). Ds a multiple of 4 decodes
+//   in 16-byte units (Ds a multiple of 8) or two 8-byte halves (J's Ds=4:
+//   the element-by-element decode bounded C at Ds < 8 before, PERF.md);
+//   other Ds element by element. J's codes are a tile's 128 consecutive
+//   rows, prefetched into L1 a tile ahead; J's norms are H's.
+// - Windows (D). A tile is 128 consecutive slots of the union's windows
+//   laid end to end (entry u's rows 0..cap_v-1, then u+1's), so any cap_v
+//   that is a multiple of 8 works and a group never straddles two
+//   windows. Thread r maps its slot to (u, row) and loads flat, dup and
+//   vlen there a tile ahead (each tile waited on them, and then on the
+//   code row, before), then prefetches the next tile's code row into L1;
+//   it decodes nothing past vlen or in a duplicate entry. The norm is the
+//   sum of the slot's M codeword norms, from a table (M * Ks f32) the
+//   block computes from the bf16 codebook at its start (a codebook whose
+//   table does not fit beside a ring of two stages is refused); with the
+//   last chunk the producer puts the tile's norms (pen added)
+//   and grouped slots beside the stage (the int8 norms' side ring), and
+//   the consumers read them in the epilogue and release that stage after
+//   it. The epilogue keeps a top-2 per group (the
+//   group's 8 columns sit on a quad, 2 a thread): a butterfly over the
+//   quad's 16 groups in two shuffle steps, each thread keeping half, then
+//   the tile's rows are staged and written as runs of an entry's best and
+//   second-best columns (64 bytes each at cap_v >= 128), not words
+//   scattered one a row. D's output (8 bytes a query and group) is its
+//   bound; one m64 tile a warpgroup keeps the staging and the codebook in
+//   shared memory beside the ring, so Q=512 decodes each tile 4 times.
 // - Epilogue. A thread's accumulator holds two query rows x 32 slots of the
 //   tile (columns 8j + 2*(lane%4) + {0,1}); each row is reduced in-thread
 //   as 8 independent chains (their dependent min steps interleave), then
@@ -145,7 +187,9 @@
 // 1.3 GB of live rows (0.39 ms). C (M=8, 2^25 live slots of cap 2^26): at
 // Q=1024 the 1.1e12 bf16 operations (8.7 ms) and A's epilogue over 3.4e10
 // scores; at Q=128 the operations too (1.1 ms), the codes being 8 bytes a
-// slot (0.27 GB).
+// slot (0.27 GB). J (M=32, cap 2^20): the 2.7e11 operations at Q=1024
+// (0.28 ms), the 32 MB of codes at Q=128. D (Q=512, U=16384, cap_v=256):
+// its output, 4.3 GB (1.29 ms at 3.35 TB/s).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -184,6 +228,13 @@ constexpr int kResidentChunks = 8;  // queries stay in shared memory up to 8 chu
 constexpr int kOutTiles = 8;  // tiles of results a warpgroup stages before writing them
 constexpr int kChains = 8;    // independent min chains a row in the epilogue
 constexpr size_t kMaxSmem = 227 * 1024;
+constexpr int kGroups = kTile / 8;  // D: 8-slot groups a tile
+constexpr int kTop2Tiles = 2;  // D: tiles of results a warpgroup stages before writing them
+// D: words a staged row (best and second keys of each staged group),
+// padded so that the quads' rows hit other banks
+constexpr int kTop2Row = 2 * kTop2Tiles * kGroups + 4;
+static_assert(kTop2Tiles * kGroups == 32, "D's write-out gives a lane one staged group");
+
 
 // Operand types: T = uint16_t holds bf16, T = int8_t int8.
 template <typename T>
@@ -193,17 +244,45 @@ constexpr int kDims = kRowBytes / static_cast<int>(sizeof(T));  // dims of a K c
 template <typename T>
 using Acc = std::conditional_t<kS8<T>, int, float>;
 
-enum Layout { kT = 0, kRowTma = 1, kRowLoad = 2, kCodes = 3 };
-enum Out { kKeys = 0, kPacked = 1, kExact = 2 };
+// kCodes: C's (M, cap) codes; kCodeRows: J's row-major (cap, M) codes;
+// kCodeWin: D's row-major codes gathered by window (the union's slots).
+enum Layout { kT = 0, kRowTma = 1, kRowLoad = 2, kCodes = 3, kCodeRows = 4, kCodeWin = 5 };
+// kTop2: D's best and second-best of each 8-slot group.
+enum Out { kKeys = 0, kPacked = 1, kExact = 2, kTop2 = 3 };
 
-// Kernel C's replica: codes (M, cap) uint8 and the bf16 codebook cw
-// (M, Ks, Ds), staged in shared memory when cb_smem; vec when Ds is a
-// multiple of 8 and cw 16-byte aligned (a unit is one 16-byte load).
+// Bytes of a warpgroup's staged results: kKeys, kPacked, kExact a value
+// and a slot per row for kOutTiles tiles; kTop2 a row's best and second
+// keys of each group of kTop2Tiles tiles, and each group's grouped slot.
+template <int kOut, int kMT>
+constexpr int kStagedBytes = kOut == kTop2 ? (kMT * 64 * kTop2Row + kTop2Tiles * kGroups) * 4
+                                           : kMT * 64 * 2 * kOutTiles * 4;
+
+// Bytes a ring stage holds beside its chunk: int8, the tile's norms (a
+// bulk copy with chunk 0); D, the norms and grouped slots the producer
+// computes (with the last chunk).
+template <int kLayout, typename T>
+constexpr int kSideBytes = sizeof(T) == 1 ? kNormBytes : kLayout == kCodeWin ? 2 * kNormBytes : 0;
+
+// The replica of the code layouts: codes uint8 and the bf16 codebook cw
+// (M, Ks, Ds), staged in shared memory when cb_smem. C: codes (M, cap);
+// vec when Ds is a multiple of 8 and cw 16-byte aligned (a unit is one
+// 16-byte load). J and D: codes row-major, M bytes a slot; vec when Ds is
+// a multiple of 4 and cw 8-byte aligned, half when a unit is then two
+// 4-dim halves of 8 bytes (Ds not a multiple of 8, or cw not 16-byte
+// aligned). D: the union's U window ids flat, their dup and vlen, pen
+// (grouped slots, or null), cap_v rows a window, the output's ncol columns.
 struct CodeSrc {
   const uint8_t* codes;
   const uint16_t* cw;
   long long cap;
   int M, Ks, Ds, cb_smem, vec;
+  int half;
+  const int* flat;
+  const int* dup;
+  const int* vlen;
+  const float* pen;
+  int cap_v, U;
+  long long ncol;
 };
 
 // ---- shared memory, barriers, copies ------------------------------------------
@@ -482,6 +561,167 @@ __device__ __forceinline__ void decode_chunk_elems(uint8_t* dst, const uint16_t*
   }
 }
 
+// ---- J and D: row-major codes ----------------------------------------------
+//
+// Producer thread r owns slot r of the tile, whose M code bytes are one
+// row (J: slot tile * 128 + r; D: row `row` of window flat[u], the union's
+// slot mapped to its entry u). Before it waits for the stage, a chunk's
+// thread loads the code bytes [mb, mb + 32) of its row that the chunk's
+// sub-spaces need (mb = the first's, rounded down to 16; Ds >= 4 spans at
+// most 17 sub-spaces a 64-dim chunk): one 16-byte load where the row's
+// bytes there are whole and aligned (J at M=32: a chunk is one load), else
+// 4-byte or single ones. It then walks the chunk's dims as C does, without
+// a division, taking each code byte from those registers.
+
+// Code bytes [mb, mb + 16) of a code row of M bytes, zero past M.
+__device__ __forceinline__ uint4 code_block(const uint8_t* row, int mb, int M) {
+  const uint8_t* p = row + mb;
+  const int n = M - mb;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  if (n >= 16 && (a & 15) == 0) return __ldg(reinterpret_cast<const uint4*>(p));
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if ((a & 3) == 0 && 4 * i + 4 <= n) {
+      w[i] = __ldg(reinterpret_cast<const uint32_t*>(p) + i);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (4 * i + e < n) w[i] |= static_cast<uint32_t>(__ldg(p + 4 * i + e)) << (8 * e);
+      }
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Byte i (0..31) of the 32 bytes b0, b1.
+__device__ __forceinline__ uint32_t code_at(const uint4& b0, const uint4& b1, int i) {
+  const uint4 v = i < 16 ? b0 : b1;
+  const int k = i & 15;
+  const uint32_t w = k < 8 ? (k < 4 ? v.x : v.y) : (k < 12 ? v.z : v.w);
+  return __byte_perm(w, 0u, 0x4440u | static_cast<uint32_t>(k & 3));
+}
+
+__device__ __forceinline__ uint2 lds64(uint32_t a) {
+  uint2 v;
+  asm("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(a));
+  return v;
+}
+
+// D: union slot tile * 128 + r's window entry u: its window id w, dup
+// (1 also past the union), vlen and the slot's row in the window. The
+// loads are issued here and waited for where the fields are read.
+struct WinSlot {
+  int w, dup, vlen, row;
+};
+
+__device__ __forceinline__ WinSlot win_slot(const CodeSrc& cs, int tile, int r) {
+  const int sl = tile * kTile + r;  // below 2^31, as the union's slots are
+  WinSlot ws{0, 1, 0, 0};
+  if (sl < cs.U * cs.cap_v) {
+    const int u = sl / cs.cap_v;
+    ws.row = sl - u * cs.cap_v;
+    ws.w = __ldg(cs.flat + u);
+    ws.dup = __ldg(cs.dup + u);
+    ws.vlen = __ldg(cs.vlen + u);
+  }
+  return ws;
+}
+
+// The chunk's code bytes (before the stage wait): b0, b1 hold bytes
+// [mb, mb + 32) of `row` (zero where row is null: a slot that scores +inf).
+__device__ __forceinline__ void row_chunk_codes(const CodeSrc& cs, const uint8_t* row, int c,
+                                                int m, int& mb, uint4& b0, uint4& b1) {
+  mb = m & ~15;
+  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+  b0 = row != nullptr ? code_block(row, mb, cs.M) : z;
+  // the chunk's last dim 64c + 63 reaches sub-space mb + 16
+  b1 = row != nullptr && mb + 16 < cs.M && 64 * (c + 1) > (mb + 16) * cs.Ds
+           ? code_block(row, mb + 16, cs.M)
+           : z;
+}
+
+__device__ __forceinline__ float lds32f(uint32_t a) {
+  float v;
+  asm("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(a));
+  return v;
+}
+
+// Ds a multiple of 4 (cs.vec): chunk c decoded into row r of the stage, a
+// 16-byte unit at a time (cs.half: two 8-byte halves of 4 dims); (m, j) is
+// the next unit's sub-space and its first dim there. kNorm (D) adds to nrm
+// each sub-space's codeword norm from the table at tab_s.
+template <bool kNorm>
+__device__ __forceinline__ void row_chunk_store(uint8_t* dst, const CodeSrc& cs, uint32_t cb_s,
+                                                uint32_t tab_s, const uint4& b0, const uint4& b1,
+                                                int mb, bool live, int D, int c, int& m, int& j,
+                                                int r, float& nrm) {
+#pragma unroll
+  for (int k8 = 0; k8 < 8; ++k8) {
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (c * 64 + 8 * k8 < D) {
+      if (!cs.half) {
+        const int k = m * cs.Ks + static_cast<int>(code_at(b0, b1, m - mb));  // codeword
+        const int e = k * cs.Ds + j;
+        if (kNorm && j == 0) nrm += lds32f(tab_s + 4 * k);
+        if (live) {
+          w = cs.cb_smem ? lds128(cb_s + 2 * e) : __ldg(reinterpret_cast<const uint4*>(cs.cw + e));
+        }
+        j += 8;
+        if (j == cs.Ds) {
+          j = 0;
+          ++m;
+        }
+      } else {
+        uint2 h[2] = {make_uint2(0u, 0u), make_uint2(0u, 0u)};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          // D % 8 == 4 (M odd at Ds = 4, or Ds = 12, 20, ...): the last
+          // unit's second half lies past D, in no sub-space
+          if (c * 64 + 8 * k8 + 4 * i >= D) break;
+          const int k = m * cs.Ks + static_cast<int>(code_at(b0, b1, m - mb));
+          const int e = k * cs.Ds + j;
+          if (kNorm && j == 0) nrm += lds32f(tab_s + 4 * k);
+          if (live) {
+            h[i] = cs.cb_smem ? lds64(cb_s + 2 * e) : __ldg(reinterpret_cast<const uint2*>(cs.cw + e));
+          }
+          j += 4;
+          if (j == cs.Ds) {
+            j = 0;
+            ++m;
+          }
+        }
+        w = make_uint4(h[0].x, h[0].y, h[1].x, h[1].y);
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + sw128_offset(r, k8)) = w;
+  }
+}
+
+// Any Ds: chunk c of `row` (null: zeros) decoded element by element, dim d
+// from cw[m][row[m]][d - m * Ds], m = d / Ds; zero past D. kNorm (D) adds
+// each sub-space's codeword norm from tab.
+template <bool kNorm>
+__device__ __forceinline__ void row_chunk_elems(uint8_t* dst, const uint16_t* cb, const CodeSrc& cs,
+                                                const float* tab, const uint8_t* row, int D, int c,
+                                                int r, float& nrm) {
+  for (int k8 = 0; k8 < 8; ++k8) {
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int d = c * 64 + 8 * k8 + e;
+      if (row != nullptr && d < D) {
+        const int m = d / cs.Ds;
+        const int k = m * cs.Ks + __ldg(row + m);  // codeword
+        const uint32_t v = cb[k * cs.Ds + d - m * cs.Ds];
+        if (kNorm && d == m * cs.Ds) nrm += tab[k];
+        w[e >> 1] |= v << (16 * (e & 1));
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + sw128_offset(r, k8)) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
 // The keys of the padding-only tiles [nt_live, nt) that no one reads: the
 // block's share of them (by slot group) for its query rows [q0, q0 + bm),
 // written by the threads i0, i0 + n, ...
@@ -605,12 +845,87 @@ __device__ __forceinline__ void tile_minima(const A (&acc)[kMT][64], const float
   }
 }
 
+// D: per 8-slot group (tile columns 8j..8j+7, two on each thread of a
+// quad) the best and second-best packed key, slot bits 3. nr (the tile's
+// norms, +inf where a slot scores +inf) comes from the ring. The quad
+// reduces its 16 groups as a butterfly: at each of the two shuffle steps a
+// thread keeps half of its groups and takes the partner's lists of those,
+// so it ends with groups j = 4q + lane % 4 (24 shuffles a row instead of
+// 64). The keys go to staged tile tt of the rows (kTop2Row words: the
+// best keys of the staged groups, then the second-best, then padding).
+
+__device__ __forceinline__ float key3(float s, int col) {
+  return __int_as_float((__float_as_int(s) & ~7) | col);
+}
+
+// Merge the top-2 list (a, b) with the partner's (ra, rb).
+__device__ __forceinline__ void merge2(float& a, float& b, float ra, float rb) {
+  b = fminf(fmaxf(a, ra), fminf(b, rb));
+  a = fminf(a, ra);
+}
+
+template <int kMT, typename A>
+__device__ __forceinline__ void tile_top2(const A (&acc)[kMT][64], const float* nr, int lane,
+                                          int row_w, float* st, int tt) {
+  const int lb = 2 * (lane & 3);
+  const bool odd1 = lane & 1;
+  const bool odd2 = lane & 2;
+  float nv[32];
+#pragma unroll
+  for (int j = 0; j < kGroups; ++j) {
+    const float2 n2 = *reinterpret_cast<const float2*>(nr + 8 * j + lb);
+    nv[2 * j] = fminf(n2.x, kPackClamp);
+    nv[2 * j + 1] = fminf(n2.y, kPackClamp);
+  }
+#pragma unroll
+  for (int r = 0; r < 2 * kMT; ++r) {
+    float a[kGroups], b[kGroups];
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j) {
+      const float k0 = key3(score_of(acc[r >> 1][4 * j + 2 * (r & 1)], 0.0f, nv[2 * j]), lb);
+      const float k1 = key3(score_of(acc[r >> 1][4 * j + 2 * (r & 1) + 1], 0.0f, nv[2 * j + 1]),
+                            lb + 1);
+      a[j] = fminf(k0, k1);
+      b[j] = fmaxf(k0, k1);
+    }
+    // step 1: of groups 2p, 2p + 1 keep 2p + lane % 2
+#pragma unroll
+    for (int p = 0; p < kGroups / 2; ++p) {
+      const float ka = odd1 ? a[2 * p + 1] : a[2 * p];
+      const float kb = odd1 ? b[2 * p + 1] : b[2 * p];
+      const float sa = odd1 ? a[2 * p] : a[2 * p + 1];
+      const float sb = odd1 ? b[2 * p] : b[2 * p + 1];
+      a[p] = ka;
+      b[p] = kb;
+      merge2(a[p], b[p], __shfl_xor_sync(0xffffffffu, sa, 1), __shfl_xor_sync(0xffffffffu, sb, 1));
+    }
+    // step 2: of the kept 2q, 2q + 1 keep 2q + (lane / 2) % 2: group 4q + lane % 4
+#pragma unroll
+    for (int q = 0; q < kGroups / 4; ++q) {
+      const float ka = odd2 ? a[2 * q + 1] : a[2 * q];
+      const float kb = odd2 ? b[2 * q + 1] : b[2 * q];
+      const float sa = odd2 ? a[2 * q] : a[2 * q + 1];
+      const float sb = odd2 ? b[2 * q] : b[2 * q + 1];
+      a[q] = ka;
+      b[q] = kb;
+      merge2(a[q], b[q], __shfl_xor_sync(0xffffffffu, sa, 2), __shfl_xor_sync(0xffffffffu, sb, 2));
+    }
+    float* row = st + (row_w + 64 * (r >> 1) + 8 * (r & 1)) * kTop2Row + tt * kGroups;
+#pragma unroll
+    for (int q = 0; q < kGroups / 4; ++q) {
+      const int j = 4 * q + (lane & 3);
+      row[j] = a[q];
+      row[kTop2Tiles * kGroups + j] = b[q];
+    }
+  }
+}
+
 // ---- the kernel ------------------------------------------------------------
 
 // tmap reads the replica (kT, kRowTma), qmap the queries (kQS only); the
 // queries' rows are ldq elements apart; alpha (int8) their factors; cs the
-// codes (kCodes). The grid walks tiles [0, nt_live); kKeys writes the
-// padding key into columns [nt_live, nt).
+// codes (kCodes, kCodeRows, kCodeWin). The grid walks tiles [0, nt_live);
+// kKeys writes the padding key into columns [nt_live, nt).
 template <int kLayout, int kOut, int kMT, bool kQS, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__ CUtensorMap qmap,
@@ -623,20 +938,34 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
   constexpr int kQBytes = kQS ? kConsumers * kMT * kQTileBytes : 0;  // streamed queries
   constexpr int kStage = kChunkBytes + kQBytes;  // replica chunk [, queries' chunk]
   constexpr bool kParts = kQS && !kS8<T>;  // bf16 past 8 chunks: float32 sums of parts
-  constexpr bool kNormRing = kS8<T>;        // int8: the norms come through the ring
-  constexpr bool kDecode = kLayout == kCodes;  // C: the producer warpgroup decodes codes
+  constexpr bool kNormCopy = kS8<T>;        // int8: the norms come through the ring
+  constexpr int kSide = kSideBytes<kLayout, T>;  // a stage's side bytes (int8, D's norms)
+  constexpr bool kDecode = kLayout >= kCodes;  // C, J, D: the producer warpgroup decodes codes
+  constexpr bool kRowDec = kLayout >= kCodeRows;  // J, D: a slot's codes are one row
+  constexpr bool kWin = kLayout == kCodeWin;      // D
+  // J and D with one m64 tile a warpgroup and resident queries: the
+  // consumers need fewer registers, and the decoding producer gets more
+  // (88 instead of 40: D at Q=512 7% and J at Q=128 14% faster in
+  // tc_split.py, and J's 48-byte spill gone)
+  constexpr bool kLeanConsumers = kRowDec && kMT == 1 && !kQS;
   extern __shared__ uint8_t smem_raw[];
   // swizzled tiles need 1024-byte alignment
   uint8_t* smem = smem_raw + (((smem_u32(smem_raw) + 1023) & ~1023u) - smem_u32(smem_raw));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kMaxStages;
-  uint8_t* nring = smem + 1024;  // int8: the norms of each stage's tile (chunk 0 only)
+  // each stage's side bytes: int8, its tile's norms (chunk 0 only); D, its
+  // tile's norms and grouped slots (last chunk only)
+  uint8_t* side = smem + 1024;
   // resident queries: [m-tile][chunk] of 8 KB
-  uint8_t* qs = nring + (kNormRing ? kMaxStages * kNormBytes : 0);
+  uint8_t* qs = side + kMaxStages * kSide;
   uint8_t* ring = qs + (kQS ? 0 : kConsumers * kMT * kc * kQTileBytes);
-  uint8_t* staged = ring + stages * kStage;  // [warpgroup][row][kOutTiles] values, lanes
-  // C: the codebook, when it is staged
-  uint16_t* cbs = reinterpret_cast<uint16_t*>(staged + 2 * kConsumers * kMT * 64 * kOutTiles * 4);
+  // [warpgroup][row][kOutTiles] values, lanes; kTop2: [warpgroup][row][kTop2Row]
+  uint8_t* staged = ring + stages * kStage;
+  // D: the codewords' norms (M * Ks f32)
+  float* ntab = reinterpret_cast<float*>(staged + kConsumers * kStagedBytes<kOut, kMT>);
+  // C, J, D: the codebook, when it is staged
+  uint16_t* cbs = reinterpret_cast<uint16_t*>(
+      reinterpret_cast<uint8_t*>(ntab) + (kWin ? (cs.M * cs.Ks * 4 + 15) / 16 * 16 : 0));
 
   const int t = threadIdx.x;
   const int warp = t >> 5;
@@ -654,10 +983,30 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if constexpr (kWin) {
+    // each codeword's squared norm, its bf16 values summed in order in float32
+    for (int k = t; k < cs.M * cs.Ks; k += kThreads) {
+      const uint16_t* w = cs.cw + k * cs.Ds;
+      float acc = 0.0f;
+      for (int i = 0; i < cs.Ds; ++i) {
+        const float x = __uint_as_float(static_cast<uint32_t>(__ldg(w + i)) << 16);
+        acc = fmaf(x, x, acc);
+      }
+      ntab[k] = acc;
+    }
+  }
   if constexpr (kDecode) {
     if (cs.cb_smem) {
       const int n = cs.M * cs.Ks * cs.Ds;
-      if (cs.vec) {
+      if constexpr (kRowDec) {
+        if (cs.vec) {  // Ds a multiple of 4, cw 8-byte aligned
+          for (int u = t; u < n / 4; u += kThreads) {
+            reinterpret_cast<uint2*>(cbs)[u] = __ldg(reinterpret_cast<const uint2*>(cs.cw) + u);
+          }
+        } else {
+          for (int e = t; e < n; e += kThreads) cbs[e] = cs.cw[e];
+        }
+      } else if (cs.vec) {
         for (int u = t; u < n / 8; u += kThreads) {
           reinterpret_cast<uint4*>(cbs)[u] = __ldg(reinterpret_cast<const uint4*>(cs.cw) + u);
         }
@@ -685,7 +1034,11 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
     // ---- producer warpgroup: its first warp streams the block's tiles,
     // chunk by chunk, into the ring (C: the whole warpgroup decodes them);
     // the others only hand their registers on
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if constexpr (kLeanConsumers) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 88;\n" ::: "memory");
+    } else {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    }
     const int pt = t - kConsumers * 128;  // 0..127
     if (!kDecode && warp != kConsumers * 4) {
       if constexpr (kOut == kKeys && kS8<T>) {
@@ -697,25 +1050,78 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
       const uint16_t* cb = cs.cb_smem ? cbs : cs.cw;  // C's codebook
       int s = 0;
       uint32_t ph = 0;
+      // D: the next tile's window entry at this thread's slot (its window
+      // id, dup, vlen and row), loaded a tile ahead
+      WinSlot nxt;
+      if constexpr (kWin) nxt = win_slot(cs, tile0, pt);
       for (int tile = tile0; tile < tile1; ++tile) {
         // C: the walk over this slot's dims (chunk_codes)
         const uint8_t* cp = cs.codes + static_cast<long long>(tile) * kTile + pt;
         int mo = 0;
         int j = 0;
-        if constexpr (kDecode) {
+        if constexpr (kLayout == kCodes) {
           // the next tile's code rows, into L1 while this one is decoded
           for (int m = pt; m < cs.M && tile + 1 < tile1; m += 128) {
             prefetch_l1(cs.codes + m * cs.cap + static_cast<long long>(tile + 1) * kTile);
           }
         }
+        // J, D: this slot's code row (null: the slot scores +inf and reads
+        // nothing), the walk's sub-space m (and j), D's norm and penalty
+        // and the grouped slot
+        const uint8_t* row = nullptr;
+        int m = 0;
+        float nrm = 0.0f;
+        float pn = 0.0f;
+        int gsl = -1;
+        if constexpr (kLayout == kCodeRows) {
+          row = cs.codes + (static_cast<long long>(tile) * kTile + pt) * cs.M;
+          // the next tile's codes (128 * M contiguous bytes), into L1
+          const uint8_t* next = cs.codes + static_cast<long long>(tile + 1) * kTile * cs.M;
+          for (int l = pt; l < cs.M && tile + 1 < tile1; l += 128) prefetch_l1(next + l * 128);
+        } else if constexpr (kWin) {
+          const WinSlot cur = nxt;
+          if (tile + 1 < tile1) nxt = win_slot(cs, tile + 1, pt);
+          if (cur.dup == 0) {
+            const long long gl = static_cast<long long>(cur.w) * cs.cap_v + cur.row;
+            gsl = static_cast<int>(gl);
+            pn = cs.pen != nullptr ? __ldg(cs.pen + gl) : 0.0f;  // used with the last chunk
+            if (cur.row < cur.vlen) row = cs.codes + gl * cs.M;
+          }
+        }
         for (int c = 0; c < kc; ++c) {
           int code[8];
           int off[8];
-          if (kDecode && cs.vec) chunk_codes(cs, D, c, cp, mo, j, code, off);
+          int mb = 0;
+          uint4 b0, b1;
+          if constexpr (kLayout == kCodes) {
+            if (cs.vec) chunk_codes(cs, D, c, cp, mo, j, code, off);
+          } else if constexpr (kRowDec) {
+            if (cs.vec) row_chunk_codes(cs, row, c, m, mb, b0, b1);
+          }
+          if constexpr (kWin) {
+            // the next tile's code row, into L1 while this tile is decoded
+            if (c == kc - 1 && tile + 1 < tile1 && nxt.dup == 0 && nxt.row < nxt.vlen) {
+              prefetch_l1(cs.codes + (static_cast<long long>(nxt.w) * cs.cap_v + nxt.row) * cs.M);
+            }
+          }
           mbar_wait(&empty[s], ph ^ 1);
           uint8_t* dst = ring + s * kStage;
           if constexpr (kLayout == kRowLoad || kDecode) {
-            if constexpr (kDecode) {
+            if constexpr (kRowDec) {
+              if (!RII_TC_DECODE) {
+              } else if (cs.vec) {
+                row_chunk_store<kWin>(dst, cs, smem_u32(cbs), smem_u32(ntab), b0, b1, mb,
+                                      row != nullptr, D, c, m, j, pt, nrm);
+              } else {
+                row_chunk_elems<kWin>(dst, cb, cs, ntab, row, D, c, pt, nrm);
+              }
+              if (kWin && c == kc - 1) {
+                // the tile's norms and grouped slots, for the consumers' epilogue
+                float* sn = reinterpret_cast<float*>(side + s * kSide);
+                sn[pt] = row != nullptr ? nrm + pn : inf_f();
+                reinterpret_cast<int*>(sn + kTile)[pt] = gsl;
+              }
+            } else if constexpr (kDecode) {
               if (!RII_TC_DECODE) {
               } else if (cs.vec) {
                 chunk_store(dst, cs, smem_u32(cbs), code, off, pt);
@@ -739,16 +1145,16 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
             // the query tiles that hold a row below Q (the rest stay unread)
             const int mq = kQS ? min(kConsumers * kMT, (Q - q0 + 63) / 64) : 0;
             const uint32_t tx = (kLayout == kT || kLayout == kRowTma ? kChunkBytes : 0) +
-                                mq * kQTileBytes + (kNormRing && c == 0 ? kNormBytes : 0);
+                                mq * kQTileBytes + (kNormCopy && c == 0 ? kNormBytes : 0);
             if ((kLayout == kRowLoad || kDecode) && tx == 0) {  // only stores fill it
               mbar_arrive(&full[s]);
             } else {
               mbar_expect_tx(&full[s], tx);
             }
-            if (kNormRing && c == 0) {
+            if (kNormCopy && c == 0) {
               // the tile's norms arrive with its first chunk, so that the
               // epilogue finds them in shared memory
-              bulk_load(nring + s * kNormBytes, norms + static_cast<long long>(tile) * kTile,
+              bulk_load(side + s * kSide, norms + static_cast<long long>(tile) * kTile,
                         kNormBytes, &full[s]);
             }
             if constexpr (kLayout == kT) {
@@ -771,14 +1177,18 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
           }
         }
       }
-      if constexpr (kDecode) {
+      if constexpr (kLayout == kCodes) {
         // C: the padding-only tiles' keys, once the decoding is done
         write_padding_keys(out_v, Q, nt, nt_live, sg, nsg, q0, kBM, pt, 128);
       }
     }
   } else {
     // ---- consumer warpgroups: the product, then the tile's minima
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    if constexpr (kLeanConsumers) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 208;\n" ::: "memory");
+    } else {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    }
     const int wg = warp >> 2;
     const int qw = q0 + wg * kMT * 64;  // the warpgroup's first query row
     const int row_w = (warp & 3) * 16 + (lane >> 2);
@@ -798,7 +1208,7 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
     uint32_t ph = 0;
     for (int tile = tile0; tile < tile1; ++tile) {
       float nv[32];  // norms of this thread's columns 8j + lb + {0, 1}
-      if constexpr (!kNormRing) {
+      if constexpr (kSide == 0) {
         // bf16: issued before the product, which hides them
         const float* nrow = norms + static_cast<long long>(tile) * kTile + lb;
 #pragma unroll
@@ -814,8 +1224,8 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
       int prev = 0;
       for (int c = 0; c < kc; ++c) {
         mbar_wait(&full[s], ph);
-        if (kNormRing && c == 0) {
-          const float* nrow = reinterpret_cast<const float*>(nring + s * kNormBytes) + lb;
+        if (kNormCopy && c == 0) {
+          const float* nrow = reinterpret_cast<const float*>(side + s * kSide) + lb;
 #pragma unroll
           for (int j = 0; j < 16; ++j) {
             const float2 n2 = *reinterpret_cast<const float2*>(nrow + 8 * j);
@@ -877,29 +1287,75 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
       wgmma_wait<0>();
 #pragma unroll
       for (int i = 0; i < kMT; ++i) fence_acc(acc[i]);
-      if (lane == 0) mbar_arrive(&empty[prev]);
-      const int slot = tile % kOutTiles;
-      if constexpr (kParts) {
+      if constexpr (kOut == kTop2) {
+        // D: the top 2 of each 8-slot group from the last chunk's side
+        // bytes (the stage is released after), staged for kTop2Tiles
+        // tiles, then each row's groups written as runs of an entry's best
+        // and second-best columns
+        float* st = reinterpret_cast<float*>(staged + wg * kStagedBytes<kOut, kMT>);
+        int* gst = reinterpret_cast<int*>(st + kMT * 64 * kTop2Row);  // the groups' slots
+        const float* nr = reinterpret_cast<const float*>(side + prev * kSide);
+        const int tt = (tile - tile0) % kTop2Tiles;
         if (RII_TC_EPILOGUE) {
-          tile_minima<kOut, kMT>(tot, nv, a2, lane, high, tile, row_w, slot, ov, oi);
+          if constexpr (kParts) {
+            tile_top2<kMT>(tot, nr, lane, row_w, st, tt);
+          } else {
+            tile_top2<kMT>(acc, nr, lane, row_w, st, tt);
+          }
         }
-      } else if (RII_TC_EPILOGUE) {
-        tile_minima<kOut, kMT>(acc, nv, a2, lane, high, tile, row_w, slot, ov, oi);
-      }
-      // every kOutTiles tiles (and at the end) the warpgroup writes its
-      // staged results: runs of up to kOutTiles consecutive columns a row
-      if (slot == kOutTiles - 1 || tile == tile1 - 1) {
-        named_sync(1 + wg, 128);
-        const int g0 = max(tile - slot, tile0);
-        for (int idx = t & 127; idx < kMT * 64 * kOutTiles; idx += 128) {
-          const int r = idx / kOutTiles;
-          const int col = tile - slot + idx % kOutTiles;
-          if (col < g0 || col > tile || qw + r >= Q) continue;
-          const long long at = static_cast<long long>(qw + r) * nt + col;
-          out_v[at] = ov[idx];
-          if constexpr (kOut != kKeys) out_i[at] = oi[idx];
+        if ((t & 127) < kGroups) {
+          gst[tt * kGroups + (t & 127)] = reinterpret_cast<const int*>(nr + kTile)[8 * (t & 127)];
         }
-        named_sync(1 + wg, 128);
+        __syncwarp();  // lanes 0-15 have read gst's slots from the stage
+        if (lane == 0) mbar_arrive(&empty[prev]);
+        if (tt == kTop2Tiles - 1 || tile == tile1 - 1) {
+          named_sync(1 + wg, 128);
+          // lane l writes staged group l (tile l / 16 of the staged ones):
+          // its best, then its second-best; where they go in the entry's
+          // columns
+          const int nt8 = cs.cap_v / 8;
+          const int grp = (tile - tt + lane / kGroups) * kGroups + lane % kGroups;
+          const int eu = grp / nt8;  // the union entry
+          const long long col = static_cast<long long>(eu) * 2 * nt8 + (grp - eu * nt8);
+          const int g = gst[lane];
+          const bool in = lane / kGroups <= tt && eu < cs.U;
+          for (int r = (t & 127) >> 5; in && r < kMT * 64; r += 4) {
+            if (qw + r >= Q) break;
+#pragma unroll
+            for (int sec = 0; sec < 2; ++sec) {
+              const float k = st[r * kTop2Row + sec * kTop2Tiles * kGroups + lane];
+              const long long at = static_cast<long long>(qw + r) * cs.ncol + col + sec * nt8;
+              out_v[at] = unpack_key<3>(k);
+              out_i[at] = g < 0 ? 0 : g + (__float_as_int(k) & 7);
+            }
+          }
+          named_sync(1 + wg, 128);
+        }
+      } else {
+        if (lane == 0) mbar_arrive(&empty[prev]);
+        const int slot = tile % kOutTiles;
+        if constexpr (kParts) {
+          if (RII_TC_EPILOGUE) {
+            tile_minima<kOut, kMT>(tot, nv, a2, lane, high, tile, row_w, slot, ov, oi);
+          }
+        } else if (RII_TC_EPILOGUE) {
+          tile_minima<kOut, kMT>(acc, nv, a2, lane, high, tile, row_w, slot, ov, oi);
+        }
+        // every kOutTiles tiles (and at the end) the warpgroup writes its
+        // staged results: runs of up to kOutTiles consecutive columns a row
+        if (slot == kOutTiles - 1 || tile == tile1 - 1) {
+          named_sync(1 + wg, 128);
+          const int g0 = max(tile - slot, tile0);
+          for (int idx = t & 127; idx < kMT * 64 * kOutTiles; idx += 128) {
+            const int r = idx / kOutTiles;
+            const int col = tile - slot + idx % kOutTiles;
+            if (col < g0 || col > tile || qw + r >= Q) continue;
+            const long long at = static_cast<long long>(qw + r) * nt + col;
+            out_v[at] = ov[idx];
+            if constexpr (kOut != kKeys) out_i[at] = oi[idx];
+          }
+          named_sync(1 + wg, 128);
+        }
       }
     }
   }
@@ -960,7 +1416,7 @@ struct Args {
   long long cap;
   long long n_valid;
   cudaStream_t stream;
-  CodeSrc cs;  // kernel C only
+  CodeSrc cs;  // kernels C, J and D
 };
 
 template <int kLayout, int kOut, int kMT, bool kQS, typename T>
@@ -968,15 +1424,19 @@ int launch(const CUtensorMap& map, const Args& a) {
   const int kc = (a.D + kDims<T> - 1) / kDims<T>;
   const size_t qtiles = static_cast<size_t>(kConsumers) * kMT * kQTileBytes;  // a chunk's
   const size_t stage = kChunkBytes + (kQS ? qtiles : 0);
-  const size_t fixed = 2048 + (kS8<T> ? kMaxStages * kNormBytes : 0) + (kQS ? 0 : kc * qtiles) +
-                       static_cast<size_t>(2 * kConsumers) * kMT * 64 * kOutTiles * 4;
-  if (fixed + 2 * stage > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t fixed = 2048 + kMaxStages * kSideBytes<kLayout, T> + (kQS ? 0 : kc * qtiles) +
+                       static_cast<size_t>(kConsumers) * kStagedBytes<kOut, kMT>;
   CodeSrc cs = a.cs;
-  // C: the codebook goes to shared memory if a ring of two stages still fits
-  const size_t cb = kLayout == kCodes ? (static_cast<size_t>(cs.M) * cs.Ks * cs.Ds * 2 + 15) / 16 * 16
+  // D: the codewords' norms, in shared memory beside a ring of two stages;
+  // then C, J, D: the codebook goes there too if the ring still fits
+  const size_t tab = kLayout == kCodeWin ? (static_cast<size_t>(cs.M) * cs.Ks * 4 + 15) / 16 * 16
+                                         : 0;
+  const size_t base = fixed + tab;
+  if (base + 2 * stage > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t cb = kLayout >= kCodes ? (static_cast<size_t>(cs.M) * cs.Ks * cs.Ds * 2 + 15) / 16 * 16
                                       : 0;
-  cs.cb_smem = kLayout == kCodes && fixed + cb + 2 * stage <= kMaxSmem;
-  const size_t held = fixed + (cs.cb_smem ? cb : 0);
+  cs.cb_smem = kLayout >= kCodes && base + cb + 2 * stage <= kMaxSmem;
+  const size_t held = base + (cs.cb_smem ? cb : 0);
   const int stages = static_cast<int>(std::min<size_t>(kMaxStages, (kMaxSmem - held) / stage));
   const size_t smem = held + static_cast<size_t>(stages) * stage;
   CUtensorMap qmap;
@@ -1108,6 +1568,76 @@ extern "C" int rii_tc_pq_tile_keys(const void* q, int ldq, const void* codes_t, 
   const Args a{q, ldq, nullptr, codes_t, norms, keys, nullptr, Q, M * Ds, cap, n_valid,
                static_cast<cudaStream_t>(stream), cs};
   return launch_for<kCodes, kKeys, uint16_t>(map, a);
+}
+
+// The row-major code sources' decoding: vec where Ds is a multiple of 4 and
+// cw 8-byte aligned, in 16-byte units where Ds is a multiple of 8 and cw
+// 16-byte aligned, else two 8-byte halves (half).
+static CodeSrc row_codes(const void* codes, const void* cw, int M, int Ks, int Ds) {
+  CodeSrc cs{};
+  cs.codes = static_cast<const uint8_t*>(codes);
+  cs.cw = static_cast<const uint16_t*>(cw);
+  cs.M = M;
+  cs.Ks = Ks;
+  cs.Ds = Ds;
+  cs.vec = Ds % 4 == 0 && (reinterpret_cast<uintptr_t>(cw) & 7) == 0;
+  cs.half = !(Ds % 8 == 0 && !misaligned(cw));
+  return cs;
+}
+
+static bool bad_codebook(int M, int Ks, int Ds) {
+  return M <= 0 || Ks <= 0 || Ks > 256 || Ds <= 0 || static_cast<long long>(M) * Ds >= (1LL << 20);
+}
+
+// Kernel J: vmin, amin (Q, cap/128) over the row-major codes (cap, M)
+// uint8, decoded through the bf16 codebook cw (M, Ks, Ds), Ks <= 256,
+// D = M * Ds; norms (cap,) f32; packed or exact.
+extern "C" int rii_tc_pq_rows_tile_minima(const void* q, int ldq, const void* codes,
+                                          const void* norms, const void* cw, void* vmin,
+                                          void* amin, int Q, int M, int Ks, int Ds, long long cap,
+                                          int packed, void* stream) {
+  if (bad_codebook(M, Ks, Ds) || bad_shape<uint16_t>(q, ldq, norms, Q, M * Ds, cap)) {
+    return kInvalid;
+  }
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));  // the codes are decoded, not copied: no map
+  const Args a{q, ldq, nullptr, codes, norms, vmin, amin, Q, M * Ds, cap, cap,
+               static_cast<cudaStream_t>(stream), row_codes(codes, cw, M, Ks, Ds)};
+  return packed ? launch_for<kCodeRows, kPacked, uint16_t>(map, a)
+                : launch_for<kCodeRows, kExact, uint16_t>(map, a);
+}
+
+// Kernel D: vmin, amin (Q, U * 2 * cap_v / 8), per 8-slot group of the
+// union's windows the best and second-best score (ivf_pq_window.cu's
+// contract) over the grouped codes codes_g (total, M) uint8, window w rows
+// [w * cap_v, (w + 1) * cap_v), decoded through cw (M, Ks, Ds); flat, dup,
+// vlen (U,) int32; pen (total,) f32 or null. One m64 tile a consumer
+// warpgroup (the staged top-2 and the codebook then fit beside the ring).
+extern "C" int rii_tc_pq_window_top2(const void* q, int ldq, const void* codes_g, const void* cw,
+                                     const void* flat, const void* dup, const void* vlen,
+                                     const void* pen, void* vmin, void* amin, int Q, int M, int Ks,
+                                     int Ds, int U, int cap_v, void* stream) {
+  const long long slots = static_cast<long long>(U) * cap_v;
+  const long long cap = (slots + kTile - 1) / kTile * kTile;  // the union's tiles
+  if (bad_codebook(M, Ks, Ds) || U <= 0 || cap_v <= 0 || cap_v % 8 != 0 ||
+      bad_shape<uint16_t>(q, ldq, nullptr, Q, M * Ds, cap)) {
+    return kInvalid;
+  }
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  CodeSrc cs = row_codes(codes_g, cw, M, Ks, Ds);
+  cs.flat = static_cast<const int*>(flat);
+  cs.dup = static_cast<const int*>(dup);
+  cs.vlen = static_cast<const int*>(vlen);
+  cs.pen = static_cast<const float*>(pen);
+  cs.cap_v = cap_v;
+  cs.U = U;
+  cs.ncol = static_cast<long long>(U) * 2 * (cap_v / 8);
+  const Args a{q, ldq, nullptr, codes_g, nullptr, vmin, amin, Q, M * Ds, cap, cap,
+               static_cast<cudaStream_t>(stream), cs};
+  return M * Ds > kResidentChunks * kDims<uint16_t>
+             ? launch<kCodeWin, kTop2, 1, true, uint16_t>(map, a)
+             : launch<kCodeWin, kTop2, 1, false, uint16_t>(map, a);
 }
 
 // Kernel H: vmin, amin (Q, cap/128) over dec (cap, D), packed or exact.

@@ -8,17 +8,19 @@ codes on the device:
   tensor-core scan of kernel A with the codes decoded into its operand
   ring), replaces the Pallas kernel ``_pq_t_kernel``: packed per-128-slot
   minimum keys of the linear scan over the transposed (M, cap) codes.
-- **Kernel D**, :func:`ivf_pq_window_tile_minima`
-  (``csrc/ivf_pq_window.cu``), replaces ``_ivf_pq_window_kernel``:
-  per-8-slot top-2 over the probed code windows, rows decoded through the
-  bf16 codebook (the engine's choice when Q >= D).
-- **Kernel E**, :func:`ivf_dt_window_tile_minima` (same source), replaces
-  ``_ivf_dt_window_kernel``: the same top-2 from the bf16 ADC table of
+- **Kernel D**, :func:`ivf_pq_window_tile_minima` (``csrc/replica_tc.cu``,
+  the same kernel over the row-major codes of the probed windows),
+  replaces ``_ivf_pq_window_kernel``: per-8-slot top-2 over the windows,
+  rows decoded through the bf16 codebook (the engine's choice when
+  Q >= D).
+- **Kernel E**, :func:`ivf_dt_window_tile_minima`
+  (``csrc/ivf_pq_window.cu``), replaces ``_ivf_dt_window_kernel``: the
+  same top-2 from the bf16 ADC table of
   :func:`rii_tpu_torch.ops.decode.build_dtable` (Q < D).
-- **Kernel J**, :func:`pq_scan_tile_minima` (``csrc/rowmajor_scan.cu``),
-  replaces ``_scan_kernel``: per-128-slot (min, argmin) over row-major
-  (cap, M) codes, the ops-level entry :func:`pq_scan_topk` with its host
-  packing :func:`prepare_pq_scan_inputs`.
+- **Kernel J**, :func:`pq_scan_tile_minima` (``csrc/replica_tc.cu``, over
+  row-major (cap, M) codes), replaces ``_scan_kernel``: per-128-slot (min,
+  argmin), the ops-level entry :func:`pq_scan_topk` with its host packing
+  :func:`prepare_pq_scan_inputs`.
 
 The wrapper rules are kernel A's and B's (``hopper_scan``): CPU tensors take
 the plain twin, CUDA tensors launch the kernel or raise, and each wrapper
@@ -225,6 +227,15 @@ def _compact_codebook(cw_padded, m):
                         for mm in range(m)]).to(torch.bfloat16).contiguous()
 
 
+def _gathered_codebook(cw_padded, m):
+    """:func:`_compact_codebook` in one indexing op (block m of row m), as
+    kernel J's wrapper takes it: one launch where the stack makes M."""
+    ks, d = cw_padded.shape[1:]
+    sub = torch.arange(m, device=cw_padded.device)
+    blocks = cw_padded.reshape(m, ks, m, d // m)[sub, :, sub, :]  # (M, Ks, Ds)
+    return blocks.to(torch.bfloat16).contiguous()
+
+
 def _check_pq_rowmajor(queries, codes, norms_col, cw_padded, blk):
     cap, m = codes.shape
     mk, ks, d = cw_padded.shape
@@ -238,8 +249,9 @@ def _check_pq_rowmajor(queries, codes, norms_col, cw_padded, blk):
 
 def pq_scan_tile_minima_plain(queries, codes, norms_col, cw_padded,
                               packed=False):
-    """Plain twin of kernel J (see csrc/rowmajor_scan.cu for the contract):
-    rows decoded through the bf16 codebook, bf16 queries, float32 sums."""
+    """Plain twin of kernel J (see csrc/replica_tc.cu for the contract,
+    kernel H's): rows decoded through the bf16 codebook, bf16 queries,
+    float32 sums."""
     qf = queries.to(torch.bfloat16).float()
     cap, m = codes.shape
     cw16 = _compact_codebook(cw_padded, m)
@@ -262,33 +274,29 @@ def pq_scan_tile_minima(queries, codes, norms_col, cw_padded, blk=1024,
     checks it. Returns (vmin (Q, cap/128) f32 WITHOUT ||q||^2, amin
     (Q, cap/128) int32 global slots); ``packed`` as kernel H's (default the
     exact reduce, as in JAX). CPU tensors take the plain twin; CUDA tensors
-    launch the kernel."""
+    launch the kernel (the tensor-core scan of ``csrc/replica_tc.cu``, whose
+    producer decodes each slot's code row itself)."""
     cap, m, ks, ds = _check_pq_rowmajor(queries, codes, norms_col, cw_padded,
                                         blk)
     if _on_cpu(queries, codes, norms_col, cw_padded):
         return pq_scan_tile_minima_plain(queries, codes, norms_col, cw_padded,
                                          packed)
+    _require(ks <= 256, f"Ks={ks}: codes are uint8, Ks must be <= 256")
     _require(codes.dtype == torch.uint8 and codes.is_contiguous(),
              "codes must be contiguous uint8")
     _require(norms_col.dtype == torch.float32 and norms_col.is_contiguous(),
              "norms_col must be contiguous float32")
     _require(cap < 1 << 31, "cap must be below 2^31 (int32 slots)")
-    lib = _build.load_library("rowmajor_scan")
-    per_block = lib.rii_rowmajor_pq_queries_per_block
-    per_block.argtypes = [ctypes.c_int] * 3
-    per_block.restype = ctypes.c_int
-    _require(ks <= 256 and per_block(m, ks, ds) > 0,
-             f"M={m}, Ks={ks}, Ds={ds}: Ks must be <= 256 and the ADC table "
-             "of 4 queries must fit in shared memory")
-    q16 = queries.to(torch.bfloat16).contiguous()
-    cw16 = _compact_codebook(cw_padded, m)
+    q16, ldq = _tc_queries(queries)
+    cw16 = _gathered_codebook(cw_padded, m)
     qn = q16.shape[0]
     vmin, amin = _tile_outputs(qn, cap, codes.device)
-    fn = lib.rii_rowmajor_pq_tile_minima
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    fn = _build.load_library("replica_tc").rii_tc_pq_rows_tile_minima
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    _build.check(fn(_ptr(q16), _ptr(codes), _ptr(norms_col), _ptr(cw16),
+    _build.check(fn(_ptr(q16), ldq, _ptr(codes), _ptr(norms_col), _ptr(cw16),
                     _ptr(vmin), _ptr(amin), qn, m, ks, ds, cap,
                     int(bool(packed)), _stream(codes.device)),
                  "pq_scan_tile_minima")
@@ -344,7 +352,6 @@ def _check_windows(codes_g, flat, dup, vlen, cap_v, pen):
 def _check_window_kernel_args(codes_g, flat, dup, vlen, cap_v, pen):
     _require(codes_g.dtype == torch.uint8 and codes_g.is_contiguous(),
              "codes_g must be contiguous uint8")
-    _require(cap_v <= 1024, "cap_v must be <= 1024 (one thread per row)")
     _require(flat.dtype == dup.dtype == vlen.dtype == torch.int32,
              "flat/dup/vlen must be int32")
     _require(pen is None or (pen.dtype == torch.float32 and pen.is_contiguous()),
@@ -381,7 +388,9 @@ def ivf_pq_window_tile_minima(queries, codes_g, codewords, flat, dup, vlen,
     window member count); pen optional (total,) f32 (0 keep, +inf excluded)
     in grouped-slot order. Returns (vmin, amin), each (Q, U*2*cap_v/8): f32
     scores without ||q||^2 and int32 grouped slots. CPU tensors take the
-    plain twin; CUDA tensors launch the kernel."""
+    plain twin; CUDA tensors launch the kernel (the tensor-core scan of
+    ``csrc/replica_tc.cu`` over the union's windows, decoded by its
+    producer)."""
     m, ks, ds = codewords.shape
     d = m * ds
     _require(codes_g.dim() == 2 and codes_g.shape[1] == m,
@@ -395,19 +404,19 @@ def ivf_pq_window_tile_minima(queries, codes_g, codewords, flat, dup, vlen,
                                                flat, dup, vlen, cap_v, pen)
     _check_window_kernel_args(codes_g, flat, dup, vlen, cap_v, pen)
     _require(ks <= 256, "Ks must be <= 256")
-    q16 = queries.to(torch.bfloat16).contiguous()
+    q16, ldq = _tc_queries(queries)
     cw16 = _bf16_codebook(codewords)
     flat, dup, vlen = flat.contiguous(), dup.contiguous(), vlen.contiguous()
     qn, u = q16.shape[0], flat.shape[0]
     ncol = u * 2 * (cap_v // 8)
     vmin = torch.empty((qn, ncol), dtype=torch.float32, device=codes_g.device)
     amin = torch.empty((qn, ncol), dtype=torch.int32, device=codes_g.device)
-    lib = _build.load_library("ivf_pq_window")
-    fn = lib.rii_ivf_pq_window_top2
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn = _build.load_library("replica_tc").rii_tc_pq_window_top2
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     pen_p = ctypes.c_void_p(None) if pen is None else _ptr(pen)
-    _build.check(fn(_ptr(q16), _ptr(codes_g), _ptr(cw16), _ptr(flat),
+    _build.check(fn(_ptr(q16), ldq, _ptr(codes_g), _ptr(cw16), _ptr(flat),
                     _ptr(dup), _ptr(vlen), pen_p, _ptr(vmin), _ptr(amin), qn,
                     m, ks, ds, u, cap_v, _stream(codes_g.device)),
                  "ivf_pq_window_tile_minima")
@@ -463,6 +472,7 @@ def ivf_dt_window_tile_minima(queries, codes_g, codewords, flat, dup, vlen,
                                                flat, dup, vlen, cap_v, pen,
                                                cw_norms)
     _check_window_kernel_args(codes_g, flat, dup, vlen, cap_v, pen)
+    _require(cap_v <= 1024, "cap_v must be <= 1024 (one thread per row)")
     _require(ks <= 256 and m * ks * 16 <= 200 * 1024,
              f"M={m}, Ks={ks}: a table chunk must fit in 200 KiB of shared memory")
     qn = queries.shape[0]

@@ -230,14 +230,33 @@ def test_pq_tile_keys_rejects_wide_codebooks(cuda):
                         torch.zeros(128, device=cuda), cw)
 
 
-@pytest.mark.parametrize("kernel,qn,ds,cap_v,with_pen", [
+# Kernel D (the tensor-core kernel over the windows' row-major codes): cap_v
+# from 8 to 1024 (U * cap_v a multiple of 128 or not: 50 * 40, 50 * 8, 51 *
+# 24), Q up to 512, Ds a multiple of 8, of 4 only (8-byte halves) or 3;
+# every entry a duplicate, every vlen 0; a codebook too large for shared
+# memory (D=384, 196 KB: read through L1) and D past 512 (640: queries
+# streamed through the ring, codebook through L1). Cases "m<M>" set M (8
+# elsewhere): D % 8 == 4, where the last 16-byte unit's second half lies
+# past D, at Ds=4 (M=25, codebook in shared memory; M=45, through L1) and
+# Ds=12 (M=5 in shared memory; M=25 through L1).
+_W_CASES = [pytest.param(*c, "", id="-".join(map(str, c))) for c in (
     ("D", 70, 16, 256, True), ("D", 33, 3, 40, False),
-    ("E", 8, 16, 256, True), ("E", 21, 3, 40, False)])
-def test_ivf_pq_windows_match_twin(cuda, kernel, qn, ds, cap_v, with_pen):
+    ("E", 8, 16, 256, True), ("E", 21, 3, 40, False))] + [
+    ("D", 33, 16, 8, True, ""), ("D", 70, 16, 128, False, ""), ("D", 20, 16, 1024, True, ""),
+    ("D", 512, 16, 256, True, ""), ("D", 40, 4, 256, False, ""), ("D", 70, 16, 24, True, "u51"),
+    ("D", 70, 16, 256, True, "all dup"), ("D", 70, 16, 256, False, "vlen 0"),
+    ("D", 40, 48, 64, True, ""), ("D", 40, 80, 64, True, ""),
+    ("D", 40, 4, 256, True, "m25"), ("D", 70, 4, 64, False, "m45"),
+    ("D", 40, 12, 64, True, "m5"), ("D", 40, 12, 64, False, "m25")]
+
+
+@pytest.mark.parametrize("kernel,qn,ds,cap_v,with_pen,case", _W_CASES)
+def test_ivf_pq_windows_match_twin(cuda, kernel, qn, ds, cap_v, with_pen, case):
     """Kernels D and E with duplicates, vlen padding and the pen stream;
     ragged Q, Ds and cap_v exercise the kernels' edges."""
     g = torch.Generator(device=cuda).manual_seed(qn)
-    m, ks, nwin, u = 8, 256, 30, 50
+    m = int(case[1:]) if case.startswith("m") else 8
+    ks, nwin, u = 256, 30, 51 if case == "u51" else 50
     cw = torch.rand((m, ks, ds), generator=g, device=cuda) * (0.4 / ds)
     codes_g = torch.randint(0, ks, (nwin * cap_v, m), generator=g, device=cuda,
                             dtype=torch.uint8)
@@ -256,12 +275,20 @@ def test_ivf_pq_windows_match_twin(cuda, kernel, qn, ds, cap_v, with_pen):
                 if kernel == "D" else
                 (HP.ivf_dt_window_tile_minima, HP.ivf_dt_window_tile_minima_plain))
     vl = vlen_w[flat.long()]
+    if case == "all dup":
+        dup = torch.ones_like(dup)
+    elif case == "vlen 0":
+        vl = torch.zeros_like(vl)
     before = fn.launches
     v_k, a_k = fn(q, codes_g, cw, flat, dup, vl, cap_v, pen=pen)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     v_t, a_t = twin(q, codes_g, cw, flat, dup, vl, cap_v, pen=pen)
-    assert_keys_match(*_np(v_k, a_k, v_t, a_t))
+    if case in ("all dup", "vlen 0"):  # every score +inf; the slots still agree
+        assert not torch.isfinite(v_k).any() and not torch.isfinite(v_t).any()
+        assert torch.equal(a_k, a_t)
+    else:
+        assert_keys_match(*_np(v_k, a_k, v_t, a_t))
     cols = np.repeat(dup.cpu().numpy() != 0, 2 * cap_v // 8)
     assert (a_k.cpu().numpy()[:, cols] == 0).all()
 
@@ -448,30 +475,58 @@ def test_replica_i8_scan_tile_minima_misaligned_rows(cuda):
     assert torch.equal(a_k, a_t)
 
 
-@pytest.mark.parametrize("qn,m,ks,ds,packed", [
+# Kernel J (the tensor-core scan over row-major codes decoded by its
+# producer): Ds a multiple of 8 (16-byte codeword units: M=8, Ds=16, and
+# M=12, Ds=8), a multiple of 4 only (8-byte halves: M=32, Ds=4, the ops
+# shape, and M=24) or neither (M=5, Ds=3: element by element); M a multiple
+# of 16 (a chunk's codes one 16-byte load) or not (5, 8, 12, 24: narrower
+# loads); in both reduces. Cases: "unaligned" codes (base 1 byte past a
+# 16-byte boundary: byte loads), "one tile" (cap 128, below the JAX blk
+# rule), "tail" (the last 20000 slots +inf, as past n_valid). M odd at
+# Ds=4, and Ds=12, give D % 8 == 4 (the last unit's second half lies past
+# D): M=25, Ds=4 and M=5, Ds=12 with the codebook in shared memory, M=101,
+# Ds=4 and M=25, Ds=12 with it read through L1.
+_J_CASES = [pytest.param(*c, "", id="-".join(map(str, c))) for c in (
     (13, 8, 256, 16, False), (8, 32, 256, 4, True), (40, 5, 100, 3, False),
-    (40, 5, 100, 3, True)])
-def test_pq_scan_tile_minima_matches_twin(cuda, qn, m, ks, ds, packed):
-    """Kernel J at 8 queries per block (M=8), at 4 (M=32) and at a ragged
-    shape (M=5: codes staged byte by byte) in both reduces."""
+    (40, 5, 100, 3, True))] + [
+    (130, 32, 256, 4, False, "unaligned"), (130, 32, 256, 4, True, "unaligned"),
+    (65, 24, 256, 4, False, ""), (65, 12, 256, 8, True, ""),
+    (300, 32, 256, 4, False, "one tile"), (1, 8, 256, 16, True, "one tile"),
+    (200, 32, 256, 4, False, "tail"), (1024, 32, 256, 4, True, "tail")] + [
+    (qn, m, 256, ds, packed, "") for qn, m, ds in (
+        (200, 25, 4), (40, 5, 12), (40, 101, 4), (40, 25, 12))
+    for packed in (False, True)]
+
+
+@pytest.mark.parametrize("qn,m,ks,ds,packed,case", _J_CASES)
+def test_pq_scan_tile_minima_matches_twin(cuda, monkeypatch, qn, m, ks, ds, packed, case):
+    """Kernel J against its twin; the last 300 slots hold +inf norms, and
+    the rows of slots 512..639 are equal (the exact reduce's tie)."""
     g = torch.Generator(device=cuda).manual_seed(qn + m)
-    cap = 1 << 15
+    cap = 128 if case == "one tile" else 1 << 15
+    if case == "one tile":  # the kernel steps by 128 slots; JAX's blk rule does not
+        monkeypatch.setattr(HP, "_check_rowmajor", lambda cap, blk, norms_col: None)
     cw = torch.rand((m, ks, ds), generator=g, device=cuda) * (0.4 / ds)
     codes = torch.randint(0, ks, (cap, m), generator=g, device=cuda,
                           dtype=torch.uint8)
-    codes[512:640] = codes[512]
+    if case == "unaligned":
+        buf = torch.empty(cap * m + 16, dtype=torch.uint8, device=cuda)
+        codes = buf[1:1 + cap * m].view(cap, m).copy_(codes)
+        assert codes.data_ptr() % 16 != 0
+    if cap >= 640:
+        codes[512:640] = codes[512]
     cwp = HP.build_padded_codewords(cw.cpu().numpy(), device=cuda)
     cw16 = cw.to(torch.bfloat16).float()
     dec = cw16[torch.arange(m, device=cuda), codes.long()].reshape(cap, -1)
     norms = (dec * dec).sum(1, keepdim=True)
-    norms[-300:] = float("inf")
+    norms[-(20000 if case == "tail" else min(300, cap // 4)):] = float("inf")
     q = torch.rand((qn, m * ds), generator=g, device=cuda) * 0.1
     before = HP.pq_scan_tile_minima.launches
     v_k, a_k = HP.pq_scan_tile_minima(q, codes, norms, cwp, packed=packed)
     torch.cuda.synchronize()
     assert HP.pq_scan_tile_minima.launches == before + 1
     v_t, a_t = HP.pq_scan_tile_minima_plain(q, codes, norms, cwp, packed=packed)
-    _assert_minima(v_k, a_k, v_t, a_t, None if packed else 512)
+    _assert_minima(v_k, a_k, v_t, a_t, None if packed or cap < 640 else 512)
 
 
 def test_wrapper_raises_on_mixed_devices(cuda):

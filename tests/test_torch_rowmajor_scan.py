@@ -273,6 +273,18 @@ def test_cpu_twins_launch_nothing(data):
     assert [f.launches for f in fns] == before
 
 
+@pytest.mark.parametrize("m,ds", [(5, 4), (8, 8), (32, 4)])
+def test_kernel_j_codebook_gather_equals_twin_stack(m, ds):
+    """The codebook kernel J's wrapper gathers in one op equals the twin's
+    per-sub-space stack, bit for bit."""
+    cw = np.random.default_rng(m).random((m, 16, ds), dtype=np.float32)
+    cwp = HP.build_padded_codewords(cw, device="cpu")
+    got = HP._gathered_codebook(cwp, m)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, 16, ds)
+    assert torch.equal(got, HP._compact_codebook(cwp, m))
+    assert torch.equal(got, torch.from_numpy(cw).to(torch.bfloat16))
+
+
 @pytest.mark.parametrize("blk", [512 + 256, 128, 8192])
 def test_wrappers_keep_jax_block_rules(data, blk):
     """blk % 256, blk >= 1024 and cap % blk, as the JAX entries assert."""
