@@ -18,11 +18,6 @@ M=8, Ks=256, D=128, nlist=31623, ``reserve(2^25 + 100k)``, scan_mode
   the six kernels with the most device time. Device time comes from
   ``torch.profiler`` over 5 batches: busy time is the union of the CUDA
   kernels' intervals (overlapping kernels count once), divided by 5;
-- ``dt_entries_per_block``: kernel E at the union the engine hands it at
-  Q=8 and at Q=64, for several numbers of union entries per block: the
-  wrapper's time with its table build (CUDA events, median of 7) and the
-  kernel's own device time (profiler, mean of 5), and the number the
-  wrapper picks;
 - ``max_memory_allocated_gib`` of the whole run.
 
 Each stage is wrapped in a device synchronize, so the stage times are a
@@ -42,8 +37,6 @@ from torch.profiler import ProfilerActivity, profile
 
 import rii_tpu_torch.rii as R
 from rii_tpu_torch import PQ, Rii
-from rii_tpu_torch.ops import hopper_pq as HP
-from rii_tpu_torch.ops import ivf as IVF
 
 N, M, KS, D, NLIST, N_ADD = 1 << 25, 8, 256, 128, 31623, 100_000
 REPS = 7
@@ -70,23 +63,6 @@ def time_stages(names):
 
         setattr(R, name, wrapped)
     return timers
-
-
-def cuda_ms(fn, reps=REPS):
-    """Median milliseconds of fn() over reps runs, timed with CUDA events."""
-    fn()
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
 
 
 def device_busy(prof, batches):
@@ -138,41 +114,6 @@ def profile_batches(e, queries):
                    "top_ms": [[k[:60], v / 1e3] for k, v in top]})
 
 
-def sweep_dt_entries_per_block(e, queries):
-    """Kernel E at the engine's own unions (Q=8, 64) for several entries
-    per block."""
-    seen = []
-    real = IVF.ivf_dt_window_tile_minima
-
-    def record(*a, **k):
-        seen.append((a, k))
-        return real(*a, **k)
-
-    IVF.ivf_dt_window_tile_minima = record
-    for qn in (8, 64):
-        e.query_batch(queries[:qn], topk=10, method="auto")
-    IVF.ivf_dt_window_tile_minima = real
-    pick = HP._dt_entries_per_block
-    out = {}
-    for a, k in seen:
-        qn, u = a[0].shape[0], a[3].shape[0]
-        nqc = -(-qn // HP._DT_CHUNK)
-        row = {"U": u, "picked": pick(u, nqc), "wrapper_ms": {}, "kernel_ms": {}}
-        for g in (1, 2, 4, 8, 16, 32):
-            HP._dt_entries_per_block = lambda u_, n_, g=g: g
-            row["wrapper_ms"][g] = cuda_ms(lambda: real(*a, **k))
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
-                    real(*a, **k)
-                torch.cuda.synchronize()
-            per = device_busy(prof, 5)[2]
-            row["kernel_ms"][g] = sum(v for name, v in per.items()
-                                      if "ivf_dt_window_top2" in name) / 1e3
-        HP._dt_entries_per_block = pick
-        out[f"q{qn}"] = row
-    emit("dt_entries_per_block", out)
-
-
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile_pq: torch.cuda.is_available() is False")
@@ -206,7 +147,6 @@ def main():
                          "cap": dc["cap"], "mode": dc["mode"],
                          "windows": dc["windows"]})
     profile_batches(e, queries)
-    sweep_dt_entries_per_block(e, queries)
     emit("max_memory_allocated_gib", torch.cuda.max_memory_allocated() / 2**30)
     return 0
 

@@ -17,9 +17,13 @@ Phases, each of which must pass (no exception is caught):
    computes the scores' product (not the tile reduce). Kernels A, C and H
    also report their share of the bf16 tensor-core peak at Q=1024
    (``tensor_core_share``; C at Q=128 too), and A and F their time at a
-   GIST-shaped D=960 (``*_d960``; not a gate). A, C, D, H, F, I and J are
-   one tensor-core kernel, on bf16 or int8 operands (C's, D's and J's
+   GIST-shaped D=960 (``*_d960``; not a gate). A, C, D, G, H, F, I and J
+   are one tensor-core kernel, on bf16 or int8 operands (C's, D's and J's
    decoded from their codes); F and I must be bit-equal to their twins.
+   Kernel E builds its ADC table in its one launch. The records of D, E
+   and G carry the CUDA kernels one wrapper call launches
+   (``kernels_a_call``, torch.profiler over 5 calls), counted once every
+   phase has run, so that no profiler session slows a timed launch.
 4. Small reference: a CUDA engine against a CPU engine on the same codes.
 5. Engine: the bf16 path through the public API at a SIFT-shaped config
    (N=2,000,000, D=128, M=32, Ks=256, nlist=1000, topk=10): PQ fit,
@@ -144,6 +148,48 @@ def cuda_ms(fn, reps=7):
     return float(np.median(times))
 
 
+# (record, key, label, fn): the wrapper calls whose CUDA kernels are counted
+# once every kernel is timed (a torch.profiler session can slow the launches
+# that follow it)
+KERNEL_COUNTS = []
+
+
+def count_kernels_later(rec, key, label, fn):
+    KERNEL_COUNTS.append((rec, key, label, fn))
+
+
+def phase_kernel_counts():
+    """The CUDA kernels each noted wrapper call launches, into its record."""
+    for rec, key, label, fn in KERNEL_COUNTS:
+        launched, ran, names = kernels_a_call(fn)
+        rec[key] = launched
+        log(f"  {label}: {launched} kernel launches a call (runtime), {ran} kernels ran a "
+            f"call ({', '.join(nm[:48] for nm in names)})")
+    KERNEL_COUNTS.clear()
+
+
+def kernels_a_call(fn, calls=5):
+    """CUDA kernels a call of fn(), from torch.profiler over ``calls``
+    calls: the kernel launches the CUDA runtime saw (``cudaLaunchKernel``
+    and its variants) and the kernels the card ran, each divided by
+    ``calls``; and the names the card ran. The runtime's count is the one
+    kept: the card's records dropped one kernel in five of kernel G's calls
+    on an H100."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = prof.events()
+    launched = sum(ev.device_type == DeviceType.CPU and ev.name.startswith("cudaLaunchKernel")
+                   for ev in evs)
+    ran = [ev.name for ev in evs if ev.device_type == DeviceType.CUDA]
+    return launched / calls, len(ran) / calls, sorted(set(ran))
+
+
 def compare_keys(name, v_k, s_k, v_t, s_t):
     """Unpacked values within the tolerance; slots agree on >= 99% of the
     tiles, and where they differ the values still agree (a near-tie)."""
@@ -198,7 +244,7 @@ def phase_card():
 
 def phase_build():
     from rii_tpu_torch.ops import _build
-    names = ("replica_tc", "ivf_window", "ivf_pq_window", "ivf_i8_window")
+    names = ("replica_tc", "ivf_window", "ivf_pq_window")
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(lambda nm: _build.load_library(nm, verbose=True), names))
@@ -389,7 +435,7 @@ def phase_kernels_pq(dev, g):
              HP.ivf_dt_window_tile_minima_plain, (8, 64)),
             ("ivf_pq_window_top2", HP.ivf_pq_window_tile_minima,
              HP.ivf_pq_window_tile_minima_plain, (512,))):
-        errs, times = [], {}
+        errs, times, calls = [], {}, {}
         for qn in qns:
             u = qn * wv
             pool = torch.randperm(nwin, generator=g, device=dev)[:4 * u]
@@ -409,11 +455,17 @@ def phase_kernels_pq(dev, g):
             t_k = cuda_ms(lambda: fn(q, codes_g, cw, flat, dup, vl, cap_v))
             t_t = cuda_ms(lambda: twin(q, codes_g, cw, flat, dup, vl, cap_v))
             rows = int(vl[dup == 0].sum())  # live rows of the distinct entries
+            calls[qn] = (lambda q=q, flat=flat, dup=dup, vl=vl, fn=fn:
+                         fn(q, codes_g, cw, flat, dup, vl, cap_v))
             times[qn] = (t_k, t_t, u, rows)
             log(f"  {name} U={u} Q={qn}: kernel {t_k:.3f} ms, plain {t_t:.3f} ms")
+        # E reads the float32 queries and codebook (its table is built in
+        # its launch), D the bf16 ones
+        wb = 4 if name == "ivf_dt_window_top2" else 2
+
         def w_bound(qn):
             _, _, u, rows = times[qn]
-            return bound(rows * m + m * ks * ds * 2 + qn * d * 2 + u * 12
+            return bound(rows * m + m * ks * ds * wb + qn * d * wb + u * 12
                          + qn * u * 2 * (cap_v // 8) * 8, 2 * qn * rows * d, "bf16")
 
         q_main = qns[-1]
@@ -427,6 +479,9 @@ def phase_kernels_pq(dev, g):
                             "rii_tpu/ops/pallas_scan.py:1261 _ivf_pq_window_kernel"),
                "max_abs_err": max(errs), "ms": t_k, "plain_ms": t_t, "U": u, "Q": q_main,
                **w_bound(q_main), "library_ms": None}
+        for qn in qns:
+            count_kernels_later(rec, "kernels_a_call" + ("" if qn == q_main else f"_q{qn}"),
+                                f"{name} Q={qn}", calls[qn])
         for qn in qns[:-1]:
             rec[f"ms_q{qn}"], rec[f"plain_ms_q{qn}"] = times[qn][:2]
             rec.update(at_q(w_bound(qn), qn))
@@ -542,7 +597,7 @@ def phase_kernels_i8(dev, g):
                            device=dev, dtype=torch.int32)
     pen = torch.where(torch.rand(nwin * cap_v, generator=g, device=dev) < 0.3,
                       float("inf"), 0.0).to(torch.float32)
-    errs, times = [], {}
+    errs, times, calls = [], {}, {}
     for qn in (8, 64):
         u = qn * wv
         pool = torch.randperm(nwin, generator=g, device=dev)[:4 * u]
@@ -564,22 +619,27 @@ def phase_kernels_i8(dev, g):
                                                            vl, cap_v))
         t_t = cuda_ms(lambda: HI.ivf_i8_window_tile_minima_plain(q, dec_g, scales, flat,
                                                                  dup, vl, cap_v))
+        calls[qn] = (lambda q=q, flat=flat, dup=dup, vl=vl:
+                     HI.ivf_i8_window_tile_minima(q, dec_g, scales, flat, dup, vl, cap_v))
         times[qn] = (t_k, t_t, u, int(vl[dup == 0].sum()))
         log(f"  kernel G U={u} Q={qn}: kernel {t_k:.3f} ms, plain {t_t:.3f} ms")
-    def g_bound(qn):
+
+    def g_bound(qn):  # the float32 queries, the live rows, the scales, the union
         _, _, u, rows = times[qn]
-        return bound(rows * d + qn * d + d * 4 + u * 12 + qn * u * 2 * (cap_v // 8) * 8,
+        return bound(rows * d + qn * d * 4 + d * 4 + u * 12 + qn * u * 2 * (cap_v // 8) * 8,
                      2 * qn * rows * d, "int8")
 
     t_k, t_t, u, rows = times[64]
     records.append({"name": "ivf_i8_window_top2", "route": "cuda",
-                    "source": "rii_tpu_torch/csrc/ivf_i8_window.cu",
+                    "source": "rii_tpu_torch/csrc/replica_tc.cu",
                     "replaces": "rii_tpu/ops/pallas_scan.py:1389 "
                                 "_ivf_i8_window_multi_kernel, :1354 _ivf_i8_window_kernel",
                     "max_abs_err": max(errs), "ms": t_k, "plain_ms": t_t,
                     "U": u, "Q": 64, "ms_q8": times[8][0],
                     "plain_ms_q8": times[8][1], **g_bound(64), "library_ms": None,
                     **at_q(g_bound(8), 8)})
+    count_kernels_later(records[-1], "kernels_a_call", "kernel G Q=64", calls[64])
+    count_kernels_later(records[-1], "kernels_a_call_q8", "kernel G Q=8", calls[8])
     return records
 
 
@@ -1276,6 +1336,9 @@ def main():
         for k, c in fn(dev).items():  # a kernel on two paths: both runs count
             launches[k] = launches.get(k, 0) + c
         log(f"phase engine {phase}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_kernel_counts()
+    log(f"phase kernel counts: {time.perf_counter() - t0:.1f} s")
     for r in records:
         r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": records}))

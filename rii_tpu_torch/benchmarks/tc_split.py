@@ -1,9 +1,12 @@
-"""Where the tensor-core scan kernel's time goes: kernels F, I, A, H, C, J
-and D timed in probe builds of ``csrc/replica_tc.cu`` with the product or
-the epilogue switched off (``RII_TC_PRODUCT`` / ``RII_TC_EPILOGUE``), and
-for C, J and D the decoding (``RII_TC_DECODE``), beside the full kernel;
-or, with ``--parent``, the kernels of this checkout against those of
-another one.
+"""Where the tensor-core scan kernel's time goes: kernels F, I, A, H, C, J,
+D and G timed in probe builds of ``csrc/replica_tc.cu`` with the product
+or the epilogue switched off (``RII_TC_PRODUCT`` / ``RII_TC_EPILOGUE``),
+and for C, J and D the decoding (``RII_TC_DECODE``; for G the loads of its
+rows), beside the full kernel; then kernel E (``csrc/ivf_pq_window.cu``):
+its table build alone, its launch as the wrapper makes it, and probe
+builds that fix its query chunks a block (``RII_DT_QCHUNKS``: 1, 2, 4) or
+its 512-slot tiles a block (``RII_DT_TILES``: 1, 4, 16, 64); or, with ``--parent``,
+the kernels of this checkout against those of another one.
 
     python -m rii_tpu_torch.benchmarks.tc_split      # the card only
     python -m rii_tpu_torch.benchmarks.tc_split --parent DIR
@@ -15,7 +18,9 @@ shape (D=960 over cap 2^20, Q=1024), where the queries stream through the
 ring; C at the SIFT1B shape (M=8, Ks=256, Ds=16 over cap 2^26 with n_valid
 2^25 + 100k) at Q=128 and 1024; J at the ops shape (M=32, Ks=256, Ds=4
 over cap 2^20) exact at Q=128 and 1024, packed at 1024; D at the SIFT1B
-shape's IVF batch (Q=512, U=16384 windows of 256 rows, M=8, Ds=16). Each
+shape's IVF batch (Q=512, U=16384 windows of 256 rows, M=8, Ds=16); G at
+the 4M band's IVF batches (Q=8 and 64, U=64Q windows of 256 int8 rows,
+D=128); E at the SIFT1B shape's (Q=8, 64 and 127, U=32Q). Each
 variant is called through its C entry
 with the queries prepared once (kernel time only, no wrapper work), timed
 with CUDA events (median of ``reps`` after two warm runs) in the order
@@ -30,8 +35,8 @@ beside this one's. Every kernel and shape of the split (H exact too) that
 both builds hold (a parent from before kernels C, J and D moved there has
 none of them) runs
 on the same inputs in both, in ``rounds`` rounds of parent, change,
-change, parent. First it prints, for each bf16 instantiation of the
-kernel, its count of SASS instructions in both builds (``cuobjdump
+change, parent. First it prints, for each bf16 and int8 instantiation of
+the kernel, its count of SASS instructions in both builds (``cuobjdump
 -sass``) and the opcodes whose counts differ.
 
 Prints the card's name and power limit, then one JSON line per kernel and
@@ -61,7 +66,8 @@ VARIANTS = {"full": (), "no_epilogue": ("RII_TC_EPILOGUE=0",),
 # the C entry of each kernel whose cases a parent may lack, and the kernels
 # that decode codes
 _ENTRY = {"C": "rii_tc_pq_tile_keys", "J": "rii_tc_pq_rows_tile_minima",
-          "J packed": "rii_tc_pq_rows_tile_minima", "D": "rii_tc_pq_window_top2"}
+          "J packed": "rii_tc_pq_rows_tile_minima", "D": "rii_tc_pq_window_top2",
+          "G": "rii_tc_i8_window_top2"}
 _P = ctypes.c_void_p
 
 
@@ -94,7 +100,8 @@ def _entries(lib):
             "rii_tc_tile_minima": [_P, i, _P, _P, _P, _P, i, i, ll, i, _P],
             "rii_tc_pq_tile_keys": [_P, i, _P, _P, _P, _P, i, i, i, i, ll, ll, _P],
             "rii_tc_pq_rows_tile_minima": [_P, i, _P, _P, _P, _P, _P, i, i, i, i, ll, i, _P],
-            "rii_tc_pq_window_top2": [_P, i] + [_P] * 8 + [i] * 6 + [_P]}
+            "rii_tc_pq_window_top2": [_P, i] + [_P] * 8 + [i] * 6 + [_P],
+            "rii_tc_i8_window_top2": [_P, i] + [_P] * 9 + [i] * 4 + [_P]}
     out = {}
     for name, argtypes in spec.items():
         if hasattr(lib, name):
@@ -160,6 +167,99 @@ def _cases(dev, g, d=128):
     yield from _pq_cases(dev, g)
     yield from _rows_cases(dev, g)
     yield from _window_cases(dev, g)
+    yield from _i8_window_cases(dev, g)
+
+
+def _union(g, dev, nwin, u):
+    """A sorted union of u of nwin windows with duplicates (drawn from a
+    pool of 4u, as chip_smoke.py draws them) and its dup flags."""
+    pool = torch.randperm(nwin, generator=g, device=dev)[:4 * u]
+    flat = torch.sort(pool[torch.randint(0, 4 * u, (u,), generator=g, device=dev)]
+                      ).values.to(torch.int32)
+    dup = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                     (flat[1:] == flat[:-1]).to(torch.int32)])
+    return flat, dup
+
+
+def _i8_window_cases(dev, g, d=128, cap_v=256, nwin=20_480, wv=64):
+    """Kernel G at the 4M band's IVF batches: Q=8 and 64, the union of Q *
+    64 windows of 256 int8 rows, vlen from cap_v/2 to cap_v, no pen:
+    (kernel, Q, D, U * cap_v, call(entries))."""
+    st = _P(torch.cuda.current_stream(dev).cuda_stream)
+    plain = _build.load_library("replica_tc")
+    rows = torch.randint(-127, 128, (nwin * cap_v, d), generator=g, device=dev,
+                         dtype=torch.int32).to(torch.int8)
+    scales = torch.rand(d, generator=g, device=dev) * (0.1 / 127) + 1e-5
+    for qn in (8, 64):
+        u = qn * wv
+        flat, dup = _union(g, dev, nwin, u)
+        vlen = torch.randint(cap_v // 2, cap_v + 1, (u,), generator=g, device=dev,
+                             dtype=torch.int32)
+        q8, ldq, alpha = HI._tc_queries_i8(
+            plain, torch.rand((qn, d), generator=g, device=dev) * 0.1, scales)
+        ncol = u * 2 * (cap_v // 8)
+        v = torch.empty((qn, ncol), device=dev)
+        a = torch.empty((qn, ncol), dtype=torch.int32, device=dev)
+        yield "G", qn, d, u * cap_v, lambda e, q8=q8, ldq=ldq, alpha=alpha, flat=flat, \
+            dup=dup, vlen=vlen, v=v, a=a, qn=qn, u=u: e["rii_tc_i8_window_top2"](
+                _ptr(q8), ldq, _ptr(alpha), _ptr(rows), _ptr(scales), _ptr(flat), _ptr(dup),
+                _ptr(vlen), _P(None), _ptr(v), _ptr(a), qn, d, u, cap_v, st)
+
+
+DT_VARIANTS = {"fused": (), **{f"chunks{c}": (f"RII_DT_QCHUNKS={c}",) for c in (1, 2, 4)},
+               **{f"tiles{t}": (f"RII_DT_TILES={t}",) for t in (1, 4, 16, 64)}}
+
+
+def dt_split(reps=7, seed=1, m=8, ks=256, ds=16, cap_v=256, nwin=191_000, wv=32):
+    """Kernel E at the SIFT1B shape's IVF batches (Q=8, 64 and 127, the
+    union of Q * 32 windows of 256 rows): ``table_ms`` the table-only entry
+    alone, ``fused_ms`` the one launch that builds its table (the build the
+    wrapper loads), ``chunks{1,2,4}_ms`` and ``tiles{1,4,16,64}_ms`` the
+    same launch from probe builds that fix its query chunks of 8 or its
+    tiles a block. Kernel time only (CUDA events, median of ``reps``)."""
+    dev = torch.device("cuda", 0)
+    st = _P(torch.cuda.current_stream(dev).cuda_stream)
+    i = ctypes.c_int
+    with ThreadPoolExecutor(len(DT_VARIANTS)) as pool:  # one nvcc per variant
+        libs = dict(zip(DT_VARIANTS, pool.map(
+            lambda f: _build.load_library("ivf_pq_window", defines=f), DT_VARIANTS.values())))
+    table = libs["fused"].rii_ivf_dt_table
+    table.argtypes = [_P] * 4 + [i] * 4 + [_P]
+    table.restype = i
+    scans = {}
+    for name, lib in libs.items():
+        scans[name] = lib.rii_ivf_dt_window_top2
+        scans[name].argtypes = [_P] * 10 + [i] * 6 + [_P]
+        scans[name].restype = i
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d = m * ds
+    cw = torch.rand((m, ks, ds), generator=g, device=dev) * 0.025
+    codes_g = torch.randint(0, ks, (nwin * cap_v, m), generator=g, device=dev,
+                            dtype=torch.uint8)
+    records = []
+    for qn in (8, 64, 127):
+        u = qn * wv
+        flat, dup = _union(g, dev, nwin, u)
+        vlen = torch.randint(cap_v // 2, cap_v + 1, (u,), generator=g, device=dev,
+                             dtype=torch.int32)
+        q = torch.rand((qn, d), generator=g, device=dev) * 0.08
+        dt = torch.empty((-(-qn // 8), m, ks, 8), dtype=torch.bfloat16, device=dev)
+        ncol = u * 2 * (cap_v // 8)
+        v = torch.empty((qn, ncol), device=dev)
+        a = torch.empty((qn, ncol), dtype=torch.int32, device=dev)
+        variants = {"table": lambda: table(_ptr(q), _ptr(cw), _P(None), _ptr(dt), qn, m, ks,
+                                           ds, st)}
+        for name, scan in scans.items():
+            variants[name] = lambda scan=scan: scan(
+                _ptr(q), _ptr(cw), _P(None), _ptr(codes_g), _ptr(flat), _ptr(dup), _ptr(vlen),
+                _P(None), _ptr(v), _ptr(a), qn, m, ks, ds, u, cap_v, st)
+        rec = {"kernel": "E", "Q": qn, "U": u, "D": d,
+               "device": torch.cuda.get_device_name(dev)}
+        for name, fn in list(variants.items()) + list(reversed(variants.items())):
+            _build.check(fn(), f"E {name}")
+            rec.setdefault(f"{name}_ms", []).append(_cuda_ms(fn, reps))
+        records.append(rec)
+    return records
 
 
 def _pq_cases(dev, g, m=8, ks=256, ds=16):
@@ -204,11 +304,7 @@ def _window_cases(dev, g, m=8, ks=256, ds=16, qn=512, u=16384, cap_v=256, nwin=1
     codes_g = torch.randint(0, ks, (nwin * cap_v, m), generator=g, device=dev,
                             dtype=torch.uint8)
     cw = (torch.rand((m, ks, ds), generator=g, device=dev) * 0.025).to(torch.bfloat16)
-    pool = torch.randperm(nwin, generator=g, device=dev)[:4 * u]
-    flat = torch.sort(pool[torch.randint(0, 4 * u, (u,), generator=g, device=dev)]
-                      ).values.to(torch.int32)
-    dup = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
-                     (flat[1:] == flat[:-1]).to(torch.int32)])
+    flat, dup = _union(g, dev, nwin, u)
     vlen = torch.randint(cap_v // 2, cap_v + 1, (u,), generator=g, device=dev,
                          dtype=torch.int32)
     q16, ldq = H._tc_queries(torch.rand((qn, d), generator=g, device=dev) * 0.08)
@@ -238,7 +334,7 @@ def run(reps=7, seed=0):
             _build.check(call(entries[v]), f"{kernel} {v}")
             rec.setdefault(f"{v}_ms", []).append(_cuda_ms(lambda: call(entries[v]), reps))
         records.append(rec)
-    return records
+    return records + dt_split(reps)
 
 
 _SASS_FN = re.compile(r"Function : (\S+)")
@@ -247,26 +343,24 @@ _SASS_INSTR = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(.*?);")
 _INSTANCE = re.compile(r"tc_scan_kernelILi(\d)ELi(\d)ELi(\d)ELb(\d)E([at]?)E")
 
 
-def _sass_counts(lib_path):
-    """{(layout, out, kMT, kQS): Counter of opcodes} for the bf16
-    instantiations of tc_scan_kernel in a built library."""
+def _sass_text(lib_path):
+    """``cuobjdump -sass`` of a built library."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    return parse_sass(subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
-                                     capture_output=True, text=True, check=True).stdout)
+    return subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
 
 
-def parse_sass(text):
+def parse_sass(text, operand="t"):
     """{(layout, out, kMT, kQS): Counter of opcodes, predicates and
-    modifiers dropped} for the bf16 instantiations of tc_scan_kernel in
-    ``cuobjdump -sass`` output."""
+    modifiers dropped} for the instantiations of tc_scan_kernel on one
+    operand type ("t" bf16, "a" int8) in ``cuobjdump -sass`` output."""
     out, cur = {}, None
     for line in text.splitlines():
         m = _SASS_FN.search(line)
         if m:
             inst = _INSTANCE.search(m.group(1))
-            # the operand type ("t" bf16, "a" int8) is absent where the
-            # kernel had none (bf16 only)
-            cur = None if inst is None or inst.group(5) == "a" else (
+            # the operand type is absent where the kernel had none (bf16 only)
+            cur = None if inst is None or (inst.group(5) or "t") != operand else (
                 out.setdefault(tuple(int(x) for x in inst.groups()[:4]),
                                collections.Counter()))
             continue
@@ -291,15 +385,17 @@ def ab(parent, reps=7, rounds=2, seed=0):
                              csrc.values()))
     entries = {k: _entries(lib) for k, lib in zip(csrc, libs)}
     records = []
-    sass = {k: _sass_counts(_build.library_path("replica_tc", csrc=c))
-            for k, c in csrc.items()}
-    for inst in sorted(set(sass["parent"]) | set(sass["change"])):
-        p, c = sass["parent"].get(inst, collections.Counter()), sass["change"].get(
-            inst, collections.Counter())
-        records.append({"sass": dict(zip(("layout", "out", "kMT", "kQS"), inst)),
-                        "parent_instr": sum(p.values()), "change_instr": sum(c.values()),
-                        "differ": {op: [p[op], c[op]] for op in sorted(set(p) | set(c))
-                                   if p[op] != c[op]}})
+    text = {k: _sass_text(_build.library_path("replica_tc", csrc=c)) for k, c in csrc.items()}
+    for operand, kind in (("t", "bf16"), ("a", "int8")):
+        sass = {k: parse_sass(t, operand) for k, t in text.items()}
+        for inst in sorted(set(sass["parent"]) | set(sass["change"])):
+            p, c = sass["parent"].get(inst, collections.Counter()), sass["change"].get(
+                inst, collections.Counter())
+            records.append({"sass": dict(zip(("layout", "out", "kMT", "kQS"), inst),
+                                         operand=kind),
+                            "parent_instr": sum(p.values()), "change_instr": sum(c.values()),
+                            "differ": {op: [p[op], c[op]] for op in sorted(set(p) | set(c))
+                                       if p[op] != c[op]}})
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def cases():

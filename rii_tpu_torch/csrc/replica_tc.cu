@@ -1,7 +1,8 @@
-// Kernels A, C, D, H, F, I and J on the tensor cores: the linear scans over
-// the bf16 and the int8 replica and over the uint8 PQ codes, and the IVF
-// scan over the pq tier's code windows, one kernel templated on the operand
-// type, on the replica's source and on the epilogue.
+// Kernels A, C, D, G, H, F, I and J on the tensor cores: the linear scans
+// over the bf16 and the int8 replica and over the uint8 PQ codes, and the
+// IVF scans over the pq tier's code windows and the int8 tier's windows,
+// one kernel templated on the operand type, on the replica's source and on
+// the epilogue.
 //
 // Replaces rii_tpu/ops/pallas_scan.py
 //   A  _replica_t_kernel (Q < 512) and _replica_tn_kernel (Q >= 512), entry
@@ -22,7 +23,11 @@
 //   D  _ivf_pq_window_kernel, entry rii_tc_pq_window_top2: the union of
 //      probed windows of the grouped row-major codes (ivf_pq_window.cu
 //      holds the contract, kernel E's too), per 8-slot group the best and
-//      second-best score, ||dec||^2 computed in the kernel.
+//      second-best score, ||dec||^2 computed in the kernel;
+//   G  _ivf_i8_window_multi_kernel and _ivf_i8_window_kernel, entry
+//      rii_tc_i8_window_top2: the union's windows of the grouped int8 rows
+//      (total, D), D's top-2 with F's int8 score, the dequantized rows'
+//      norms computed in the kernel.
 //
 // Contract (the Pallas kernels'): norms (cap,) f32 with +inf on padding and
 // excluded slots.
@@ -34,6 +39,10 @@
 //     alpha (Q,) f32 its dequantization factor. |cross| <= 127^2 * D < 2^24
 //     up to D = 1040, so float(cross) is exact there and the keys are bit
 //     for bit those of the twins and of the Pallas kernels.
+//   G: F's score over the window's rows, the norm sum_d (float(x_d) *
+//     scale_d)^2 summed in float32 (each product rounded, the squares
+//     added by fma in order of d), +inf past vlen, in a duplicate entry and
+//     where pen is +inf.
 //   C, J, D: the bf16 score over the decoded row, each value the codeword
 //     itself (what the Pallas kernel's one-hot products give, exactly); D's
 //     norm is the float32 sum of the decoded values' squares, +inf past the
@@ -46,7 +55,7 @@
 //   packed (H, I): that key unpacked into vmin (bits cleared, +inf restored
 //     at >= 2.9e38) and amin = tile * 128 + lane;
 //   exact (H, J): vmin the exact minimum, amin the lowest slot among ties.
-// Per 8-slot group and query (D): the best and second-best 3-bit packed
+// Per 8-slot group and query (D, G): the best and second-best 3-bit packed
 // key, unpacked, and their grouped slots (0 in a duplicate entry).
 // The kernel clamps the norms to 3e38 rather than each score: the keys are
 // the same wherever the product term is below 5e30 in magnitude (half a
@@ -147,6 +156,19 @@
 //   scattered one a row. D's output (8 bytes a query and group) is its
 //   bound; one m64 tile a warpgroup keeps the staging and the codebook in
 //   shared memory beside the ring, so Q=512 decodes each tile 4 times.
+// - Int8 windows (G). D's walk over the union's windows and D's epilogue,
+//   on F's s8 product: producer thread r loads slot r's 128 bytes of a
+//   chunk (16-byte loads where the row is so aligned, else narrower ones,
+//   none past D) before it waits for the stage, stores them into row r of
+//   the K-major swizzled stage, and sums the row's dequantized norm from
+//   the same registers (the column scales staged once a block); norms and
+//   grouped slots travel beside the last chunk's stage as D's. The queries
+//   are F's (quantized in one launch). At Q <= 64 the block's second m64
+//   query tile would be padding only, so the two consumer warpgroups both
+//   take the first and alternate slot tiles, each product and epilogue
+//   then done once. This replaces a CUDA-core kernel (__dp4a, one block a
+//   union entry, the window staged whole before any product, 32-query
+//   passes: 4x the products at Q=8) and its scattered 4-byte stores.
 // - Epilogue. A thread's accumulator holds two query rows x 32 slots of the
 //   tile (columns 8j + 2*(lane%4) + {0,1}); each row is reduced in-thread
 //   as 8 independent chains (their dependent min steps interleave), then
@@ -189,7 +211,10 @@
 // scores; at Q=128 the operations too (1.1 ms), the codes being 8 bytes a
 // slot (0.27 GB). J (M=32, cap 2^20): the 2.7e11 operations at Q=1024
 // (0.28 ms), the 32 MB of codes at Q=128. D (Q=512, U=16384, cap_v=256):
-// its output, 4.3 GB (1.29 ms at 3.35 TB/s).
+// its output, 4.3 GB (1.29 ms at 3.35 TB/s). G (Q=64, U=4096, cap_v=256,
+// D=128): its bytes, the live rows read (about 0.09 GB) and its output
+// (0.13 GB), 0.067 ms; the producer's norm (about four instructions a
+// byte) comes next.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -245,9 +270,18 @@ template <typename T>
 using Acc = std::conditional_t<kS8<T>, int, float>;
 
 // kCodes: C's (M, cap) codes; kCodeRows: J's row-major (cap, M) codes;
-// kCodeWin: D's row-major codes gathered by window (the union's slots).
-enum Layout { kT = 0, kRowTma = 1, kRowLoad = 2, kCodes = 3, kCodeRows = 4, kCodeWin = 5 };
-// kTop2: D's best and second-best of each 8-slot group.
+// kCodeWin: D's row-major codes gathered by window (the union's slots);
+// kI8Win: G's int8 rows gathered by window.
+enum Layout {
+  kT = 0,
+  kRowTma = 1,
+  kRowLoad = 2,
+  kCodes = 3,
+  kCodeRows = 4,
+  kCodeWin = 5,
+  kI8Win = 6
+};
+// kTop2: D's and G's best and second-best of each 8-slot group.
 enum Out { kKeys = 0, kPacked = 1, kExact = 2, kTop2 = 3 };
 
 // Bytes of a warpgroup's staged results: kKeys, kPacked, kExact a value
@@ -257,11 +291,11 @@ template <int kOut, int kMT>
 constexpr int kStagedBytes = kOut == kTop2 ? (kMT * 64 * kTop2Row + kTop2Tiles * kGroups) * 4
                                            : kMT * 64 * 2 * kOutTiles * 4;
 
-// Bytes a ring stage holds beside its chunk: int8, the tile's norms (a
-// bulk copy with chunk 0); D, the norms and grouped slots the producer
-// computes (with the last chunk).
+// Bytes a ring stage holds beside its chunk: int8 (F, I), the tile's norms
+// (a bulk copy with chunk 0); D and G, the norms and grouped slots the
+// producer computes (with the last chunk).
 template <int kLayout, typename T>
-constexpr int kSideBytes = sizeof(T) == 1 ? kNormBytes : kLayout == kCodeWin ? 2 * kNormBytes : 0;
+constexpr int kSideBytes = kLayout >= kCodeWin ? 2 * kNormBytes : sizeof(T) == 1 ? kNormBytes : 0;
 
 // The replica of the code layouts: codes uint8 and the bf16 codebook cw
 // (M, Ks, Ds), staged in shared memory when cb_smem. C: codes (M, cap);
@@ -269,8 +303,9 @@ constexpr int kSideBytes = sizeof(T) == 1 ? kNormBytes : kLayout == kCodeWin ? 2
 // 16-byte load). J and D: codes row-major, M bytes a slot; vec when Ds is
 // a multiple of 4 and cw 8-byte aligned, half when a unit is then two
 // 4-dim halves of 8 bytes (Ds not a multiple of 8, or cw not 16-byte
-// aligned). D: the union's U window ids flat, their dup and vlen, pen
-// (grouped slots, or null), cap_v rows a window, the output's ncol columns.
+// aligned). D and G: the union's U window ids flat, their dup and vlen, pen
+// (grouped slots, or null), cap_v rows a window, the output's ncol columns;
+// G: the int8 rows' column scales.
 struct CodeSrc {
   const uint8_t* codes;
   const uint16_t* cw;
@@ -283,6 +318,7 @@ struct CodeSrc {
   const float* pen;
   int cap_v, U;
   long long ncol;
+  const float* scales;
 };
 
 // ---- shared memory, barriers, copies ------------------------------------------
@@ -722,6 +758,43 @@ __device__ __forceinline__ void row_chunk_elems(uint8_t* dst, const uint16_t* cb
   }
 }
 
+// ---- G: int8 rows of the union's windows -----------------------------------
+//
+// Producer thread r owns slot r of the tile (D's window walk). Before it
+// waits for the stage it loads the chunk's 128 bytes of its row (16-byte
+// loads where the row is so aligned, else 4-byte or single ones, none past
+// D; zeros where the slot scores +inf), prefetches the next tile's row into
+// L1 while they are in flight, and adds their part of the row's
+// dequantized squared norm, sum_d (float(x_d) * scale_d)^2: each product
+// rounded, the squares added by fma in order of d (the scales read from
+// shared memory at sc_s, zero past D).
+__device__ __forceinline__ void i8_chunk_units(const int8_t* row, int c, int D, uint4 (&un)[8]) {
+#pragma unroll
+  for (int k8 = 0; k8 < 8; ++k8) {
+    un[k8] = row != nullptr ? load_unit(row, c * kRowBytes + k8 * 16, D)
+                            : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+__device__ __forceinline__ void i8_chunk_norm(const uint4 (&un)[8], int c, uint32_t sc_s,
+                                              float& nrm) {
+#pragma unroll
+  for (int k8 = 0; k8 < 8; ++k8) {
+    const uint32_t w[4] = {un[k8].x, un[k8].y, un[k8].z, un[k8].w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint4 s4 = lds128(sc_s + 4 * (c * kRowBytes + k8 * 16 + 4 * i));
+      const uint32_t sc[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const float x = static_cast<float>(static_cast<int8_t>(w[i] >> (8 * b)));
+        const float f = __fmul_rn(x, __uint_as_float(sc[b]));
+        nrm = fmaf(f, f, nrm);
+      }
+    }
+  }
+}
+
 // The keys of the padding-only tiles [nt_live, nt) that no one reads: the
 // block's share of them (by slot group) for its query rows [q0, q0 + bm),
 // written by the threads i0, i0 + n, ...
@@ -845,9 +918,10 @@ __device__ __forceinline__ void tile_minima(const A (&acc)[kMT][64], const float
   }
 }
 
-// D: per 8-slot group (tile columns 8j..8j+7, two on each thread of a
-// quad) the best and second-best packed key, slot bits 3. nr (the tile's
-// norms, +inf where a slot scores +inf) comes from the ring. The quad
+// D and G: per 8-slot group (tile columns 8j..8j+7, two on each thread of
+// a quad) the best and second-best packed key, slot bits 3. nr (the tile's
+// norms, +inf where a slot scores +inf) comes from the ring; a2 (G) is each
+// row's -2 * alpha. The quad
 // reduces its 16 groups as a butterfly: at each of the two shuffle steps a
 // thread keeps half of its groups and takes the partner's lists of those,
 // so it ends with groups j = 4q + lane % 4 (24 shuffles a row instead of
@@ -865,8 +939,9 @@ __device__ __forceinline__ void merge2(float& a, float& b, float ra, float rb) {
 }
 
 template <int kMT, typename A>
-__device__ __forceinline__ void tile_top2(const A (&acc)[kMT][64], const float* nr, int lane,
-                                          int row_w, float* st, int tt) {
+__device__ __forceinline__ void tile_top2(const A (&acc)[kMT][64], const float* nr,
+                                          const float (&a2)[2 * kMT], int lane, int row_w,
+                                          float* st, int tt) {
   const int lb = 2 * (lane & 3);
   const bool odd1 = lane & 1;
   const bool odd2 = lane & 2;
@@ -882,8 +957,8 @@ __device__ __forceinline__ void tile_top2(const A (&acc)[kMT][64], const float* 
     float a[kGroups], b[kGroups];
 #pragma unroll
     for (int j = 0; j < kGroups; ++j) {
-      const float k0 = key3(score_of(acc[r >> 1][4 * j + 2 * (r & 1)], 0.0f, nv[2 * j]), lb);
-      const float k1 = key3(score_of(acc[r >> 1][4 * j + 2 * (r & 1) + 1], 0.0f, nv[2 * j + 1]),
+      const float k0 = key3(score_of(acc[r >> 1][4 * j + 2 * (r & 1)], a2[r], nv[2 * j]), lb);
+      const float k1 = key3(score_of(acc[r >> 1][4 * j + 2 * (r & 1) + 1], a2[r], nv[2 * j + 1]),
                             lb + 1);
       a[j] = fminf(k0, k1);
       b[j] = fmaxf(k0, k1);
@@ -938,16 +1013,19 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
   constexpr int kQBytes = kQS ? kConsumers * kMT * kQTileBytes : 0;  // streamed queries
   constexpr int kStage = kChunkBytes + kQBytes;  // replica chunk [, queries' chunk]
   constexpr bool kParts = kQS && !kS8<T>;  // bf16 past 8 chunks: float32 sums of parts
-  constexpr bool kNormCopy = kS8<T>;        // int8: the norms come through the ring
-  constexpr int kSide = kSideBytes<kLayout, T>;  // a stage's side bytes (int8, D's norms)
-  constexpr bool kDecode = kLayout >= kCodes;  // C, J, D: the producer warpgroup decodes codes
-  constexpr bool kRowDec = kLayout >= kCodeRows;  // J, D: a slot's codes are one row
+  constexpr bool kG = kLayout == kI8Win;    // G: int8 rows of the union's windows
+  constexpr bool kNormCopy = kS8<T> && !kG;  // F, I: the norms come through the ring
+  constexpr int kSide = kSideBytes<kLayout, T>;  // a stage's side bytes (int8, D's and G's norms)
+  constexpr bool kFill = kLayout >= kCodes;  // C, J, D, G: all the producer warpgroup fills stages
+  constexpr bool kDecode = kFill && !kG;     // C, J, D: the producer warpgroup decodes codes
+  constexpr bool kRowDec = kDecode && kLayout >= kCodeRows;  // J, D: a slot's codes are one row
   constexpr bool kWin = kLayout == kCodeWin;      // D
-  // J and D with one m64 tile a warpgroup and resident queries: the
-  // consumers need fewer registers, and the decoding producer gets more
-  // (88 instead of 40: D at Q=512 7% and J at Q=128 14% faster in
-  // tc_split.py, and J's 48-byte spill gone)
-  constexpr bool kLeanConsumers = kRowDec && kMT == 1 && !kQS;
+  constexpr bool kWalk = kLayout >= kCodeWin;     // D, G: the union's windows
+  // J and D with one m64 tile a warpgroup and resident queries, and G: the
+  // consumers need fewer registers, and the producer gets more (88 instead
+  // of 40: D at Q=512 7% and J at Q=128 14% faster in tc_split.py, and J's
+  // 48-byte spill gone; G's producer holds a chunk's row in registers)
+  constexpr bool kLeanConsumers = (kRowDec && kMT == 1 && !kQS) || (kG && kMT == 1);
   extern __shared__ uint8_t smem_raw[];
   // swizzled tiles need 1024-byte alignment
   uint8_t* smem = smem_raw + (((smem_u32(smem_raw) + 1023) & ~1023u) - smem_u32(smem_raw));
@@ -961,7 +1039,8 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
   uint8_t* ring = qs + (kQS ? 0 : kConsumers * kMT * kc * kQTileBytes);
   // [warpgroup][row][kOutTiles] values, lanes; kTop2: [warpgroup][row][kTop2Row]
   uint8_t* staged = ring + stages * kStage;
-  // D: the codewords' norms (M * Ks f32)
+  // D: the codewords' norms (M * Ks f32); G: the column scales (kc * 128
+  // f32, zero past D)
   float* ntab = reinterpret_cast<float*>(staged + kConsumers * kStagedBytes<kOut, kMT>);
   // C, J, D: the codebook, when it is staged
   uint16_t* cbs = reinterpret_cast<uint16_t*>(
@@ -975,11 +1054,19 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
   const int tile0 = static_cast<int>(static_cast<long long>(nt_live) * sg / nsg);
   const int tile1 = static_cast<int>(static_cast<long long>(nt_live) * (sg + 1) / nsg);
   const int q0 = qb * kBM;
+  // G at Q <= 64: the block's second m64 query tile would hold padding
+  // only, so both consumer warpgroups take the first and alternate slot
+  // tiles. A warpgroup steps over the other's stages without waiting on
+  // them, which a stage's parity tells apart only if each stage's previous
+  // use lies in the warpgroup's own previous tile or before it: two tiles
+  // of stages at least.
+  const bool alt = kG && Q <= 64 && stages >= 2 * kc;
 
   if (t == 0) {
     for (int s = 0; s < stages; ++s) {
-      mbar_init(&full[s], kLayout == kRowLoad ? 32 : kDecode ? 128 : 1);
-      mbar_init(&empty[s], kConsumers * 4);  // one arrival per consumer warp
+      mbar_init(&full[s], kLayout == kRowLoad ? 32 : kFill ? 128 : 1);
+      // one arrival per consumer warp (alt: of one warpgroup)
+      mbar_init(&empty[s], alt ? 4 : kConsumers * 4);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -994,6 +1081,9 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
       }
       ntab[k] = acc;
     }
+  }
+  if constexpr (kG) {
+    for (int d = t; d < kc * kDim; d += kThreads) ntab[d] = d < D ? __ldg(cs.scales + d) : 0.0f;
   }
   if constexpr (kDecode) {
     if (cs.cb_smem) {
@@ -1040,7 +1130,7 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
       asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     }
     const int pt = t - kConsumers * 128;  // 0..127
-    if (!kDecode && warp != kConsumers * 4) {
+    if (!kFill && warp != kConsumers * 4) {
       if constexpr (kOut == kKeys && kS8<T>) {
         // F: the other three warps write the block's share of the keys of
         // the padding-only tiles
@@ -1053,7 +1143,7 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
       // D: the next tile's window entry at this thread's slot (its window
       // id, dup, vlen and row), loaded a tile ahead
       WinSlot nxt;
-      if constexpr (kWin) nxt = win_slot(cs, tile0, pt);
+      if constexpr (kWalk) nxt = win_slot(cs, tile0, pt);
       for (int tile = tile0; tile < tile1; ++tile) {
         // C: the walk over this slot's dims (chunk_codes)
         const uint8_t* cp = cs.codes + static_cast<long long>(tile) * kTile + pt;
@@ -1069,6 +1159,7 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
         // nothing), the walk's sub-space m (and j), D's norm and penalty
         // and the grouped slot
         const uint8_t* row = nullptr;
+        const T* grow = nullptr;  // G: this slot's int8 row (null: it scores +inf)
         int m = 0;
         float nrm = 0.0f;
         float pn = 0.0f;
@@ -1078,14 +1169,20 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
           // the next tile's codes (128 * M contiguous bytes), into L1
           const uint8_t* next = cs.codes + static_cast<long long>(tile + 1) * kTile * cs.M;
           for (int l = pt; l < cs.M && tile + 1 < tile1; l += 128) prefetch_l1(next + l * 128);
-        } else if constexpr (kWin) {
+        } else if constexpr (kWalk) {
           const WinSlot cur = nxt;
           if (tile + 1 < tile1) nxt = win_slot(cs, tile + 1, pt);
           if (cur.dup == 0) {
             const long long gl = static_cast<long long>(cur.w) * cs.cap_v + cur.row;
             gsl = static_cast<int>(gl);
             pn = cs.pen != nullptr ? __ldg(cs.pen + gl) : 0.0f;  // used with the last chunk
-            if (cur.row < cur.vlen) row = cs.codes + gl * cs.M;
+            if (cur.row < cur.vlen) {
+              if constexpr (kG) {
+                grow = rep + gl * D;
+              } else {
+                row = cs.codes + gl * cs.M;
+              }
+            }
           }
         }
         for (int c = 0; c < kc; ++c) {
@@ -1098,6 +1195,17 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
           } else if constexpr (kRowDec) {
             if (cs.vec) row_chunk_codes(cs, row, c, m, mb, b0, b1);
           }
+          uint4 un[8];  // G: the chunk's units of this slot's row
+          if constexpr (kG) {
+            if (RII_TC_DECODE) {
+              i8_chunk_units(grow, c, D, un);
+              if (c == 0 && tile + 1 < tile1 && nxt.dup == 0 && nxt.row < nxt.vlen) {
+                const T* next = rep + (static_cast<long long>(nxt.w) * cs.cap_v + nxt.row) * D;
+                for (int l = 0; l < kc; ++l) prefetch_l1(next + l * kRowBytes);
+              }
+              if (grow != nullptr) i8_chunk_norm(un, c, smem_u32(ntab), nrm);
+            }
+          }
           if constexpr (kWin) {
             // the next tile's code row, into L1 while this tile is decoded
             if (c == kc - 1 && tile + 1 < tile1 && nxt.dup == 0 && nxt.row < nxt.vlen) {
@@ -1106,8 +1214,21 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
           }
           mbar_wait(&empty[s], ph ^ 1);
           uint8_t* dst = ring + s * kStage;
-          if constexpr (kLayout == kRowLoad || kDecode) {
-            if constexpr (kRowDec) {
+          if constexpr (kLayout == kRowLoad || kFill) {
+            if constexpr (kG) {
+              if (RII_TC_DECODE) {
+#pragma unroll
+                for (int k8 = 0; k8 < 8; ++k8) {
+                  *reinterpret_cast<uint4*>(dst + sw128_offset(pt, k8)) = un[k8];
+                }
+              }
+              if (c == kc - 1) {
+                // the tile's norms and grouped slots, for the consumers' epilogue
+                float* sn = reinterpret_cast<float*>(side + s * kSide);
+                sn[pt] = grow != nullptr ? nrm + pn : inf_f();
+                reinterpret_cast<int*>(sn + kTile)[pt] = gsl;
+              }
+            } else if constexpr (kRowDec) {
               if (!RII_TC_DECODE) {
               } else if (cs.vec) {
                 row_chunk_store<kWin>(dst, cs, smem_u32(cbs), smem_u32(ntab), b0, b1, mb,
@@ -1146,7 +1267,7 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
             const int mq = kQS ? min(kConsumers * kMT, (Q - q0 + 63) / 64) : 0;
             const uint32_t tx = (kLayout == kT || kLayout == kRowTma ? kChunkBytes : 0) +
                                 mq * kQTileBytes + (kNormCopy && c == 0 ? kNormBytes : 0);
-            if ((kLayout == kRowLoad || kDecode) && tx == 0) {  // only stores fill it
+            if ((kLayout == kRowLoad || kFill) && tx == 0) {  // only stores fill it
               mbar_arrive(&full[s]);
             } else {
               mbar_expect_tx(&full[s], tx);
@@ -1190,10 +1311,11 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
       asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     }
     const int wg = warp >> 2;
-    const int qw = q0 + wg * kMT * 64;  // the warpgroup's first query row
+    const int qwg = alt ? 0 : wg;  // the warpgroup's m64 query tiles (alt: both the first)
+    const int qw = q0 + qwg * kMT * 64;  // the warpgroup's first query row
     const int row_w = (warp & 3) * 16 + (lane >> 2);
     const int lb = 2 * (lane & 3);
-    const uint32_t qa = smem_u32(qs) + wg * kMT * kc * kQTileBytes;
+    const uint32_t qa = smem_u32(qs) + qwg * kMT * kc * kQTileBytes;
     float* ov = reinterpret_cast<float*>(staged) + wg * kMT * 64 * kOutTiles;
     int* oi = reinterpret_cast<int*>(staged) + (kConsumers + wg) * kMT * 64 * kOutTiles;
     float a2[2 * kMT];  // int8: -2 * alpha of this thread's rows
@@ -1207,6 +1329,16 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
     int s = 0;
     uint32_t ph = 0;
     for (int tile = tile0; tile < tile1; ++tile) {
+      if (alt && ((tile - tile0) & 1) != wg) {
+        // the other warpgroup's tile: step over its stages
+        for (int c = 0; c < kc; ++c) {
+          if (++s == stages) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+        continue;
+      }
       float nv[32];  // norms of this thread's columns 8j + lb + {0, 1}
       if constexpr (kSide == 0) {
         // bf16: issued before the product, which hides them
@@ -1248,7 +1380,7 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
 #pragma unroll
           for (int i = 0; i < kMT; ++i) {
             const uint64_t da =
-                kQS ? sw128_desc(b + kChunkBytes + (wg * kMT + i) * kQTileBytes + k * 32, 16, 1024)
+                kQS ? sw128_desc(b + kChunkBytes + (qwg * kMT + i) * kQTileBytes + k * 32, 16, 1024)
                     : sw128_desc(qa + (i * kc + c) * kQTileBytes + k * 32, 16, 1024);
             const int part = kParts ? c % kResidentChunks : c;  // 0: a new sum
             if (RII_TC_PRODUCT) {
@@ -1288,19 +1420,19 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
 #pragma unroll
       for (int i = 0; i < kMT; ++i) fence_acc(acc[i]);
       if constexpr (kOut == kTop2) {
-        // D: the top 2 of each 8-slot group from the last chunk's side
-        // bytes (the stage is released after), staged for kTop2Tiles
-        // tiles, then each row's groups written as runs of an entry's best
-        // and second-best columns
+        // D, G: the top 2 of each 8-slot group from the last chunk's side
+        // bytes (the stage is released after), staged for kTop2Tiles of the
+        // warpgroup's tiles (alt: every other tile), then each row's groups
+        // written as runs of an entry's best and second-best columns
         float* st = reinterpret_cast<float*>(staged + wg * kStagedBytes<kOut, kMT>);
         int* gst = reinterpret_cast<int*>(st + kMT * 64 * kTop2Row);  // the groups' slots
         const float* nr = reinterpret_cast<const float*>(side + prev * kSide);
-        const int tt = (tile - tile0) % kTop2Tiles;
+        const int tt = (alt ? (tile - tile0) >> 1 : tile - tile0) % kTop2Tiles;
         if (RII_TC_EPILOGUE) {
           if constexpr (kParts) {
-            tile_top2<kMT>(tot, nr, lane, row_w, st, tt);
+            tile_top2<kMT>(tot, nr, a2, lane, row_w, st, tt);
           } else {
-            tile_top2<kMT>(acc, nr, lane, row_w, st, tt);
+            tile_top2<kMT>(acc, nr, a2, lane, row_w, st, tt);
           }
         }
         if ((t & 127) < kGroups) {
@@ -1308,13 +1440,15 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
         }
         __syncwarp();  // lanes 0-15 have read gst's slots from the stage
         if (lane == 0) mbar_arrive(&empty[prev]);
-        if (tt == kTop2Tiles - 1 || tile == tile1 - 1) {
+        if (tt == kTop2Tiles - 1 || (alt ? tile + 2 >= tile1 : tile == tile1 - 1)) {
           named_sync(1 + wg, 128);
           // lane l writes staged group l (tile l / 16 of the staged ones):
           // its best, then its second-best; where they go in the entry's
           // columns
           const int nt8 = cs.cap_v / 8;
-          const int grp = (tile - tt + lane / kGroups) * kGroups + lane % kGroups;
+          const int grp = (alt ? tile - 2 * (tt - lane / kGroups) : tile - tt + lane / kGroups) *
+                              kGroups +
+                          lane % kGroups;
           const int eu = grp / nt8;  // the union entry
           const long long col = static_cast<long long>(eu) * 2 * nt8 + (grp - eu * nt8);
           const int g = gst[lane];
@@ -1427,15 +1561,17 @@ int launch(const CUtensorMap& map, const Args& a) {
   const size_t fixed = 2048 + kMaxStages * kSideBytes<kLayout, T> + (kQS ? 0 : kc * qtiles) +
                        static_cast<size_t>(kConsumers) * kStagedBytes<kOut, kMT>;
   CodeSrc cs = a.cs;
-  // D: the codewords' norms, in shared memory beside a ring of two stages;
-  // then C, J, D: the codebook goes there too if the ring still fits
-  const size_t tab = kLayout == kCodeWin ? (static_cast<size_t>(cs.M) * cs.Ks * 4 + 15) / 16 * 16
+  // D: the codewords' norms (G: the column scales), in shared memory beside
+  // a ring of two stages; then C, J, D: the codebook goes there too if the
+  // ring still fits
+  constexpr bool kCodebook = kLayout >= kCodes && kLayout != kI8Win;
+  const size_t tab = kLayout == kCodeWin   ? (static_cast<size_t>(cs.M) * cs.Ks * 4 + 15) / 16 * 16
+                     : kLayout == kI8Win ? static_cast<size_t>(kc) * kDims<T> * 4
                                          : 0;
   const size_t base = fixed + tab;
   if (base + 2 * stage > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t cb = kLayout >= kCodes ? (static_cast<size_t>(cs.M) * cs.Ks * cs.Ds * 2 + 15) / 16 * 16
-                                      : 0;
-  cs.cb_smem = kLayout >= kCodes && base + cb + 2 * stage <= kMaxSmem;
+  const size_t cb = kCodebook ? (static_cast<size_t>(cs.M) * cs.Ks * cs.Ds * 2 + 15) / 16 * 16 : 0;
+  cs.cb_smem = kCodebook && base + cb + 2 * stage <= kMaxSmem;
   const size_t held = base + (cs.cb_smem ? cb : 0);
   const int stages = static_cast<int>(std::min<size_t>(kMaxStages, (kMaxSmem - held) / stage));
   const size_t smem = held + static_cast<size_t>(stages) * stage;
@@ -1638,6 +1774,40 @@ extern "C" int rii_tc_pq_window_top2(const void* q, int ldq, const void* codes_g
   return M * Ds > kResidentChunks * kDims<uint16_t>
              ? launch<kCodeWin, kTop2, 1, true, uint16_t>(map, a)
              : launch<kCodeWin, kTop2, 1, false, uint16_t>(map, a);
+}
+
+// Kernel G: vmin, amin (Q, U * 2 * cap_v / 8), per 8-slot group of the
+// union's windows the best and second-best int8 score (ivf_pq_window.cu's
+// contract; F's score, norm - 2 * float(cross) * alpha as one fma, with the
+// norm sum_d (float(x_d) * scale_d)^2 summed by the producer) over the
+// grouped int8 rows dec_g (total, D), window w rows [w * cap_v, (w + 1) *
+// cap_v), their column scales (D,) f32; q, ldq and alpha F's quantized
+// queries; flat, dup, vlen (U,) int32; pen (total,) f32 or null. One m64
+// tile a consumer warpgroup; at Q <= 64 both take it, alternate tiles.
+extern "C" int rii_tc_i8_window_top2(const void* q, int ldq, const void* alpha, const void* dec_g,
+                                     const void* scales, const void* flat, const void* dup,
+                                     const void* vlen, const void* pen, void* vmin, void* amin,
+                                     int Q, int D, int U, int cap_v, void* stream) {
+  const long long slots = static_cast<long long>(U) * cap_v;
+  const long long cap = (slots + kTile - 1) / kTile * kTile;  // the union's tiles
+  if (U <= 0 || cap_v <= 0 || cap_v % 8 != 0 || bad_shape<int8_t>(q, ldq, nullptr, Q, D, cap)) {
+    return kInvalid;
+  }
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));  // the rows are loaded by the producer: no map
+  CodeSrc cs{};
+  cs.flat = static_cast<const int*>(flat);
+  cs.dup = static_cast<const int*>(dup);
+  cs.vlen = static_cast<const int*>(vlen);
+  cs.pen = static_cast<const float*>(pen);
+  cs.cap_v = cap_v;
+  cs.U = U;
+  cs.ncol = static_cast<long long>(U) * 2 * (cap_v / 8);
+  cs.scales = static_cast<const float*>(scales);
+  const Args a{q, ldq, static_cast<const float*>(alpha), dec_g, nullptr, vmin, amin, Q, D, cap,
+               cap, static_cast<cudaStream_t>(stream), cs};
+  return D > kResidentChunks * kDims<int8_t> ? launch<kI8Win, kTop2, 1, true, int8_t>(map, a)
+                                             : launch<kI8Win, kTop2, 1, false, int8_t>(map, a);
 }
 
 // Kernel H: vmin, amin (Q, cap/128) over dec (cap, D), packed or exact.

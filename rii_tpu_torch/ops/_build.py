@@ -95,6 +95,16 @@ def load_library(name, verbose=False, defines=(), csrc=None):
         return lib
 
 
+def configure(fn, argtypes):
+    """A kernel's C entry ``fn`` with its argument types, set at its first
+    call only (set again on every call they cost host time that a small
+    kernel does not hide), and an int result: the CUDA error code."""
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def check(rc, what):
     """Raise if a kernel entry returned a CUDA error code."""
     if rc != 0:

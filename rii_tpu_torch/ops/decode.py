@@ -62,7 +62,9 @@ def build_dtable(queries, codewords, dtype=torch.bfloat16, cw_norms=None):
     summed in order along Ds, as XLA reduces on the CPU, so that the two
     packages round the same float32 values to bf16. ``cw_norms``, the
     :func:`codeword_norms` of ``codewords``, saves recomputing them for
-    every batch."""
+    every batch. Kernel E builds this table itself on the card, bit for bit
+    (``csrc/ivf_pq_window.cu``; the einsum's float32 cross term there is
+    the in-order fma chain the kernel forms); its CPU twin calls this."""
     cw = codewords.to(torch.float32)  # (M, Ks, Ds)
     m, ks, ds = cw.shape
     qs = queries.to(torch.float32).reshape(-1, m, ds).transpose(0, 1)  # (M, Q, Ds)

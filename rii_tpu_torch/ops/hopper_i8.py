@@ -13,17 +13,18 @@ uint8 codes. Hand-written CUDA kernels carry it:
 - **Kernel I**, :func:`replica_i8_scan_tile_minima`, replaces
   ``_replica_i8_kernel``: per-128-slot (min, argmin) over the same rows, the
   ops-level entry :func:`replica_i8_scan_topk`.
-- **Kernel G**, :func:`ivf_i8_window_tile_minima`
-  (``csrc/ivf_i8_window.cu``), replaces ``_ivf_i8_window_multi_kernel`` and
-  ``_ivf_i8_window_kernel``: per-8-slot top-2 over the probed int8 windows.
+- **Kernel G**, :func:`ivf_i8_window_tile_minima`, replaces
+  ``_ivf_i8_window_multi_kernel`` and ``_ivf_i8_window_kernel``: per-8-slot
+  top-2 over the probed int8 windows.
 
-F and I are the tensor-core kernel of kernels A and H
-(``csrc/replica_tc.cu``) on int8 operands (``wgmma`` s8, int32 sums). Both
-read the row-major (cap, D) int8 replica, K-major as ``wgmma`` takes 8-bit
-operands (the JAX package's F reads it transposed, which suits the TPU's
-matrix unit); the windows are (n, D) int8 rows too. Queries reach F and I
-as int8 rows of a multiple of 16 bytes, zero past D, and G as int8 words
-(Q, ceil(D/4)), each with a float32 dequantization factor per query.
+F, I and G are the tensor-core kernel of kernels A and H
+(``csrc/replica_tc.cu``) on int8 operands (``wgmma`` s8, int32 sums). F and
+I read the row-major (cap, D) int8 replica, K-major as ``wgmma`` takes
+8-bit operands (the JAX package's F reads it transposed, which suits the
+TPU's matrix unit); G reads the (n, D) int8 rows of the union's windows,
+as kernel D walks its code windows. Queries reach all three as int8 rows
+of a multiple of 16 bytes, zero past D, with a float32 dequantization
+factor per query, quantized on the card in one launch.
 
 The int32 cross term is exact, and so is its float32 value (|cross| <=
 127^2 * D < 2^24 for D <= 1040). The twins form it as a float32 product
@@ -84,18 +85,6 @@ def quantize_rows_i8(rows, col_scales):
     return q.clamp(-127, 127).to(torch.int8)
 
 
-def pack_words(q_i8):
-    """(n, D) int8 -> (n, ceil(D/4)) int32 words, dims 4j..4j+3 in word j
-    (lowest byte first), zero past D: kernel G's queries."""
-    n, d = q_i8.shape
-    dp = -(-d // 4) * 4
-    if dp != d or not q_i8.is_contiguous():
-        padded = q_i8.new_zeros((n, dp))
-        padded[:, :d] = q_i8
-        q_i8 = padded
-    return q_i8.view(torch.int32)
-
-
 def quantize_replica_i8(codes, codewords, block=_QUANT_BLOCK):
     """Quantize the bf16 decode of (n, M) codes per column, as the JAX
     package's ``quantize_replica_i8(build_decoded_cache(codes))``, bit for
@@ -141,7 +130,7 @@ def _aligned(t):
 
 
 def _tc_queries_i8(lib, queries, col_scales):
-    """Queries as kernels F and I read them, quantized on the card in one
+    """Queries as kernels F, I and G read them, quantized on the card in one
     launch, bit for bit as :func:`quantize_queries_i8`: int8 rows of a
     multiple of 16 bytes (zero past D) from a 16-byte aligned base, which
     TMA can copy. Returns (q_i8 (Q, ldq), ldq, alpha (Q,) f32)."""
@@ -152,8 +141,7 @@ def _tc_queries_i8(lib, queries, col_scales):
     out = torch.empty((qn, ldq), dtype=torch.int8, device=q.device)
     alpha = torch.empty(qn, dtype=torch.float32, device=q.device)
     fn = lib.rii_tc_quantize_queries
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    _build.configure(fn, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     _build.check(fn(_ptr(q), _ptr(scales), _ptr(out), _ptr(alpha), qn, d, ldq,
                     _stream(q.device)), "quantize_queries_i8")
     return out, ldq, alpha
@@ -223,10 +211,9 @@ def replica_i8_tile_keys(queries, decoded_i8, col_scales, norms, n_valid=None):
     keys = torch.empty((qn, cap // _TILE), dtype=torch.float32,
                        device=decoded_i8.device)
     fn = lib.rii_tc_i8_tile_keys
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    _build.configure(fn, [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                         + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2
+                         + [ctypes.c_void_p])
     nv = cap if n_valid is None else max(0, min(int(n_valid), cap))
     norms = _aligned(norms)
     _build.check(fn(_ptr(q_i8), ldq, _ptr(alpha), _ptr(decoded_i8), _ptr(norms),
@@ -301,9 +288,8 @@ def replica_i8_scan_tile_minima(queries, decoded_i8, col_scales, norms_col,
     qn = q_i8.shape[0]
     vmin, amin = _tile_outputs(qn, cap, decoded_i8.device)
     fn = lib.rii_tc_i8_tile_minima
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    _build.configure(fn, [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+                         + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_void_p])
     norms_col = _aligned(norms_col)
     _build.check(fn(_ptr(q_i8), ldq, _ptr(alpha), _ptr(decoded_i8),
                     _ptr(norms_col), _ptr(vmin), _ptr(amin), qn, d, cap,
@@ -335,7 +321,8 @@ def replica_i8_scan_topk(queries, decoded_i8, col_scales, norms_col, codes,
 
 def ivf_i8_window_tile_minima_plain(queries, decoded_g_i8, col_scales, flat,
                                     dup, vlen, cap_v, pen=None):
-    """Plain twin of kernel G (see csrc/ivf_i8_window.cu for the contract)."""
+    """Plain twin of kernel G (see csrc/replica_tc.cu and
+    csrc/ivf_pq_window.cu for the contract)."""
     q_i8, alpha = quantize_queries_i8(queries, col_scales)
     qf = q_i8.float()
     qn, d = qf.shape
@@ -364,16 +351,18 @@ def ivf_i8_window_tile_minima(queries, decoded_g_i8, col_scales, flat, dup,
     member count); pen optional (total,) f32 (0 keep, +inf excluded) in
     grouped-slot order. Returns (vmin, amin), each (Q, U*2*cap_v/8): f32
     int8-class scores without ||q||^2 and int32 grouped slots. CPU tensors
-    take the plain twin; CUDA tensors launch the kernel."""
+    take the plain twin; CUDA tensors make two launches: the queries'
+    quantization (as F's) and the tensor-core scan of
+    ``csrc/replica_tc.cu`` over the union's windows."""
     total, d = decoded_g_i8.shape
     _require(queries.dim() == 2 and queries.shape[1] == d,
-             f"queries must be (Q, {d}), got {tuple(queries.shape)}")
-    _require(col_scales.shape == (d,), f"col_scales must be ({d},)")
+             lambda: f"queries must be (Q, {d}), got {tuple(queries.shape)}")
+    _require(col_scales.shape == (d,), lambda: f"col_scales must be ({d},)")
     _require(cap_v % 8 == 0 and total % cap_v == 0,
-             f"cap_v={cap_v} must divide total={total} and be a multiple of 8")
+             lambda: f"cap_v={cap_v} must divide total={total} and be a multiple of 8")
     _require(flat.dim() == 1 and flat.shape == dup.shape == vlen.shape,
              "flat/dup/vlen must be (U,)")
-    _require(pen is None or pen.shape == (total,), f"pen must be ({total},)")
+    _require(pen is None or pen.shape == (total,), lambda: f"pen must be ({total},)")
     extra = () if pen is None else (pen,)
     if _on_cpu(queries, decoded_g_i8, col_scales, flat, dup, vlen, *extra):
         return ivf_i8_window_tile_minima_plain(queries, decoded_g_i8,
@@ -381,28 +370,27 @@ def ivf_i8_window_tile_minima(queries, decoded_g_i8, col_scales, flat, dup,
                                                cap_v, pen)
     _require(decoded_g_i8.dtype == torch.int8 and decoded_g_i8.is_contiguous(),
              "decoded_g_i8 must be contiguous int8")
-    _require(cap_v <= 1024, "cap_v must be <= 1024 (one thread per row)")
     _require(flat.dtype == dup.dtype == vlen.dtype == torch.int32,
              "flat/dup/vlen must be int32")
     _require(pen is None or (pen.dtype == torch.float32 and pen.is_contiguous()),
              "pen must be contiguous float32")
-    q_i8, alpha = quantize_queries_i8(queries, col_scales)
-    q_w = pack_words(q_i8).contiguous()
+    _require(flat.shape[0] * cap_v < 1 << 31, "U * cap_v must be below 2^31")
+    lib = _build.load_library("replica_tc")
+    q_i8, ldq, alpha = _tc_queries_i8(lib, queries, col_scales)
     scales = col_scales.to(torch.float32).contiguous()
     flat, dup, vlen = flat.contiguous(), dup.contiguous(), vlen.contiguous()
-    qn, u = q_w.shape[0], flat.shape[0]
+    qn, u = q_i8.shape[0], flat.shape[0]
     ncol = u * 2 * (cap_v // 8)
     vmin = torch.empty((qn, ncol), dtype=torch.float32,
                        device=decoded_g_i8.device)
     amin = torch.empty((qn, ncol), dtype=torch.int32, device=decoded_g_i8.device)
-    lib = _build.load_library("ivf_i8_window")
-    fn = lib.rii_ivf_i8_window_top2
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = lib.rii_tc_i8_window_top2
+    _build.configure(fn, [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 9
+                         + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     pen_p = ctypes.c_void_p(None) if pen is None else _ptr(pen)
-    _build.check(fn(_ptr(q_w), _ptr(alpha), _ptr(decoded_g_i8), _ptr(scales),
-                    _ptr(flat), _ptr(dup), _ptr(vlen), pen_p, _ptr(vmin),
-                    _ptr(amin), qn, d, u, cap_v,
+    _build.check(fn(_ptr(q_i8), ldq, _ptr(alpha), _ptr(decoded_g_i8),
+                    _ptr(scales), _ptr(flat), _ptr(dup), _ptr(vlen), pen_p,
+                    _ptr(vmin), _ptr(amin), qn, d, u, cap_v,
                     _stream(decoded_g_i8.device)), "ivf_i8_window_tile_minima")
     ivf_i8_window_tile_minima.launches += 1
     return vmin, amin

@@ -16,7 +16,9 @@ codes on the device:
 - **Kernel E**, :func:`ivf_dt_window_tile_minima`
   (``csrc/ivf_pq_window.cu``), replaces ``_ivf_dt_window_kernel``: the
   same top-2 from the bf16 ADC table of
-  :func:`rii_tpu_torch.ops.decode.build_dtable` (Q < D).
+  :func:`rii_tpu_torch.ops.decode.build_dtable` (Q < D), which each block
+  builds itself from the float32 queries and codewords, so a call is one
+  launch.
 - **Kernel J**, :func:`pq_scan_tile_minima` (``csrc/replica_tc.cu``, over
   row-major (cap, M) codes), replaces ``_scan_kernel``: per-128-slot (min,
   argmin), the ops-level entry :func:`pq_scan_topk` with its host packing
@@ -58,13 +60,6 @@ from rii_tpu_torch.ops.hopper_scan import (
 )
 
 _DT_CHUNK = 8  # queries per table chunk of kernel E
-
-
-def _dt_entries_per_block(u, nqc):
-    """Union entries each block of kernel E takes in turn, over U entries
-    and nqc query chunks: enough blocks to fill the card, few stagings of
-    the table (PERF.md holds the readings of other values)."""
-    return max(1, min(16, u * nqc // 1024))
 
 
 def _bf16_codebook(codewords):
@@ -157,10 +152,9 @@ def pq_tile_keys(queries, codes_t, norms, codewords, n_valid=None):
     keys = torch.empty((qn, cap // _TILE), dtype=torch.float32,
                        device=codes_t.device)
     fn = _build.load_library("replica_tc").rii_tc_pq_tile_keys
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    _build.configure(fn, [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                         + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
+                         + [ctypes.c_void_p])
     nv = cap if n_valid is None else max(0, min(int(n_valid), cap))
     _build.check(fn(_ptr(q16), ldq, _ptr(codes_t), _ptr(norms), _ptr(cw16),
                     _ptr(keys), qn, m, ks, ds, cap, nv,
@@ -292,10 +286,9 @@ def pq_scan_tile_minima(queries, codes, norms_col, cw_padded, blk=1024,
     qn = q16.shape[0]
     vmin, amin = _tile_outputs(qn, cap, codes.device)
     fn = _build.load_library("replica_tc").rii_tc_pq_rows_tile_minima
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    _build.configure(fn, [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+                         + [ctypes.c_int] * 4
+                         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     _build.check(fn(_ptr(q16), ldq, _ptr(codes), _ptr(norms_col), _ptr(cw16),
                     _ptr(vmin), _ptr(amin), qn, m, ks, ds, cap,
                     int(bool(packed)), _stream(codes.device)),
@@ -343,10 +336,10 @@ def _mask_rows(scores, vlen_c, pen_w, fl, cap_v):
 def _check_windows(codes_g, flat, dup, vlen, cap_v, pen):
     total = codes_g.shape[0]
     _require(cap_v % 8 == 0 and total % cap_v == 0,
-             f"cap_v={cap_v} must divide total={total} and be a multiple of 8")
+             lambda: f"cap_v={cap_v} must divide total={total} and be a multiple of 8")
     _require(flat.dim() == 1 and flat.shape == dup.shape == vlen.shape,
              "flat/dup/vlen must be (U,)")
-    _require(pen is None or pen.shape == (total,), f"pen must be ({total},)")
+    _require(pen is None or pen.shape == (total,), lambda: f"pen must be ({total},)")
 
 
 def _check_window_kernel_args(codes_g, flat, dup, vlen, cap_v, pen):
@@ -412,9 +405,8 @@ def ivf_pq_window_tile_minima(queries, codes_g, codewords, flat, dup, vlen,
     vmin = torch.empty((qn, ncol), dtype=torch.float32, device=codes_g.device)
     amin = torch.empty((qn, ncol), dtype=torch.int32, device=codes_g.device)
     fn = _build.load_library("replica_tc").rii_tc_pq_window_top2
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    _build.configure(fn, [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8
+                         + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     pen_p = ctypes.c_void_p(None) if pen is None else _ptr(pen)
     _build.check(fn(_ptr(q16), ldq, _ptr(codes_g), _ptr(cw16), _ptr(flat),
                     _ptr(dup), _ptr(vlen), pen_p, _ptr(vmin), _ptr(amin), qn,
@@ -449,22 +441,72 @@ def ivf_dt_window_tile_minima_plain(queries, codes_g, codewords, flat, dup,
     return torch.cat(vals, 1), torch.cat(args, 1)
 
 
+def _f32(t):
+    """``t`` as contiguous float32: itself (no launch) when it already is."""
+    return t.to(torch.float32).contiguous()
+
+
+def _check_dt_kernel_args(queries, codewords, cw_norms):
+    m, ks, _ = codewords.shape
+    _require(ks <= 256, lambda: f"Ks={ks}: codes are uint8, Ks must be <= 256")
+    _require(cw_norms is None or cw_norms.shape == (m, ks),
+             lambda: f"cw_norms must be ({m}, {ks})")
+    # one chunk of 8 queries a block (scan_smem in csrc/ivf_pq_window.cu):
+    # its table, the staged keys and group slots of a 512-slot tile, and the
+    # transposed queries with their sub-vector norms
+    smem = m * ks * 16 + 8 * 2 * 64 * 4 + 64 * 4 + (m * codewords.shape[2] + m) * 8 * 4
+    _require(smem <= 227 * 1024,
+             lambda: f"M={m}, Ks={ks}: a table chunk must fit in shared memory")
+    _require(queries.device == codewords.device
+             and (cw_norms is None or cw_norms.device == queries.device),
+             "queries, codewords and cw_norms must lie on one device")
+
+
+def dt_table(queries, codewords, cw_norms=None):
+    """Kernel E's ADC table alone (``rii_ivf_dt_table``, one launch): the
+    (ceil(Q/8), M, Ks, 8) bf16 chunks of :func:`build_dtable`'s (M, Ks, Q)
+    table, bit for bit (query chunk, codeword, query in the chunk; queries
+    past Q are zero rows). CUDA tensors only: the table-only entry exists
+    to hold the kernel's table against ``build_dtable``."""
+    m, ks, ds = codewords.shape
+    _require(queries.dim() == 2 and queries.shape[1] == m * ds,
+             f"queries must be (Q, {m * ds}), got {tuple(queries.shape)}")
+    _require(queries.is_cuda, "dt_table launches a CUDA kernel: CUDA tensors only")
+    _check_dt_kernel_args(queries, codewords, cw_norms)
+    q, cw = _f32(queries), _f32(codewords)
+    cwn = None if cw_norms is None else _f32(cw_norms)
+    qn = q.shape[0]
+    dt = torch.empty((-(-qn // _DT_CHUNK), m, ks, _DT_CHUNK),
+                     dtype=torch.bfloat16, device=q.device)
+    fn = _build.load_library("ivf_pq_window").rii_ivf_dt_table
+    _build.configure(fn, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    _build.check(fn(_ptr(q), _ptr(cw), _opt_ptr(cwn), _ptr(dt), qn, m, ks, ds,
+                    _stream(q.device)), "dt_table")
+    return dt
+
+
+def _opt_ptr(t):
+    return ctypes.c_void_p(None) if t is None else _ptr(t)
+
+
 def ivf_dt_window_tile_minima(queries, codes_g, codewords, flat, dup, vlen,
                               cap_v, pen=None, cw_norms=None):
     """Kernel E: per-8-slot top-2 over the probed code windows from the bf16
-    ADC table (built here, as in the JAX package).
+    ADC table of :func:`~rii_tpu_torch.ops.decode.build_dtable`.
 
     Arguments as :func:`ivf_pq_window_tile_minima`, except that codewords
     are the float32 (M, Ks, Ds) ones the table is built from, and
     ``cw_norms`` optionally their precomputed
     :func:`~rii_tpu_torch.ops.decode.codeword_norms`; vmin INCLUDES
-    ||q||^2. CPU tensors take the plain twin; CUDA tensors launch the
-    kernel."""
+    ||q||^2. CPU tensors take the plain twin. CUDA tensors launch the
+    kernel once: each block builds its queries' table in shared memory
+    (``csrc/ivf_pq_window.cu``), and no other op runs on the card (the
+    inputs are used as they are when float32, int32 and contiguous)."""
     m, ks, ds = codewords.shape
     _require(codes_g.dim() == 2 and codes_g.shape[1] == m,
-             f"codes_g must be (total, {m})")
+             lambda: f"codes_g must be (total, {m})")
     _require(queries.dim() == 2 and queries.shape[1] == m * ds,
-             f"queries must be (Q, {m * ds}), got {tuple(queries.shape)}")
+             lambda: f"queries must be (Q, {m * ds}), got {tuple(queries.shape)}")
     _check_windows(codes_g, flat, dup, vlen, cap_v, pen)
     extra = () if pen is None else (pen,)
     if _on_cpu(queries, codes_g, codewords, flat, dup, vlen, *extra):
@@ -472,29 +514,21 @@ def ivf_dt_window_tile_minima(queries, codes_g, codewords, flat, dup, vlen,
                                                flat, dup, vlen, cap_v, pen,
                                                cw_norms)
     _check_window_kernel_args(codes_g, flat, dup, vlen, cap_v, pen)
-    _require(cap_v <= 1024, "cap_v must be <= 1024 (one thread per row)")
-    _require(ks <= 256 and m * ks * 16 <= 200 * 1024,
-             f"M={m}, Ks={ks}: a table chunk must fit in 200 KiB of shared memory")
-    qn = queries.shape[0]
-    nqc = -(-qn // _DT_CHUNK)
-    dt = build_dtable(queries, codewords, cw_norms=cw_norms)  # (M, Ks, Q) bf16
-    if nqc * _DT_CHUNK != qn:
-        dt = torch.nn.functional.pad(dt, (0, nqc * _DT_CHUNK - qn))
-    dt = dt.view(m, ks, nqc, _DT_CHUNK).permute(2, 0, 1, 3).contiguous()
+    _check_dt_kernel_args(queries, codewords, cw_norms)
+    q, cw = _f32(queries), _f32(codewords)
+    cwn = None if cw_norms is None else _f32(cw_norms)
     flat, dup, vlen = flat.contiguous(), dup.contiguous(), vlen.contiguous()
-    u = flat.shape[0]
+    qn, u = q.shape[0], flat.shape[0]
     ncol = u * 2 * (cap_v // 8)
     vmin = torch.empty((qn, ncol), dtype=torch.float32, device=codes_g.device)
     amin = torch.empty((qn, ncol), dtype=torch.int32, device=codes_g.device)
-    g = _dt_entries_per_block(u, nqc)
-    lib = _build.load_library("ivf_pq_window")
-    fn = lib.rii_ivf_dt_window_top2
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    pen_p = ctypes.c_void_p(None) if pen is None else _ptr(pen)
-    _build.check(fn(_ptr(dt), _ptr(codes_g), _ptr(flat), _ptr(dup), _ptr(vlen),
-                    pen_p, _ptr(vmin), _ptr(amin), qn, m, ks, u, cap_v, g,
-                    _stream(codes_g.device)), "ivf_dt_window_tile_minima")
+    fn = _build.load_library("ivf_pq_window").rii_ivf_dt_window_top2
+    _build.configure(fn, [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    _build.check(fn(_ptr(q), _ptr(cw), _opt_ptr(cwn), _ptr(codes_g),
+                    _ptr(flat), _ptr(dup), _ptr(vlen), _opt_ptr(pen),
+                    _ptr(vmin), _ptr(amin), qn, m, ks, ds, u, cap_v,
+                    _stream(codes_g.device)),
+                 "ivf_dt_window_tile_minima")
     ivf_dt_window_tile_minima.launches += 1
     return vmin, amin
 

@@ -75,8 +75,10 @@ def _stream(device):
 
 
 def _require(cond, msg):
+    """Raise ValueError(msg) unless cond; msg may be a function that makes
+    the message, so that a hot path formats nothing when cond holds."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg() if callable(msg) else msg)
 
 
 def _on_cpu(*tensors):
@@ -159,10 +161,9 @@ def replica_tile_keys(queries, decoded_t, norms):
                        device=decoded_t.device)
     lib = _build.load_library("replica_tc")
     fn = lib.rii_tc_tile_keys
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    _build.configure(fn, [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                         + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                            ctypes.c_void_p])
     _build.check(fn(_ptr(q16), ldq, _ptr(decoded_t), _ptr(norms), _ptr(keys),
                     qn, d, cap, _stream(decoded_t.device)), "replica_tile_keys")
     replica_tile_keys.launches += 1
@@ -336,10 +337,9 @@ def replica_scan_tile_minima(queries, decoded, norms_col, blk=1024,
     vmin, amin = _tile_outputs(qn, cap, decoded.device)
     lib = _build.load_library("replica_tc")
     fn = lib.rii_tc_tile_minima
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 2
-                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    _build.configure(fn, [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                         + [ctypes.c_int] * 2
+                         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     _build.check(fn(_ptr(q16), ldq, _ptr(decoded), _ptr(norms_col), _ptr(vmin),
                     _ptr(amin), qn, d, cap, int(bool(packed)),
                     _stream(decoded.device)), "replica_scan_tile_minima")
@@ -476,8 +476,7 @@ def ivf_window_tile_minima(queries, decoded_g, flat, dup, cap_v, pen=None):
     amin = torch.empty((qn, ncol), dtype=torch.int32, device=decoded_g.device)
     lib = _build.load_library("ivf_window")
     fn = lib.rii_ivf_window_top2
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    _build.configure(fn, [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     pen_p = ctypes.c_void_p(None) if pen is None else _ptr(pen)
     _build.check(fn(_ptr(q16), _ptr(decoded_g), _ptr(flat), _ptr(dup), pen_p,
                     _ptr(vmin), _ptr(amin), qn, d, u, cap_v,

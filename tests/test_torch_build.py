@@ -60,3 +60,9 @@ def test_parse_sass_counts_the_bf16_instantiations():
     assert set(counts) == {(0, 0, 1, 0), (2, 2, 1, 1)}
     assert counts[0, 0, 1, 0] == {"LDC": 1, "BRA": 1, "FFMA": 2}
     assert counts[2, 2, 1, 1] == {"SYNCS": 1}
+
+
+def test_parse_sass_counts_the_int8_instantiations():
+    counts = tc_split.parse_sass(_SASS, operand="a")
+    assert set(counts) == {(1, 1, 2, 0)}
+    assert counts[1, 1, 2, 0] == {"I2FP": 1}

@@ -238,16 +238,26 @@ def test_pq_tile_keys_rejects_wide_codebooks(cuda):
 # streamed through the ring, codebook through L1). Cases "m<M>" set M (8
 # elsewhere): D % 8 == 4, where the last 16-byte unit's second half lies
 # past D, at Ds=4 (M=25, codebook in shared memory; M=45, through L1) and
-# Ds=12 (M=5 in shared memory; M=25 through L1).
+# Ds=12 (M=5 in shared memory; M=25 through L1). Kernel E (the scan that
+# builds its ADC table in its launch) takes the same cases but Q=512 and
+# D=640 (a table chunk of 80 sub-spaces does not fit in shared memory):
+# 1, 2 or 4 query chunks a block (Q=8, 13, 20 and up), several query
+# blocks (Q=70), cap_v with nt % 4 == 0 (16-byte stores) or not (8, 24,
+# 40), M a multiple of 4 (word code loads) or not (5, 25, 45).
+_W_SHAPES = [
+    (33, 16, 8, True, ""), (70, 16, 128, False, ""), (20, 16, 1024, True, ""),
+    (40, 4, 256, False, ""), (70, 16, 24, True, "u51"),
+    (70, 16, 256, True, "all dup"), (70, 16, 256, False, "vlen 0"),
+    (40, 48, 64, True, ""), (40, 4, 256, True, "m25"), (70, 4, 64, False, "m45"),
+    (40, 12, 64, True, "m5"), (40, 12, 64, False, "m25")]
 _W_CASES = [pytest.param(*c, "", id="-".join(map(str, c))) for c in (
     ("D", 70, 16, 256, True), ("D", 33, 3, 40, False),
     ("E", 8, 16, 256, True), ("E", 21, 3, 40, False))] + [
-    ("D", 33, 16, 8, True, ""), ("D", 70, 16, 128, False, ""), ("D", 20, 16, 1024, True, ""),
-    ("D", 512, 16, 256, True, ""), ("D", 40, 4, 256, False, ""), ("D", 70, 16, 24, True, "u51"),
-    ("D", 70, 16, 256, True, "all dup"), ("D", 70, 16, 256, False, "vlen 0"),
-    ("D", 40, 48, 64, True, ""), ("D", 40, 80, 64, True, ""),
-    ("D", 40, 4, 256, True, "m25"), ("D", 70, 4, 64, False, "m45"),
-    ("D", 40, 12, 64, True, "m5"), ("D", 40, 12, 64, False, "m25")]
+    ("D", *c) for c in _W_SHAPES[:3]] + [
+    ("D", 512, 16, 256, True, "")] + [("D", *c) for c in _W_SHAPES[3:7]] + [
+    ("D", 40, 48, 64, True, ""), ("D", 40, 80, 64, True, "")] + [
+    ("D", *c) for c in _W_SHAPES[8:]] + [("E", *c) for c in _W_SHAPES] + [
+    ("E", 13, 16, 256, False, ""), ("E", 1, 16, 256, True, ""), ("E", 127, 16, 256, True, "")]
 
 
 @pytest.mark.parametrize("kernel,qn,ds,cap_v,with_pen,case", _W_CASES)
@@ -291,6 +301,81 @@ def test_ivf_pq_windows_match_twin(cuda, kernel, qn, ds, cap_v, with_pen, case):
         assert_keys_match(*_np(v_k, a_k, v_t, a_t))
     cols = np.repeat(dup.cpu().numpy() != 0, 2 * cap_v // 8)
     assert (a_k.cpu().numpy()[:, cols] == 0).all()
+
+
+# Kernel E's table: the M / Ds shapes of the pq tier's codecs (8/16 the
+# SIFT1B shape, 32/4 the ops shape) and ragged ones (5/12, 21/3), over one,
+# one chunk of 8, a ragged and several chunks of queries.
+@pytest.mark.parametrize("qn", [1, 8, 13, 64, 127])
+@pytest.mark.parametrize("m,ds", [(8, 16), (32, 4), (16, 8), (5, 12), (21, 3)])
+def test_dt_table_is_build_dtable_bit_for_bit(cuda, m, ds, qn):
+    """Kernel E's table-only entry against build_dtable on the card (the
+    einsum's float32 cross term, the in-order norms, the bf16 rounding),
+    with and without the cached codeword norms."""
+    from rii_tpu_torch.ops.decode import build_dtable, codeword_norms
+    g = torch.Generator(device=cuda).manual_seed(m * 1000 + ds * 10 + qn)
+    ks = 256
+    cw = torch.randn((m, ks, ds), generator=g, device=cuda)
+    q = torch.randn((qn, m * ds), generator=g, device=cuda)
+    want = build_dtable(q, cw)  # (M, Ks, Q) bf16
+    nqc = -(-qn // 8)
+    want = torch.nn.functional.pad(want, (0, nqc * 8 - qn))
+    want = want.view(m, ks, nqc, 8).permute(2, 0, 1, 3)
+    for cwn in (None, codeword_norms(cw)):
+        got = HP.dt_table(q, cw, cw_norms=cwn)
+        torch.cuda.synchronize()
+        assert got.shape == (nqc, m, ks, 8)
+        real = (torch.arange(nqc * 8, device=cuda) < qn).view(nqc, 1, 1, 8)
+        diff = (got.view(torch.int16) != want.view(torch.int16)) & real
+        assert not diff.any(), f"{int(diff.sum())} table entries differ"
+
+
+def _cuda_kernels(fn, calls=5):
+    """The CUDA kernel launches a call of fn() makes, as the CUDA runtime
+    saw them in torch.profiler over ``calls`` calls (the card's own
+    records can miss one of a few very short kernels), and the names of
+    the kernels the card ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()  # built and loaded before the profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = prof.events()
+    launched = sum(ev.device_type == DeviceType.CPU and ev.name.startswith("cudaLaunchKernel")
+                   for ev in evs)
+    return launched / calls, {ev.name for ev in evs if ev.device_type == DeviceType.CUDA}
+
+
+def test_window_wrappers_kernel_counts(cuda):
+    """A call of kernel E's wrapper launches one CUDA kernel (its table built
+    in the launch) and no other op on the card; kernel G's launches two:
+    the queries' quantization and the scan."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    m, ks, ds, cap_v, nwin, u, qn = 8, 256, 16, 256, 30, 50, 40
+    d = m * ds
+    cw = torch.rand((m, ks, ds), generator=g, device=cuda) * (0.4 / ds)
+    codes_g = torch.randint(0, ks, (nwin * cap_v, m), generator=g, device=cuda,
+                            dtype=torch.uint8)
+    flat = torch.sort(torch.randint(0, nwin, (u,), generator=g, device=cuda,
+                                    dtype=torch.int32)).values
+    dup = torch.cat([torch.zeros(1, dtype=torch.int32, device=cuda),
+                     (flat[1:] == flat[:-1]).to(torch.int32)])
+    vl = torch.randint(0, cap_v + 1, (u,), generator=g, device=cuda, dtype=torch.int32)
+    pen = torch.where(torch.rand(nwin * cap_v, generator=g, device=cuda) < 0.3,
+                      float("inf"), 0.0).to(torch.float32)
+    q = torch.rand((qn, d), generator=g, device=cuda) * 0.1
+    cwn = (cw * cw).sum(-1)
+    n, names = _cuda_kernels(lambda: HP.ivf_dt_window_tile_minima(
+        q, codes_g, cw, flat, dup, vl, cap_v, pen=pen, cw_norms=cwn))
+    assert n == 1 and all("ivf_dt_window_top2" in nm for nm in names), (n, names)
+    rows, scales, _ = _i8_rows(g, nwin * cap_v, d, cuda)
+    n, names = _cuda_kernels(lambda: HI.ivf_i8_window_tile_minima(
+        q, rows, scales, flat, dup, vl, cap_v, pen=pen))
+    assert n == 2 and all("quantize_queries" in nm or "tc_scan_kernel" in nm
+                          for nm in names), (n, names)
 
 
 def _i8_rows(g, n, d, cuda):
@@ -386,6 +471,62 @@ def test_ivf_i8_windows_match_twin(cuda, qn, d, cap_v, with_pen):
     v_t, a_t = HI.ivf_i8_window_tile_minima_plain(q, rows, scales, flat, dup,
                                                   vl, cap_v, pen=pen)
     assert_keys_match(*_np(v_k, a_k, v_t, a_t))
+    cols = np.repeat(dup.cpu().numpy() != 0, 2 * cap_v // 8)
+    assert (a_k.cpu().numpy()[:, cols] == 0).all()
+
+
+# Kernel G (the s8 tensor-core kernel over the windows' int8 rows): Q
+# around the m64 query tile, where both consumer warpgroups share it (Q <=
+# 64) or each takes its own (65, 127), and past one block's 128 rows (200);
+# cap_v from 8 to 1024 (U * cap_v a multiple of 128 or not); D a whole
+# chunk (128), ragged (100: the rows' units 4-byte aligned, the last one
+# cut) and past the resident queries' 512 (960: 8 chunks); every entry a
+# duplicate, every vlen 0, ragged U (51 entries of 24 rows), rows whose
+# base is not 4-byte aligned (byte loads).
+_G_CASES = ([(qn, 128, 256, True, "") for qn in (1, 8, 33, 64, 65, 127, 200)]
+            + [(33, 100, cap_v, False, "") for cap_v in (8, 24, 128, 256, 1024)]
+            + [(qn, d, 128, True, "") for qn in (8, 65) for d in (100, 960)]
+            + [(40, 128, 64, True, "all dup"), (40, 128, 64, False, "vlen 0"),
+               (70, 100, 24, True, "u51"), (64, 128, 256, False, "unaligned"),
+               (200, 960, 1024, False, "")])
+
+
+@pytest.mark.parametrize("qn,d,cap_v,with_pen,case", _G_CASES)
+def test_ivf_i8_windows_edges(cuda, qn, d, cap_v, with_pen, case):
+    g = torch.Generator(device=cuda).manual_seed(qn * 7 + d + cap_v)
+    nwin, u = 30, 51 if case == "u51" else 50
+    rows, scales, _ = _i8_rows(g, nwin * cap_v, d, cuda)
+    if case == "unaligned":
+        buf = torch.empty(nwin * cap_v * d + 3, dtype=torch.int8, device=cuda)
+        rows = buf[3:].view(nwin * cap_v, d).copy_(rows)
+        assert rows.data_ptr() % 4 != 0
+    vlen_w = torch.randint(0, cap_v + 1, (nwin,), generator=g, device=cuda,
+                           dtype=torch.int32)
+    flat = torch.sort(torch.randint(0, nwin, (u,), generator=g, device=cuda,
+                                    dtype=torch.int32)).values
+    dup = torch.cat([torch.zeros(1, dtype=torch.int32, device=cuda),
+                     (flat[1:] == flat[:-1]).to(torch.int32)])
+    pen = None
+    if with_pen:
+        pen = torch.where(torch.rand(nwin * cap_v, generator=g, device=cuda) < 0.3,
+                          float("inf"), 0.0).to(torch.float32)
+    q = torch.rand((qn, d), generator=g, device=cuda) * (0.1 * min(1.0, (128 / d) ** 0.5))
+    vl = vlen_w[flat.long()]
+    if case == "all dup":
+        dup = torch.ones_like(dup)
+    elif case == "vlen 0":
+        vl = torch.zeros_like(vl)
+    before = HI.ivf_i8_window_tile_minima.launches
+    v_k, a_k = HI.ivf_i8_window_tile_minima(q, rows, scales, flat, dup, vl, cap_v, pen=pen)
+    torch.cuda.synchronize()
+    assert HI.ivf_i8_window_tile_minima.launches == before + 1
+    v_t, a_t = HI.ivf_i8_window_tile_minima_plain(q, rows, scales, flat, dup, vl, cap_v,
+                                                  pen=pen)
+    if case in ("all dup", "vlen 0"):  # every score +inf; the slots still agree
+        assert not torch.isfinite(v_k).any() and not torch.isfinite(v_t).any()
+        assert torch.equal(a_k, a_t)
+    else:
+        assert_keys_match(*_np(v_k, a_k, v_t, a_t))
     cols = np.repeat(dup.cpu().numpy() != 0, 2 * cap_v // 8)
     assert (a_k.cpu().numpy()[:, cols] == 0).all()
 

@@ -33,16 +33,15 @@ def _t(a):
     return torch.tensor(np.asarray(a))
 
 
-@pytest.fixture(scope="module")
-def layout():
+def _make_layout(d, m):
     """A grouped layout built by the shared virtual-layout code (so windows
     end in padding: vlen < cap_v), the int8 windows quantized by both
     packages over every slot, the virtual centers, a subset mask in grouped
     order and a sorted union with duplicates."""
     rng = np.random.RandomState(17)
     n, nlist = 3000, 12
-    cw = (rng.random((M, KS, D // M)) * 0.1).astype(np.float32)
-    codes = rng.randint(0, KS, (n, M)).astype(np.uint8)
+    cw = (rng.random((m, KS, d // m)) * 0.1).astype(np.float32)
+    codes = rng.randint(0, KS, (n, m)).astype(np.uint8)
     assign = rng.randint(0, nlist, n).astype(np.int32)
     norms = code_norms_np(cw, codes)
     ul = build_virtual_layout(codes, norms, assign, nlist, cap_v=CAP_V,
@@ -53,7 +52,7 @@ def layout():
     g_j, s_j = P.quantize_replica_i8(dec_g)
     g_t, s_t = HI.quantize_replica_i8(_t(ul["codes_grouped"]), _t(cw))
     order = ul["order"]
-    centers = cw[np.arange(M)[None, :], rng.randint(0, KS, (nlist, M))].reshape(nlist, D)
+    centers = cw[np.arange(m)[None, :], rng.randint(0, KS, (nlist, m))].reshape(nlist, d)
     vr = np.clip(ul["vreal"], 0, nlist - 1)
     mask = np.zeros(n, bool)
     mask[rng.choice(n, 1200, replace=False)] = True
@@ -61,8 +60,8 @@ def layout():
     flat = np.sort(rng.randint(0, nwin, 40)).astype(np.int32)
     dup = np.concatenate([[0], flat[1:] == flat[:-1]]).astype(np.int32)
     assert dup.sum() > 0
-    rows = cw[np.arange(M)[None, :], codes[:128].astype(np.int64)].reshape(128, D)
-    q = (rows + rng.normal(0, 0.01, (128, D))).astype(np.float32)
+    rows = cw[np.arange(m)[None, :], codes[:128].astype(np.int64)].reshape(128, d)
+    q = (rows + rng.normal(0, 0.01, (128, d))).astype(np.float32)
     return dict(
         cw=cw, codes=codes, mask=mask, q=q, flat=flat, dup=dup,
         g_j=np.asarray(g_j), s_j=np.asarray(s_j), g_t=g_t, s_t=s_t,
@@ -73,6 +72,18 @@ def layout():
         pen=np.where(mask[np.clip(order, 0, n - 1)] & (order >= 0), 0.0,
                      np.inf).astype(np.float32),
         tm=mask[np.clip(order, 0, n - 1)])
+
+
+@pytest.fixture(scope="module")
+def layout():
+    return _make_layout(D, M)
+
+
+@pytest.fixture(scope="module")
+def layout_d30():
+    """D=30 (M=10, Ds=3): not a multiple of 4, where rii_tpu runs the
+    single-window kernel K6s."""
+    return _make_layout(30, 10)
 
 
 def test_quantized_windows_equal_jax_bit_for_bit(layout):
@@ -108,6 +119,38 @@ def test_window_top2_matches_pallas(layout, qn, with_pen):
     assert ((at[fin] % CAP_V) < lo["vlen"][win]).all()
     if with_pen:
         assert (lo["pen"][at[fin]] == 0).all()
+
+
+def _window_twin_against_pallas(lo, qn, with_pen):
+    q = lo["q"][:qn]
+    pen = lo["pen"] if with_pen else None
+    vl = lo["vlen"][lo["flat"]]
+    vj, aj = _jax_windows(jnp.asarray(q), jnp.asarray(lo["g_j"]),
+                          jnp.asarray(lo["s_j"]), jnp.asarray(lo["flat"]),
+                          jnp.asarray(lo["dup"]), jnp.asarray(vl), cap_v=CAP_V,
+                          pen=None if pen is None else jnp.asarray(pen)[:, None])
+    vt, at = HI.ivf_i8_window_tile_minima(
+        torch.from_numpy(q), lo["g_t"], lo["s_t"], _t(lo["flat"]),
+        _t(lo["dup"]), _t(vl), CAP_V, pen=None if pen is None else _t(pen))
+    assert vt.shape == (qn, len(lo["flat"]) * 2 * CAP_V // 8)
+    assert_keys_match(*map(np.asarray, (vt, at, vj, aj)))
+
+
+@pytest.mark.parametrize("qn", [1, 8, 63, 64, 65, 127])
+def test_window_twin_matches_pallas_over_q(layout, qn):
+    """Kernel G's twin (what the kernel is held to on the card) from one
+    query to past the kernel's 128-row query block, with the pen stream on
+    every other Q."""
+    _window_twin_against_pallas(layout, qn, qn % 2 == 1)
+
+
+@pytest.mark.parametrize("qn", [8, 65])
+def test_window_twin_matches_pallas_ragged_d(layout_d30, qn):
+    """D=30, not a multiple of 4 (rii_tpu's K6s); the windows quantized by
+    both packages agree bit for bit there too."""
+    lo = layout_d30
+    np.testing.assert_array_equal(lo["g_t"].numpy(), lo["g_j"])
+    _window_twin_against_pallas(lo, qn, qn == 65)
 
 
 def _run_union(lo, qn, masked, w=4, topk=10):

@@ -101,6 +101,27 @@ def test_window_top2_matches_pallas(layout, kernel, with_pen):
     assert ((at[fin] % CAP_V) < lo["vlen"][win]).all()
 
 
+@pytest.mark.parametrize("qn", [1, 8, 63, 64, 65, 127])
+def test_dt_window_twin_matches_pallas_over_q(layout, qn):
+    """Kernel E's twin (what the kernel is held to on the card) against
+    the Pallas kernel from one query to past two chunks of 64, with the pen
+    stream on every other Q."""
+    lo = layout
+    q = lo["q"][:qn]
+    pen = lo["pen"] if qn % 2 else None
+    vl = lo["vlen"][lo["flat"]]
+    vj, aj = P.ivf_dt_window_tile_minima(
+        jnp.asarray(q), jnp.asarray(lo["codes_g"]), jnp.asarray(lo["cw"]),
+        jnp.asarray(lo["flat"]), jnp.asarray(lo["dup"]), jnp.asarray(vl),
+        cap_v=CAP_V, interpret=True,
+        pen=None if pen is None else jnp.asarray(pen)[:, None])
+    vt, at = HP.ivf_dt_window_tile_minima(
+        torch.from_numpy(q), _t(lo["codes_g"]), _t(lo["cw"]), _t(lo["flat"]),
+        _t(lo["dup"]), _t(vl), CAP_V, pen=None if pen is None else _t(pen))
+    assert vt.shape == (qn, len(lo["flat"]) * 2 * CAP_V // 8)
+    assert_keys_match(*map(np.asarray, (vt, at, vj, aj)))
+
+
 def test_dtable_kernel_twin_is_bit_equal(layout):
     """Kernel E's twin sums the bf16 table in the Pallas kernel's order."""
     lo = layout
@@ -183,3 +204,9 @@ def test_union_kernel_branch_ids_unique_and_padded(layout, masked):
     np.testing.assert_array_equal(it == -1, ij == -1)
     if masked:
         assert layout["mask"][it[it >= 0]].all()
+
+
+def test_dt_table_needs_the_card(layout):
+    """The table-only entry launches a CUDA kernel: CPU tensors raise."""
+    with pytest.raises(ValueError):
+        HP.dt_table(torch.from_numpy(layout["q"][:8]), _t(layout["cw"]))
