@@ -13,14 +13,15 @@ Phases, each of which must pass (no exception is caught):
    card, at the main path's shapes, with the CPU tests' tolerances, timed
    with CUDA events (median of 7), beside its bound (the larger of its
    bytes over 3.35 TB/s and its operations over the dense peak of their
-   type) and, for kernels A, F, H and I, the time of one PyTorch call that
-   computes the scores' product (not the tile reduce). Kernels A, C and H
+   type) and, for kernels A, B, F, G, H and I, the time of one PyTorch call
+   that computes the scores' product (not the tile reduce; B and G over the
+   union's rows, gathered before the timed call). Kernels A, C and H
    also report their share of the bf16 tensor-core peak at Q=1024
    (``tensor_core_share``; C at Q=128 too), and A and F their time at a
-   GIST-shaped D=960 (``*_d960``; not a gate). A, C, D, G, H, F, I and J
-   are one tensor-core kernel, on bf16 or int8 operands (C's, D's and J's
-   decoded from their codes); F and I must be bit-equal to their twins.
-   Kernel E builds its ADC table in its one launch. The records of D, E
+   GIST-shaped D=960 (``*_d960``; not a gate). A, B, C, D, G, H, F, I and
+   J are one tensor-core kernel, on bf16 or int8 operands (C's, D's and
+   J's decoded from their codes); F and I must be bit-equal to their twins.
+   Kernel E builds its ADC table in its one launch. The records of B, D, E
    and G carry the CUDA kernels one wrapper call launches
    (``kernels_a_call``, torch.profiler over 5 calls), counted once every
    phase has run, so that no profiler session slows a timed launch.
@@ -244,7 +245,7 @@ def phase_card():
 
 def phase_build():
     from rii_tpu_torch.ops import _build
-    names = ("replica_tc", "ivf_window", "ivf_pq_window")
+    names = ("replica_tc", "ivf_pq_window")
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(lambda nm: _build.load_library(nm, verbose=True), names))
@@ -255,8 +256,9 @@ def phase_build():
 def phase_kernels(dev):
     """Kernel A at Q=128 and Q=1024 over the engine's cap (2^21 slots),
     and at Q=1024 over a GIST-shaped replica (D=960, 2^20 slots, 1.9 GiB:
-    the queries stream through the ring); kernel B at U=2048 windows and
-    the engine's IVF batch (Q=32). Inputs
+    the queries stream through the ring); kernel B at U=2048 windows, at
+    the engine's IVF batches (Q * wv = 2048 entries: Q=32 at L=5000 and
+    Q=16 at L=10000, as phase 5 logs them) and at Q=128. Inputs
     are scaled so scores stay below 2 in magnitude: there one step of the
     packed keys (2^-16 relative) lies inside 1e-5 + 1e-5*|s|, and the two
     sides, which sum in different orders, may land one step apart."""
@@ -321,7 +323,7 @@ def phase_kernels(dev):
                        tensor_core_share_d960=tensor_core_share(2 * qw * capw * dw, wide["ms"]))
     del dec_t, norms, q, q16, v_k, l_k, v_t, l_t
 
-    cap_v, nwin, qn, u = 256, 10240, 32, 2048
+    cap_v, nwin, u = 256, 10240, 2048
     total = nwin * cap_v
     dec_g = (torch.rand((total, d), generator=g, device=dev) * 0.08).to(torch.bfloat16)
     pad = torch.rand((nwin, cap_v), generator=g, device=dev) < 0.15
@@ -332,28 +334,40 @@ def phase_kernels(dev):
                      (flat[1:] == flat[:-1]).to(torch.int32)])
     pen = torch.where(torch.rand(total, generator=g, device=dev) < 0.3,
                       float("inf"), 0.0).to(torch.float32)
-    q = torch.rand((qn, d), generator=g, device=dev) * 0.08
-    errs = []
-    for p, tag in ((None, "no pen"), (pen, "pen")):
-        v_k, a_k = H.ivf_window_tile_minima(q, dec_g, flat, dup, cap_v, pen=p)
-        v_t, a_t = H.ivf_window_tile_minima_plain(q, dec_g, flat, dup, cap_v, pen=p)
-        torch.cuda.synchronize()
-        errs.append(compare_keys(f"kernel B U={u} Q={qn} {tag}", v_k, a_k, v_t, a_t))
-    ms_b = cuda_ms(lambda: H.ivf_window_tile_minima(q, dec_g, flat, dup, cap_v))
-    plain_b = cuda_ms(lambda: H.ivf_window_tile_minima_plain(q, dec_g, flat, dup, cap_v))
-    log(f"  kernel B U={u} Q={qn} ({int(dup.sum())} duplicates): kernel {ms_b:.3f} ms, "
-        f"plain {plain_b:.3f} ms")
-    rows = int((dup == 0).sum()) * cap_v  # a duplicate entry reads nothing
+    keep = flat[dup == 0].long()  # a duplicate entry reads nothing
+    rows = int(keep.numel()) * cap_v
+    win_rows = dec_g.view(nwin, cap_v, d)[keep].reshape(-1, d)  # the union's rows, gathered
+    errs, times, calls = [], {}, {}
+    for qn in (32, 16, 128):
+        q = torch.rand((qn, d), generator=g, device=dev) * 0.08
+        for p, tag in ((None, "no pen"), (pen, "pen")):
+            v_k, a_k = H.ivf_window_tile_minima(q, dec_g, flat, dup, cap_v, pen=p)
+            v_t, a_t = H.ivf_window_tile_minima_plain(q, dec_g, flat, dup, cap_v, pen=p)
+            torch.cuda.synchronize()
+            errs.append(compare_keys(f"kernel B U={u} Q={qn} {tag}", v_k, a_k, v_t, a_t))
+        del v_k, a_k, v_t, a_t
+        q16 = q.to(torch.bfloat16)
+        # the call's arguments bound here: it is run again once every phase has run
+        calls[qn] = (lambda q=q, dec_g=dec_g, flat=flat, dup=dup:
+                     H.ivf_window_tile_minima(q, dec_g, flat, dup, cap_v))
+        times[qn] = {"ms": cuda_ms(calls[qn]),
+                     "plain_ms": cuda_ms(lambda: H.ivf_window_tile_minima_plain(
+                         q, dec_g, flat, dup, cap_v)),
+                     "library_ms": cuda_ms(lambda: torch.matmul(q16, win_rows.T)),
+                     **bound(rows * d * 2 + qn * d * 2 + u * 8
+                             + qn * u * 2 * (cap_v // 8) * 8, 2 * qn * rows * d, "bf16")}
+        log(f"  kernel B U={u} Q={qn} ({int(dup.sum())} duplicates): kernel "
+            f"{times[qn]['ms']:.3f} ms, plain {times[qn]['plain_ms']:.3f} ms, torch.matmul "
+            f"({qn}, {d}) x ({d}, {rows}) {times[qn]['library_ms']:.3f} ms")
     records.append({"name": "ivf_window_top2", "route": "cuda",
-                    "source": "rii_tpu_torch/csrc/ivf_window.cu",
+                    "source": "rii_tpu_torch/csrc/replica_tc.cu",
                     "replaces": "rii_tpu/ops/pallas_scan.py:1076 _ivf_window_multi_kernel, "
                                 ":1037 _ivf_window_kernel",
-                    "max_abs_err": max(errs), "ms": ms_b, "plain_ms": plain_b,
-                    "U": u, "Q": qn,
-                    **bound(rows * d * 2 + qn * d * 2 + u * 8 + qn * u * 2 * (cap_v // 8) * 8,
-                            2 * qn * rows * d, "bf16"),
-                    "library_ms": None})
-    del dec_g, pen
+                    "max_abs_err": max(errs), "U": u, "Q": 32, **times[32],
+                    **at_q(times[16], 16), **at_q(times[128], 128)})
+    count_kernels_later(records[-1], "kernels_a_call", "kernel B Q=32", calls[32])
+    count_kernels_later(records[-1], "kernels_a_call_q128", "kernel B Q=128", calls[128])
+    del dec_g, pen, win_rows
     records += phase_kernels_pq(dev, g)
     records += phase_kernels_i8(dev, g)
     records += phase_kernels_rowmajor(dev, g)
@@ -619,6 +633,17 @@ def phase_kernels_i8(dev, g):
                                                            vl, cap_v))
         t_t = cuda_ms(lambda: HI.ivf_i8_window_tile_minima_plain(q, dec_g, scales, flat,
                                                                  dup, vl, cap_v))
+        if qn == 64:
+            # the product over the union's live rows, gathered before the
+            # timed call (torch._int_mm takes a multiple of 8 of them)
+            n_live = vl[dup == 0]
+            wins = dec_g.view(nwin, cap_v, d)[flat[dup == 0].long()]
+            g_rows = wins[torch.arange(cap_v, device=dev)[None, :] < n_live[:, None]]
+            g_rows = g_rows[:g_rows.shape[0] // 8 * 8]
+            q_i8, _ = HI.quantize_queries_i8(q, scales)
+            g_lib = cuda_ms(lambda: torch._int_mm(q_i8, g_rows.T))
+            log(f"  torch._int_mm ({qn}, {d}) x ({d}, {g_rows.shape[0]}): {g_lib:.3f} ms")
+            del wins, g_rows
         calls[qn] = (lambda q=q, flat=flat, dup=dup, vl=vl:
                      HI.ivf_i8_window_tile_minima(q, dec_g, scales, flat, dup, vl, cap_v))
         times[qn] = (t_k, t_t, u, int(vl[dup == 0].sum()))
@@ -636,7 +661,7 @@ def phase_kernels_i8(dev, g):
                                 "_ivf_i8_window_multi_kernel, :1354 _ivf_i8_window_kernel",
                     "max_abs_err": max(errs), "ms": t_k, "plain_ms": t_t,
                     "U": u, "Q": 64, "ms_q8": times[8][0],
-                    "plain_ms_q8": times[8][1], **g_bound(64), "library_ms": None,
+                    "plain_ms_q8": times[8][1], **g_bound(64), "library_ms": g_lib,
                     **at_q(g_bound(8), 8)})
     count_kernels_later(records[-1], "kernels_a_call", "kernel G Q=64", calls[64])
     count_kernels_later(records[-1], "kernels_a_call_q8", "kernel G Q=8", calls[8])

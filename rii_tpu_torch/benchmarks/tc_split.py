@@ -1,8 +1,8 @@
 """Where the tensor-core scan kernel's time goes: kernels F, I, A, H, C, J,
-D and G timed in probe builds of ``csrc/replica_tc.cu`` with the product
-or the epilogue switched off (``RII_TC_PRODUCT`` / ``RII_TC_EPILOGUE``),
-and for C, J and D the decoding (``RII_TC_DECODE``; for G the loads of its
-rows), beside the full kernel; then kernel E (``csrc/ivf_pq_window.cu``):
+D, G and B timed in probe builds of ``csrc/replica_tc.cu`` with the
+product or the epilogue switched off (``RII_TC_PRODUCT`` /
+``RII_TC_EPILOGUE``), and for C, J and D the decoding (``RII_TC_DECODE``;
+for G and B the loads of their rows), beside the full kernel; then kernel E (``csrc/ivf_pq_window.cu``):
 its table build alone, its launch as the wrapper makes it, and probe
 builds that fix its query chunks a block (``RII_DT_QCHUNKS``: 1, 2, 4) or
 its 512-slot tiles a block (``RII_DT_TILES``: 1, 4, 16, 64); or, with ``--parent``,
@@ -20,14 +20,17 @@ ring; C at the SIFT1B shape (M=8, Ks=256, Ds=16 over cap 2^26 with n_valid
 over cap 2^20) exact at Q=128 and 1024, packed at 1024; D at the SIFT1B
 shape's IVF batch (Q=512, U=16384 windows of 256 rows, M=8, Ds=16); G at
 the 4M band's IVF batches (Q=8 and 64, U=64Q windows of 256 int8 rows,
-D=128); E at the SIFT1B shape's (Q=8, 64 and 127, U=32Q). Each
+D=128); B at ``chip_smoke.py``'s (Q=32 and 128, U=2048 windows of 256
+bf16 rows, D=128, 15% sentinel rows); E at the SIFT1B shape's (Q=8, 64
+and 127, U=32Q). Each
 variant is called through its C entry
 with the queries prepared once (kernel time only, no wrapper work), timed
 with CUDA events (median of ``reps`` after two warm runs) in the order
 full, no epilogue, no product, neither[, no decode], and back. A variant
 without the product or the epilogue computes nothing useful; its time
 bounds what the rest costs. "neither" leaves the decoding alone; "no
-decode" leaves C's, J's and D's stages as they are (garbage keys).
+decode" leaves C's, J's, D's, G's and B's stages as they are (garbage
+keys).
 
 Parent. ``DIR`` is a checkout of an earlier commit (``git archive <commit>
 | tar -x -C DIR``); its ``rii_tpu_torch/csrc/replica_tc.cu`` is built
@@ -35,7 +38,8 @@ beside this one's. Every kernel and shape of the split (H exact too) that
 both builds hold (a parent from before kernels C, J and D moved there has
 none of them) runs
 on the same inputs in both, in ``rounds`` rounds of parent, change,
-change, parent. First it prints, for each bf16 and int8 instantiation of
+change, parent. Kernel B runs in a parent from before it moved there too:
+through the entry of the parent's ``csrc/ivf_window.cu``. First it prints, for each bf16 and int8 instantiation of
 the kernel, its count of SASS instructions in both builds (``cuobjdump
 -sass``) and the opcodes whose counts differ.
 
@@ -62,12 +66,13 @@ from rii_tpu_torch.ops import hopper_scan as H
 VARIANTS = {"full": (), "no_epilogue": ("RII_TC_EPILOGUE=0",),
             "no_product": ("RII_TC_PRODUCT=0",),
             "neither": ("RII_TC_PRODUCT=0", "RII_TC_EPILOGUE=0"),
-            "no_decode": ("RII_TC_DECODE=0",)}  # kernels C, J and D only
-# the C entry of each kernel whose cases a parent may lack, and the kernels
-# that decode codes
-_ENTRY = {"C": "rii_tc_pq_tile_keys", "J": "rii_tc_pq_rows_tile_minima",
-          "J packed": "rii_tc_pq_rows_tile_minima", "D": "rii_tc_pq_window_top2",
-          "G": "rii_tc_i8_window_top2"}
+            "no_decode": ("RII_TC_DECODE=0",)}  # kernels C, J, D, G and B only
+# the C entries of each kernel whose cases a parent may lack (any one of
+# them serves), which are the kernels that decode codes or load window rows
+_ENTRY = {"C": ("rii_tc_pq_tile_keys",), "J": ("rii_tc_pq_rows_tile_minima",),
+          "J packed": ("rii_tc_pq_rows_tile_minima",), "D": ("rii_tc_pq_window_top2",),
+          "G": ("rii_tc_i8_window_top2",),
+          "B": ("rii_tc_bf16_window_top2", "rii_ivf_window_top2")}
 _P = ctypes.c_void_p
 
 
@@ -101,7 +106,9 @@ def _entries(lib):
             "rii_tc_pq_tile_keys": [_P, i, _P, _P, _P, _P, i, i, i, i, ll, ll, _P],
             "rii_tc_pq_rows_tile_minima": [_P, i, _P, _P, _P, _P, _P, i, i, i, i, ll, i, _P],
             "rii_tc_pq_window_top2": [_P, i] + [_P] * 8 + [i] * 6 + [_P],
-            "rii_tc_i8_window_top2": [_P, i] + [_P] * 9 + [i] * 4 + [_P]}
+            "rii_tc_i8_window_top2": [_P, i] + [_P] * 9 + [i] * 4 + [_P],
+            "rii_tc_bf16_window_top2": [_P, i] + [_P] * 6 + [i] * 4 + [_P],
+            "rii_ivf_window_top2": [_P] * 7 + [i] * 4 + [_P]}  # B before replica_tc.cu
     out = {}
     for name, argtypes in spec.items():
         if hasattr(lib, name):
@@ -168,6 +175,7 @@ def _cases(dev, g, d=128):
     yield from _rows_cases(dev, g)
     yield from _window_cases(dev, g)
     yield from _i8_window_cases(dev, g)
+    yield from _bf16_window_cases(dev, g)
 
 
 def _union(g, dev, nwin, u):
@@ -204,6 +212,36 @@ def _i8_window_cases(dev, g, d=128, cap_v=256, nwin=20_480, wv=64):
             dup=dup, vlen=vlen, v=v, a=a, qn=qn, u=u: e["rii_tc_i8_window_top2"](
                 _ptr(q8), ldq, _ptr(alpha), _ptr(rows), _ptr(scales), _ptr(flat), _ptr(dup),
                 _ptr(vlen), _P(None), _ptr(v), _ptr(a), qn, d, u, cap_v, st)
+
+
+def _bf16_window_cases(dev, g, d=128, cap_v=256, nwin=10240, u=2048):
+    """Kernel B at chip_smoke.py's shape: Q=32 and 128, a sorted union of
+    2048 of 10240 windows of 256 bf16 rows (15% of them the 1e15 sentinel)
+    with its duplicates, no pen: (kernel, Q, D, U * cap_v, call(entries)).
+    ``entries`` holds this tree's entry, or a parent's ivf_window.cu one."""
+    st = _P(torch.cuda.current_stream(dev).cuda_stream)
+    dec_g = (torch.rand((nwin * cap_v, d), generator=g, device=dev) * 0.08).to(torch.bfloat16)
+    dec_g[torch.rand(nwin * cap_v, generator=g, device=dev) < 0.15] = 1e15
+    flat = torch.sort(torch.randint(0, nwin, (u,), generator=g, device=dev,
+                                    dtype=torch.int32)).values
+    dup = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                     (flat[1:] == flat[:-1]).to(torch.int32)])
+    for qn in (32, 128):
+        q16, ldq = H._tc_queries(torch.rand((qn, d), generator=g, device=dev) * 0.08)
+        ncol = u * 2 * (cap_v // 8)
+        v = torch.empty((qn, ncol), device=dev)
+        a = torch.empty((qn, ncol), dtype=torch.int32, device=dev)
+
+        def call(e, q16=q16, ldq=ldq, v=v, a=a, qn=qn):
+            if "rii_tc_bf16_window_top2" in e:
+                return e["rii_tc_bf16_window_top2"](
+                    _ptr(q16), ldq, _ptr(dec_g), _ptr(flat), _ptr(dup), _P(None), _ptr(v),
+                    _ptr(a), qn, d, u, cap_v, st)
+            return e["rii_ivf_window_top2"](  # q16's rows are D apart at D=128
+                _ptr(q16), _ptr(dec_g), _ptr(flat), _ptr(dup), _P(None), _ptr(v), _ptr(a),
+                qn, d, u, cap_v, st)
+
+        yield "B", qn, d, u * cap_v, call
 
 
 DT_VARIANTS = {"fused": (), **{f"chunks{c}": (f"RII_DT_QCHUNKS={c}",) for c in (1, 2, 4)},
@@ -380,10 +418,14 @@ def ab(parent, reps=7, rounds=2, seed=0):
     the order parent, change, change, parent)."""
     dev = torch.device("cuda", 0)
     csrc = {"parent": Path(parent) / "rii_tpu_torch" / "csrc", "change": None}
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per build
-        libs = list(pool.map(lambda c: _build.load_library("replica_tc", csrc=c),
-                             csrc.values()))
+    builds = [("replica_tc", c) for c in csrc.values()]
+    if (csrc["parent"] / "ivf_window.cu").exists():  # B before it moved to replica_tc.cu
+        builds.append(("ivf_window", csrc["parent"]))
+    with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per build
+        libs = list(pool.map(lambda b: _build.load_library(b[0], csrc=b[1]), builds))
     entries = {k: _entries(lib) for k, lib in zip(csrc, libs)}
+    if len(libs) > 2:
+        entries["parent"].update(_entries(libs[2]))
     records = []
     text = {k: _sass_text(_build.library_path("replica_tc", csrc=c)) for k, c in csrc.items()}
     for operand, kind in (("t", "bf16"), ("a", "int8")):
@@ -405,7 +447,7 @@ def ab(parent, reps=7, rounds=2, seed=0):
                 yield from _bf16_cases(dev, g, d, cap, (("H exact", qn),))
 
     for kernel, qn, d, cap, call in cases():
-        if kernel in _ENTRY and _ENTRY[kernel] not in entries["parent"]:
+        if kernel in _ENTRY and not any(n in entries["parent"] for n in _ENTRY[kernel]):
             continue
         rec = {"kernel": kernel, "Q": qn, "cap": cap, "D": d,
                "device": torch.cuda.get_device_name(dev)}

@@ -72,6 +72,7 @@
 #include <algorithm>
 #include <atomic>
 
+#include "device_state.cuh"
 #include "packed_keys.cuh"
 
 namespace {
@@ -79,8 +80,6 @@ namespace {
 constexpr int kQC = 8;        // queries a table chunk (one 16-byte entry)
 constexpr int kSlots = 512;   // union slots a tile = threads a block
 constexpr int kTileGroups = kSlots / 8;  // 8-slot groups a tile
-constexpr size_t kMaxSmem = 227 * 1024;
-constexpr int kMaxDevices = 64;
 
 #ifndef RII_DT_QCHUNKS
 #define RII_DT_QCHUNKS 0  // query chunks a block; 0: the entry's pick
@@ -412,36 +411,6 @@ size_t scan_smem(int kC, int M, int Ks, int Ds) {
 }
 
 constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
-
-// The current device, which indexes the per-device state below.
-int current_device(int* dev) {
-  const cudaError_t e = cudaGetDevice(dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return *dev < kMaxDevices ? 0 : kInvalid;
-}
-
-// Lets `kernel` take up to kMaxSmem of dynamic shared memory on device
-// `dev`, once a device (`done` is the kernel's own flags).
-template <typename Kernel>
-int allow_max_smem(Kernel kernel, int dev, std::atomic<bool> (&done)[kMaxDevices]) {
-  if (done[dev].load(std::memory_order_acquire)) return 0;
-  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(kMaxSmem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  done[dev].store(true, std::memory_order_release);
-  return 0;
-}
-
-// The SM count of device `dev`, read at its first call.
-int sm_count(int dev, int* sms) {
-  static std::atomic<int> known[kMaxDevices];
-  *sms = known[dev].load(std::memory_order_acquire);
-  if (*sms > 0) return 0;
-  const cudaError_t e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  known[dev].store(*sms, std::memory_order_release);
-  return 0;
-}
 
 template <int kC>
 int launch_scan(int dev, const float* q, const float* cw, const float* cwn,

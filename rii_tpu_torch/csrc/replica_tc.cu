@@ -1,12 +1,16 @@
-// Kernels A, C, D, G, H, F, I and J on the tensor cores: the linear scans
-// over the bf16 and the int8 replica and over the uint8 PQ codes, and the
-// IVF scans over the pq tier's code windows and the int8 tier's windows,
-// one kernel templated on the operand type, on the replica's source and on
-// the epilogue.
+// Kernels A, B, C, D, G, H, F, I and J on the tensor cores: the linear
+// scans over the bf16 and the int8 replica and over the uint8 PQ codes, and
+// the IVF scans over the bf16 tier's windows, the pq tier's code windows and
+// the int8 tier's windows, one kernel templated on the operand type, on the
+// replica's source and on the epilogue.
 //
 // Replaces rii_tpu/ops/pallas_scan.py
 //   A  _replica_t_kernel (Q < 512) and _replica_tn_kernel (Q >= 512), entry
 //      rii_tc_tile_keys: the transposed bf16 replica dec_t (D, cap);
+//   B  _ivf_window_multi_kernel and _ivf_window_kernel, entry
+//      rii_tc_bf16_window_top2: the union's windows of the grouped bf16
+//      rows (total, D), D's top-2 with A's bf16 score, the rows' norms
+//      computed in the kernel;
 //   C  _pq_t_kernel, entry rii_tc_pq_tile_keys: the codes stored transposed,
 //      codes_t (M, cap) uint8, decoded through the bf16 codebook cw
 //      (M, Ks, Ds), D = M * Ds, Ks <= 256 - A's keys over the decoded rows;
@@ -43,6 +47,12 @@
 //     scale_d)^2 summed in float32 (each product rounded, the squares
 //     added by fma in order of d), +inf past vlen, in a duplicate entry and
 //     where pen is +inf.
+//   B: A's score over the window's rows, the norm sum_d x_d^2 summed in
+//     float32 (four fma chains a 64-dim chunk, the chunks' sums in order:
+//     bf16_chunk_norm), +inf in a duplicate entry and where pen is +inf
+//     (pen added). B has no vlen: every row of a window is scored,
+//     and padding rows hold the bf16 sentinel 1e15, whose norm (about
+//     1.3e32 at D=128) dominates every real score.
 //   C, J, D: the bf16 score over the decoded row, each value the codeword
 //     itself (what the Pallas kernel's one-hot products give, exactly); D's
 //     norm is the float32 sum of the decoded values' squares, +inf past the
@@ -55,8 +65,8 @@
 //   packed (H, I): that key unpacked into vmin (bits cleared, +inf restored
 //     at >= 2.9e38) and amin = tile * 128 + lane;
 //   exact (H, J): vmin the exact minimum, amin the lowest slot among ties.
-// Per 8-slot group and query (D, G): the best and second-best 3-bit packed
-// key, unpacked, and their grouped slots (0 in a duplicate entry).
+// Per 8-slot group and query (B, D, G): the best and second-best 3-bit
+// packed key, unpacked, and their grouped slots (0 in a duplicate entry).
 // The kernel clamps the norms to 3e38 rather than each score: the keys are
 // the same wherever the product term is below 5e30 in magnitude (half a
 // unit in the last place of 3e38), and a key costs one instruction fewer.
@@ -169,6 +179,21 @@
 //   then done once. This replaces a CUDA-core kernel (__dp4a, one block a
 //   union entry, the window staged whole before any product, 32-query
 //   passes: 4x the products at Q=8) and its scattered 4-byte stores.
+// - Bf16 windows (B). G's walk, producer and epilogue on A's bf16 product:
+//   thread r loads slot r's 128 bytes of a chunk (64 dims) the same way,
+//   stores them into row r of the stage and sums the row's norm from the
+//   same registers (four fma chains a chunk). The queries are A's
+//   (bf16, resident up to D=512, streamed past it), and at Q <= 64 the two
+//   consumer warpgroups share the one m64 query tile as G's do. Every row
+//   of a window is scored (the sentinel rows dominate by their norm), so B
+//   reads no vlen. One m64 tile a warpgroup at any Q, as D's and G's: a
+//   block's 256 rows (kMT = 2) would double the accumulators and the
+//   staged top-2 (to 35 KB a warpgroup, which leaves no ring beside the
+//   resident queries past D=192), so Q > 128 takes more query blocks, each
+//   reading the union's rows from L2 after the first. This replaces a CUDA-core kernel (one block a
+//   union entry and one thread a row, the window staged whole before any
+//   product, scalar fma over 32-query passes: four passes at Q=128) and its
+//   scattered 4-byte stores.
 // - Epilogue. A thread's accumulator holds two query rows x 32 slots of the
 //   tile (columns 8j + 2*(lane%4) + {0,1}); each row is reduced in-thread
 //   as 8 independent chains (their dependent min steps interleave), then
@@ -214,16 +239,21 @@
 // its output, 4.3 GB (1.29 ms at 3.35 TB/s). G (Q=64, U=4096, cap_v=256,
 // D=128): its bytes, the live rows read (about 0.09 GB) and its output
 // (0.13 GB), 0.067 ms; the producer's norm (about four instructions a
-// byte) comes next.
+// byte) comes next. B (U=2048, cap_v=256, D=128): its bytes, the rows of
+// the union's distinct windows (0.12 GB) and its output (Q * U * 512
+// bytes: 0.034 GB at Q=32, 0.134 GB at Q=128), 0.047 / 0.077 ms; the
+// producer's norm (two fmas a bf16 word) comes next.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <atomic>
 #include <cstring>
 #include <type_traits>
 
+#include "device_state.cuh"
 #include "packed_keys.cuh"
 
 // Probe builds (rii_tpu_torch/benchmarks/tc_split.py) switch the product,
@@ -252,7 +282,6 @@ constexpr int kMaxStages = 8;
 constexpr int kResidentChunks = 8;  // queries stay in shared memory up to 8 chunks
 constexpr int kOutTiles = 8;  // tiles of results a warpgroup stages before writing them
 constexpr int kChains = 8;    // independent min chains a row in the epilogue
-constexpr size_t kMaxSmem = 227 * 1024;
 constexpr int kGroups = kTile / 8;  // D: 8-slot groups a tile
 constexpr int kTop2Tiles = 2;  // D: tiles of results a warpgroup stages before writing them
 // D: words a staged row (best and second keys of each staged group),
@@ -271,7 +300,9 @@ using Acc = std::conditional_t<kS8<T>, int, float>;
 
 // kCodes: C's (M, cap) codes; kCodeRows: J's row-major (cap, M) codes;
 // kCodeWin: D's row-major codes gathered by window (the union's slots);
-// kI8Win: G's int8 rows gathered by window.
+// kI8Win: G's int8 rows gathered by window; kBf16Win: B's bf16 rows
+// gathered by window. The layouts are sets, not an order: the predicates
+// below name each set.
 enum Layout {
   kT = 0,
   kRowTma = 1,
@@ -279,9 +310,20 @@ enum Layout {
   kCodes = 3,
   kCodeRows = 4,
   kCodeWin = 5,
-  kI8Win = 6
+  kI8Win = 6,
+  kBf16Win = 7
 };
-// kTop2: D's and G's best and second-best of each 8-slot group.
+// C, J, D: the producer warpgroup decodes codes through the codebook.
+__host__ __device__ constexpr bool decodes_codes(int l) {
+  return l == kCodes || l == kCodeRows || l == kCodeWin;
+}
+// G, B: the producer warpgroup loads the rows of the union's windows.
+__host__ __device__ constexpr bool loads_window_rows(int l) { return l == kI8Win || l == kBf16Win; }
+// D, G, B: a tile is 128 consecutive slots of the union's windows.
+__host__ __device__ constexpr bool walks_windows(int l) {
+  return l == kCodeWin || loads_window_rows(l);
+}
+// kTop2: B's, D's and G's best and second-best of each 8-slot group.
 enum Out { kKeys = 0, kPacked = 1, kExact = 2, kTop2 = 3 };
 
 // Bytes of a warpgroup's staged results: kKeys, kPacked, kExact a value
@@ -292,10 +334,12 @@ constexpr int kStagedBytes = kOut == kTop2 ? (kMT * 64 * kTop2Row + kTop2Tiles *
                                            : kMT * 64 * 2 * kOutTiles * 4;
 
 // Bytes a ring stage holds beside its chunk: int8 (F, I), the tile's norms
-// (a bulk copy with chunk 0); D and G, the norms and grouped slots the
+// (a bulk copy with chunk 0); B, D and G, the norms and grouped slots the
 // producer computes (with the last chunk).
 template <int kLayout, typename T>
-constexpr int kSideBytes = kLayout >= kCodeWin ? 2 * kNormBytes : sizeof(T) == 1 ? kNormBytes : 0;
+constexpr int kSideBytes = walks_windows(kLayout) ? 2 * kNormBytes
+                           : sizeof(T) == 1       ? kNormBytes
+                                                  : 0;
 
 // The replica of the code layouts: codes uint8 and the bf16 codebook cw
 // (M, Ks, Ds), staged in shared memory when cb_smem. C: codes (M, cap);
@@ -303,9 +347,9 @@ constexpr int kSideBytes = kLayout >= kCodeWin ? 2 * kNormBytes : sizeof(T) == 1
 // 16-byte load). J and D: codes row-major, M bytes a slot; vec when Ds is
 // a multiple of 4 and cw 8-byte aligned, half when a unit is then two
 // 4-dim halves of 8 bytes (Ds not a multiple of 8, or cw not 16-byte
-// aligned). D and G: the union's U window ids flat, their dup and vlen, pen
-// (grouped slots, or null), cap_v rows a window, the output's ncol columns;
-// G: the int8 rows' column scales.
+// aligned). B, D and G: the union's U window ids flat, their dup and vlen
+// (not B's), pen (grouped slots, or null), cap_v rows a window, the
+// output's ncol columns; G: the int8 rows' column scales.
 struct CodeSrc {
   const uint8_t* codes;
   const uint16_t* cw;
@@ -644,13 +688,15 @@ __device__ __forceinline__ uint2 lds64(uint32_t a) {
   return v;
 }
 
-// D: union slot tile * 128 + r's window entry u: its window id w, dup
-// (1 also past the union), vlen and the slot's row in the window. The
-// loads are issued here and waited for where the fields are read.
+// B, D, G: union slot tile * 128 + r's window entry u: its window id w,
+// dup (1 also past the union), vlen (kVlen; else every row of the window,
+// B's) and the slot's row in the window. The loads are issued here and
+// waited for where the fields are read.
 struct WinSlot {
   int w, dup, vlen, row;
 };
 
+template <bool kVlen>
 __device__ __forceinline__ WinSlot win_slot(const CodeSrc& cs, int tile, int r) {
   const int sl = tile * kTile + r;  // below 2^31, as the union's slots are
   WinSlot ws{0, 1, 0, 0};
@@ -659,7 +705,7 @@ __device__ __forceinline__ WinSlot win_slot(const CodeSrc& cs, int tile, int r) 
     ws.row = sl - u * cs.cap_v;
     ws.w = __ldg(cs.flat + u);
     ws.dup = __ldg(cs.dup + u);
-    ws.vlen = __ldg(cs.vlen + u);
+    ws.vlen = kVlen ? __ldg(cs.vlen + u) : cs.cap_v;
   }
   return ws;
 }
@@ -758,22 +804,48 @@ __device__ __forceinline__ void row_chunk_elems(uint8_t* dst, const uint16_t* cb
   }
 }
 
-// ---- G: int8 rows of the union's windows -----------------------------------
+// ---- G and B: int8 and bf16 rows of the union's windows --------------------
 //
 // Producer thread r owns slot r of the tile (D's window walk). Before it
 // waits for the stage it loads the chunk's 128 bytes of its row (16-byte
 // loads where the row is so aligned, else 4-byte or single ones, none past
 // D; zeros where the slot scores +inf), prefetches the next tile's row into
-// L1 while they are in flight, and adds their part of the row's
-// dequantized squared norm, sum_d (float(x_d) * scale_d)^2: each product
-// rounded, the squares added by fma in order of d (the scales read from
-// shared memory at sc_s, zero past D).
-__device__ __forceinline__ void i8_chunk_units(const int8_t* row, int c, int D, uint4 (&un)[8]) {
+// L1 while they are in flight, and adds their part of the row's squared
+// norm. G: the dequantized norm, sum_d (float(x_d) * scale_d)^2, each
+// product rounded, the squares added by fma in order of d (the scales read
+// from shared memory at sc_s, zero past D). B: sum_d x_d^2 as four fma
+// chains a chunk (the even and odd dims of its even and odd units, 16
+// squares each, in order of d), the chain sums added, then the chunks'
+// sums added in order (zeros past D add nothing). The 1e15 sentinel's
+// square has a 16-bit mantissa: chains of 16 squares and the chunks' sums
+// (multiples of 64 squares) stay exact, so its norm rounds once at most,
+// at a ragged last chunk, where one chain over D=960 rounds at most steps
+// past its 256th square. Four chains also hide the fma latency.
+template <typename T>
+__device__ __forceinline__ void win_chunk_units(const T* row, int c, int D, uint4 (&un)[8]) {
 #pragma unroll
   for (int k8 = 0; k8 < 8; ++k8) {
-    un[k8] = row != nullptr ? load_unit(row, c * kRowBytes + k8 * 16, D)
+    un[k8] = row != nullptr ? load_unit(row, c * kDims<T> + k8 * (kDims<T> / 8), D)
                             : make_uint4(0u, 0u, 0u, 0u);
   }
+}
+
+__device__ __forceinline__ void bf16_chunk_norm(const uint4 (&un)[8], float& nrm) {
+  float ch[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int k8 = 0; k8 < 8; ++k8) {
+    const uint32_t w[4] = {un[k8].x, un[k8].y, un[k8].z, un[k8].w};
+    float& ev = ch[2 * (k8 & 1)];
+    float& od = ch[2 * (k8 & 1) + 1];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // dims 2i (low half) and 2i + 1 of the unit
+      const float lo = __uint_as_float(w[i] << 16);
+      const float hi = __uint_as_float(w[i] & 0xFFFF0000u);
+      ev = fmaf(lo, lo, ev);
+      od = fmaf(hi, hi, od);
+    }
+  }
+  nrm += (ch[0] + ch[1]) + (ch[2] + ch[3]);
 }
 
 __device__ __forceinline__ void i8_chunk_norm(const uint4 (&un)[8], int c, uint32_t sc_s,
@@ -1014,18 +1086,20 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
   constexpr int kStage = kChunkBytes + kQBytes;  // replica chunk [, queries' chunk]
   constexpr bool kParts = kQS && !kS8<T>;  // bf16 past 8 chunks: float32 sums of parts
   constexpr bool kG = kLayout == kI8Win;    // G: int8 rows of the union's windows
-  constexpr bool kNormCopy = kS8<T> && !kG;  // F, I: the norms come through the ring
-  constexpr int kSide = kSideBytes<kLayout, T>;  // a stage's side bytes (int8, D's and G's norms)
-  constexpr bool kFill = kLayout >= kCodes;  // C, J, D, G: all the producer warpgroup fills stages
-  constexpr bool kDecode = kFill && !kG;     // C, J, D: the producer warpgroup decodes codes
-  constexpr bool kRowDec = kDecode && kLayout >= kCodeRows;  // J, D: a slot's codes are one row
+  constexpr bool kRowWin = loads_window_rows(kLayout);  // G, B: the windows' rows
+  constexpr bool kNormCopy = kS8<T> && !kRowWin;  // F, I: the norms come through the ring
+  constexpr int kSide = kSideBytes<kLayout, T>;  // a stage's side bytes (int8; B's, D's, G's norms)
+  constexpr bool kDecode = decodes_codes(kLayout);  // C, J, D: the producer decodes codes
+  constexpr bool kFill = kDecode || kRowWin;  // C, J, D, G, B: the whole producer fills stages
+  constexpr bool kRowDec = kLayout == kCodeRows || kLayout == kCodeWin;  // J, D: a code row a slot
   constexpr bool kWin = kLayout == kCodeWin;      // D
-  constexpr bool kWalk = kLayout >= kCodeWin;     // D, G: the union's windows
-  // J and D with one m64 tile a warpgroup and resident queries, and G: the
-  // consumers need fewer registers, and the producer gets more (88 instead
-  // of 40: D at Q=512 7% and J at Q=128 14% faster in tc_split.py, and J's
-  // 48-byte spill gone; G's producer holds a chunk's row in registers)
-  constexpr bool kLeanConsumers = (kRowDec && kMT == 1 && !kQS) || (kG && kMT == 1);
+  constexpr bool kWalk = walks_windows(kLayout);  // D, G, B: the union's windows
+  // J and D with one m64 tile a warpgroup and resident queries, and G and
+  // B: the consumers need fewer registers, and the producer gets more (88
+  // instead of 40: D at Q=512 7% and J at Q=128 14% faster in tc_split.py,
+  // and J's 48-byte spill gone; G's and B's producer holds a chunk's row in
+  // registers)
+  constexpr bool kLeanConsumers = (kRowDec && kMT == 1 && !kQS) || (kRowWin && kMT == 1);
   extern __shared__ uint8_t smem_raw[];
   // swizzled tiles need 1024-byte alignment
   uint8_t* smem = smem_raw + (((smem_u32(smem_raw) + 1023) & ~1023u) - smem_u32(smem_raw));
@@ -1054,13 +1128,13 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
   const int tile0 = static_cast<int>(static_cast<long long>(nt_live) * sg / nsg);
   const int tile1 = static_cast<int>(static_cast<long long>(nt_live) * (sg + 1) / nsg);
   const int q0 = qb * kBM;
-  // G at Q <= 64: the block's second m64 query tile would hold padding
-  // only, so both consumer warpgroups take the first and alternate slot
-  // tiles. A warpgroup steps over the other's stages without waiting on
+  // G and B at Q <= 64: the block's second m64 query tile would hold
+  // padding only, so both consumer warpgroups take the first and alternate
+  // slot tiles. A warpgroup steps over the other's stages without waiting on
   // them, which a stage's parity tells apart only if each stage's previous
   // use lies in the warpgroup's own previous tile or before it: two tiles
   // of stages at least.
-  const bool alt = kG && Q <= 64 && stages >= 2 * kc;
+  const bool alt = kRowWin && Q <= 64 && stages >= 2 * kc;
 
   if (t == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -1140,10 +1214,11 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
       const uint16_t* cb = cs.cb_smem ? cbs : cs.cw;  // C's codebook
       int s = 0;
       uint32_t ph = 0;
-      // D: the next tile's window entry at this thread's slot (its window
-      // id, dup, vlen and row), loaded a tile ahead
+      // B, D, G: the next tile's window entry at this thread's slot (its
+      // window id, dup, vlen and row), loaded a tile ahead
+      constexpr bool kVlen = kLayout != kBf16Win;
       WinSlot nxt;
-      if constexpr (kWalk) nxt = win_slot(cs, tile0, pt);
+      if constexpr (kWalk) nxt = win_slot<kVlen>(cs, tile0, pt);
       for (int tile = tile0; tile < tile1; ++tile) {
         // C: the walk over this slot's dims (chunk_codes)
         const uint8_t* cp = cs.codes + static_cast<long long>(tile) * kTile + pt;
@@ -1159,7 +1234,7 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
         // nothing), the walk's sub-space m (and j), D's norm and penalty
         // and the grouped slot
         const uint8_t* row = nullptr;
-        const T* grow = nullptr;  // G: this slot's int8 row (null: it scores +inf)
+        const T* grow = nullptr;  // G, B: this slot's row (null: it scores +inf)
         int m = 0;
         float nrm = 0.0f;
         float pn = 0.0f;
@@ -1171,13 +1246,13 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
           for (int l = pt; l < cs.M && tile + 1 < tile1; l += 128) prefetch_l1(next + l * 128);
         } else if constexpr (kWalk) {
           const WinSlot cur = nxt;
-          if (tile + 1 < tile1) nxt = win_slot(cs, tile + 1, pt);
+          if (tile + 1 < tile1) nxt = win_slot<kVlen>(cs, tile + 1, pt);
           if (cur.dup == 0) {
             const long long gl = static_cast<long long>(cur.w) * cs.cap_v + cur.row;
             gsl = static_cast<int>(gl);
             pn = cs.pen != nullptr ? __ldg(cs.pen + gl) : 0.0f;  // used with the last chunk
             if (cur.row < cur.vlen) {
-              if constexpr (kG) {
+              if constexpr (kRowWin) {
                 grow = rep + gl * D;
               } else {
                 row = cs.codes + gl * cs.M;
@@ -1195,15 +1270,21 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
           } else if constexpr (kRowDec) {
             if (cs.vec) row_chunk_codes(cs, row, c, m, mb, b0, b1);
           }
-          uint4 un[8];  // G: the chunk's units of this slot's row
-          if constexpr (kG) {
+          uint4 un[8];  // G, B: the chunk's units of this slot's row
+          if constexpr (kRowWin) {
             if (RII_TC_DECODE) {
-              i8_chunk_units(grow, c, D, un);
+              win_chunk_units(grow, c, D, un);
               if (c == 0 && tile + 1 < tile1 && nxt.dup == 0 && nxt.row < nxt.vlen) {
                 const T* next = rep + (static_cast<long long>(nxt.w) * cs.cap_v + nxt.row) * D;
-                for (int l = 0; l < kc; ++l) prefetch_l1(next + l * kRowBytes);
+                for (int l = 0; l < kc; ++l) prefetch_l1(next + l * kDim);
               }
-              if (grow != nullptr) i8_chunk_norm(un, c, smem_u32(ntab), nrm);
+              if (grow != nullptr) {
+                if constexpr (kG) {
+                  i8_chunk_norm(un, c, smem_u32(ntab), nrm);
+                } else {
+                  bf16_chunk_norm(un, nrm);
+                }
+              }
             }
           }
           if constexpr (kWin) {
@@ -1215,7 +1296,7 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
           mbar_wait(&empty[s], ph ^ 1);
           uint8_t* dst = ring + s * kStage;
           if constexpr (kLayout == kRowLoad || kFill) {
-            if constexpr (kG) {
+            if constexpr (kRowWin) {
               if (RII_TC_DECODE) {
 #pragma unroll
                 for (int k8 = 0; k8 < 8; ++k8) {
@@ -1420,7 +1501,7 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
 #pragma unroll
       for (int i = 0; i < kMT; ++i) fence_acc(acc[i]);
       if constexpr (kOut == kTop2) {
-        // D, G: the top 2 of each 8-slot group from the last chunk's side
+        // B, D, G: the top 2 of each 8-slot group from the last chunk's side
         // bytes (the stage is released after), staged for kTop2Tiles of the
         // warpgroup's tiles (alt: every other tile), then each row's groups
         // written as runs of an entry's best and second-best columns
@@ -1550,7 +1631,7 @@ struct Args {
   long long cap;
   long long n_valid;
   cudaStream_t stream;
-  CodeSrc cs;  // kernels C, J and D
+  CodeSrc cs;  // the code and window sources (C, J, D, G, B)
 };
 
 template <int kLayout, int kOut, int kMT, bool kQS, typename T>
@@ -1564,7 +1645,7 @@ int launch(const CUtensorMap& map, const Args& a) {
   // D: the codewords' norms (G: the column scales), in shared memory beside
   // a ring of two stages; then C, J, D: the codebook goes there too if the
   // ring still fits
-  constexpr bool kCodebook = kLayout >= kCodes && kLayout != kI8Win;
+  constexpr bool kCodebook = decodes_codes(kLayout);
   const size_t tab = kLayout == kCodeWin   ? (static_cast<size_t>(cs.M) * cs.Ks * 4 + 15) / 16 * 16
                      : kLayout == kI8Win ? static_cast<size_t>(kc) * kDims<T> * 4
                                          : 0;
@@ -1582,15 +1663,14 @@ int launch(const CUtensorMap& map, const Args& a) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto kernel = tc_scan_kernel<kLayout, kOut, kMT, kQS, T>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
+  // the shared-memory limit once an instantiation and device, the SM count
+  // once a device
+  static std::atomic<bool> smem_set[kMaxDevices];
   int dev = 0;
   int sms = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
-    return static_cast<int>(e);
-  }
+  if (const int e = current_device(&dev)) return e;
+  if (const int e = allow_max_smem(kernel, dev, smem_set)) return e;
+  if (const int e = sm_count(dev, &sms)) return e;
   const int nt = static_cast<int>(a.cap / kTile);
   const int nt_live = static_cast<int>((a.n_valid + kTile - 1) / kTile);
   const int bm = kConsumers * kMT * 64;
@@ -1808,6 +1888,39 @@ extern "C" int rii_tc_i8_window_top2(const void* q, int ldq, const void* alpha, 
                cap, static_cast<cudaStream_t>(stream), cs};
   return D > kResidentChunks * kDims<int8_t> ? launch<kI8Win, kTop2, 1, true, int8_t>(map, a)
                                              : launch<kI8Win, kTop2, 1, false, int8_t>(map, a);
+}
+
+// Kernel B: vmin, amin (Q, U * 2 * cap_v / 8), per 8-slot group of the
+// union's windows the best and second-best bf16 score (ivf_pq_window.cu's
+// contract; A's score, norm - 2 * (q . x), with the norm sum_d x_d^2 summed
+// by the producer) over the grouped bf16 rows dec_g (total, D), window w
+// rows [w * cap_v, (w + 1) * cap_v), every row scored (padding rows hold
+// the 1e15 sentinel); q (Q, D) bf16 with rows ldq elements apart; flat, dup
+// (U,) int32; pen (total,) f32 or null. One m64 tile a consumer warpgroup;
+// at Q <= 64 both take it, alternate tiles.
+extern "C" int rii_tc_bf16_window_top2(const void* q, int ldq, const void* dec_g,
+                                       const void* flat, const void* dup, const void* pen,
+                                       void* vmin, void* amin, int Q, int D, int U, int cap_v,
+                                       void* stream) {
+  const long long slots = static_cast<long long>(U) * cap_v;
+  const long long cap = (slots + kTile - 1) / kTile * kTile;  // the union's tiles
+  if (U <= 0 || cap_v <= 0 || cap_v % 8 != 0 || bad_shape<uint16_t>(q, ldq, nullptr, Q, D, cap)) {
+    return kInvalid;
+  }
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));  // the rows are loaded by the producer: no map
+  CodeSrc cs{};
+  cs.flat = static_cast<const int*>(flat);
+  cs.dup = static_cast<const int*>(dup);
+  cs.pen = static_cast<const float*>(pen);
+  cs.cap_v = cap_v;
+  cs.U = U;
+  cs.ncol = static_cast<long long>(U) * 2 * (cap_v / 8);
+  const Args a{q, ldq, nullptr, dec_g, nullptr, vmin, amin, Q, D, cap, cap,
+               static_cast<cudaStream_t>(stream), cs};
+  return D > kResidentChunks * kDims<uint16_t>
+             ? launch<kBf16Win, kTop2, 1, true, uint16_t>(map, a)
+             : launch<kBf16Win, kTop2, 1, false, uint16_t>(map, a);
 }
 
 // Kernel H: vmin, amin (Q, cap/128) over dec (cap, D), packed or exact.

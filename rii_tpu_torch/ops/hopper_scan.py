@@ -1,8 +1,7 @@
 """Hopper kernels of the query path and their plain PyTorch twins
 (counterpart of ``rii_tpu.ops.pallas_scan``).
 
-Three hand-written CUDA kernels (``csrc/``) scan the bf16 replica and
-windows:
+Three hand-written CUDA kernels scan the bf16 replica and windows:
 
 - **Kernel A**, :func:`replica_tile_keys`, replaces the Pallas kernels
   ``_replica_t_kernel`` and ``_replica_tn_kernel``: packed per-128-slot
@@ -16,8 +15,9 @@ windows:
   cache built in exact mode (``topk_recall=None``, which keeps the
   row-major replica) is queried after ``topk_recall`` is set again.
 
-A and H are one tensor-core kernel (``csrc/replica_tc.cu``), templated on
-the replica's layout; B is ``csrc/ivf_window.cu``.
+A, B and H are one tensor-core kernel (``csrc/replica_tc.cu``), templated
+on the replica's source: B is its bf16 window source, the union's window
+rows loaded by its producer warpgroup.
 
 Each wrapper runs its plain twin for tensors on the CPU, and launches its
 kernel for CUDA tensors (or raises); it never falls back from one to the
@@ -420,7 +420,8 @@ def _top2_plain(scores, fl, dp, cap_v):
 
 def ivf_window_tile_minima_plain(queries, decoded_g, flat, dup, cap_v,
                                  pen=None):
-    """Plain twin of kernel B (see csrc/ivf_window.cu for the contract)."""
+    """Plain twin of kernel B (see csrc/replica_tc.cu and
+    csrc/ivf_pq_window.cu for the contract)."""
     qf = queries.to(torch.bfloat16).float()
     qn, d = qf.shape
     wins_all = decoded_g.view(-1, cap_v, d)
@@ -447,7 +448,9 @@ def ivf_window_tile_minima(queries, decoded_g, flat, dup, cap_v, pen=None):
     sentinel on padding rows; flat/dup (U,) int32; pen optional (total,) f32
     (0 keep, +inf excluded) in grouped-slot order. Returns (vmin, amin), each
     (Q, U*2*cap_v/8): f32 scores without ||q||^2 and int32 grouped slots.
-    CPU tensors take the plain twin; CUDA tensors launch the kernel."""
+    Any D; cap_v any multiple of 8. CPU tensors take the plain twin; CUDA
+    tensors make one launch of the tensor-core scan of
+    ``csrc/replica_tc.cu`` over the union's windows."""
     total, d = decoded_g.shape
     _require(queries.dim() == 2 and queries.shape[1] == d,
              f"queries must be (Q, {d}), got {tuple(queries.shape)}")
@@ -462,23 +465,24 @@ def ivf_window_tile_minima(queries, decoded_g, flat, dup, cap_v, pen=None):
     _require(decoded_g.dtype == torch.bfloat16 and decoded_g.is_contiguous()
              and decoded_g.data_ptr() % 16 == 0,
              "decoded_g must be contiguous, 16-byte aligned bf16")
-    _require(cap_v <= 1024, "cap_v must be <= 1024 (one thread per row)")
     _require(flat.dtype == torch.int32 and dup.dtype == torch.int32,
              "flat/dup must be int32")
     _require(pen is None or (pen.dtype == torch.float32 and pen.is_contiguous()),
              "pen must be contiguous float32")
-    q16 = queries.to(torch.bfloat16).contiguous()
+    _require(flat.shape[0] * cap_v < 1 << 31, "U * cap_v must be below 2^31")
+    q16, ldq = _tc_queries(queries)
     flat = flat.contiguous()
     dup = dup.contiguous()
     qn, u = q16.shape[0], flat.shape[0]
     ncol = u * 2 * (cap_v // _IVF_TILE)
     vmin = torch.empty((qn, ncol), dtype=torch.float32, device=decoded_g.device)
     amin = torch.empty((qn, ncol), dtype=torch.int32, device=decoded_g.device)
-    lib = _build.load_library("ivf_window")
-    fn = lib.rii_ivf_window_top2
-    _build.configure(fn, [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib = _build.load_library("replica_tc")
+    fn = lib.rii_tc_bf16_window_top2
+    _build.configure(fn, [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
+                         + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     pen_p = ctypes.c_void_p(None) if pen is None else _ptr(pen)
-    _build.check(fn(_ptr(q16), _ptr(decoded_g), _ptr(flat), _ptr(dup), pen_p,
+    _build.check(fn(_ptr(q16), ldq, _ptr(decoded_g), _ptr(flat), _ptr(dup), pen_p,
                     _ptr(vmin), _ptr(amin), qn, d, u, cap_v,
                     _stream(decoded_g.device)), "ivf_window_tile_minima")
     ivf_window_tile_minima.launches += 1

@@ -152,27 +152,53 @@ def test_replica_scan_tile_minima_misaligned_rows(cuda):
         _assert_minima(v_k, a_k, v_t, a_t)
 
 
-@pytest.mark.parametrize("d,cap_v,with_pen", [(37, 40, True), (128, 256, False)])
-def test_ivf_window_matches_twin(cuda, d, cap_v, with_pen):
-    g = torch.Generator(device=cuda).manual_seed(d)
-    nwin, u, qn = 30, 50, 45
-    dec = (torch.rand((nwin * cap_v, d), generator=g, device=cuda) * 0.08).to(torch.bfloat16)
+# Kernel B (the tensor-core kernel over the windows' bf16 rows): the two
+# cases it began with (Q=45; D=37 with cap_v=40 and pen, D=128 with
+# cap_v=256); Q around the m64 query tile, where both consumer warpgroups
+# share it (Q <= 64) or each takes its own (65, 127), and past one block's
+# 128 rows (200); cap_v from 8 to 1024 (U * cap_v a multiple of 128 or
+# not); D below a chunk and ragged (37: rows 2-byte aligned, element
+# loads), ragged (100: 8-byte aligned rows, 4-byte loads), a whole chunk
+# (128) and past the resident queries' 512 (960: streamed queries); every
+# entry a duplicate over a ragged union (51 entries), with and without
+# pen. A fifth of the rows in every case hold the 1e15 sentinel, as
+# padding rows do.
+_B_CASES = ([(45, 37, 40, True, ""), (45, 128, 256, False, "")]
+            + [(qn, 128, 256, True, "") for qn in (1, 8, 33, 64, 65, 127, 200)]
+            + [(33, 100, cap_v, False, "") for cap_v in (8, 24, 128, 256, 1024)]
+            + [(qn, d, 128, True, "") for qn in (8, 65) for d in (37, 100, 128, 960)]
+            + [(40, 128, 64, with_pen, "all dup u51") for with_pen in (True, False)]
+            + [(200, 960, 1024, False, "")])
+
+
+@pytest.mark.parametrize("qn,d,cap_v,with_pen,case", _B_CASES)
+def test_ivf_window_matches_twin(cuda, qn, d, cap_v, with_pen, case):
+    g = torch.Generator(device=cuda).manual_seed(qn * 7 + d + cap_v)
+    nwin, u = 30, 51 if "u51" in case else 50
+    scale = 0.08 * min(1.0, (128 / d) ** 0.5)
+    dec = (torch.rand((nwin * cap_v, d), generator=g, device=cuda) * scale).to(torch.bfloat16)
     dec[torch.rand(nwin * cap_v, generator=g, device=cuda) < 0.2] = 1e15
     flat = torch.sort(torch.randint(0, nwin, (u,), generator=g, device=cuda,
                                     dtype=torch.int32)).values
     dup = torch.cat([torch.zeros(1, dtype=torch.int32, device=cuda),
                      (flat[1:] == flat[:-1]).to(torch.int32)])
+    if "all dup" in case:
+        dup = torch.ones_like(dup)
     pen = None
     if with_pen:
         pen = torch.where(torch.rand(nwin * cap_v, generator=g, device=cuda) < 0.3,
                           float("inf"), 0.0).to(torch.float32)
-    q = torch.rand((qn, d), generator=g, device=cuda) * 0.08
+    q = torch.rand((qn, d), generator=g, device=cuda) * scale
     before = H.ivf_window_tile_minima.launches
     v_k, a_k = H.ivf_window_tile_minima(q, dec, flat, dup, cap_v, pen=pen)
     torch.cuda.synchronize()
     assert H.ivf_window_tile_minima.launches == before + 1
     v_t, a_t = H.ivf_window_tile_minima_plain(q, dec, flat, dup, cap_v, pen=pen)
-    assert_keys_match(*_np(v_k, a_k, v_t, a_t))
+    if "all dup" in case:  # every score +inf; the slots still agree
+        assert not torch.isfinite(v_k).any() and not torch.isfinite(v_t).any()
+        assert torch.equal(a_k, a_t)
+    else:
+        assert_keys_match(*_np(v_k, a_k, v_t, a_t))
     cols = np.repeat(dup.cpu().numpy() != 0, 2 * cap_v // 8)
     assert (a_k.cpu().numpy()[:, cols] == 0).all()
 

@@ -79,6 +79,36 @@ def test_window_top2_takes_any_d(windows):
     assert_keys_match(vt.numpy(), at.numpy(), np.asarray(vj), np.asarray(aj))
 
 
+@pytest.mark.parametrize("qn,cap_v,with_pen", [(8, 24, True), (16, 24, False),
+                                                (136, 32, True), (200, 24, False)])
+def test_window_top2_edges_match_pallas(qn, cap_v, with_pen):
+    """Kernel B's twin at a window of 24 rows (not a power of two; a 128-slot
+    tile of the card's kernel straddles windows) and at Q past the card
+    kernel's 128-row query block, with sentinel rows and duplicates."""
+    rng = np.random.RandomState(qn + cap_v)
+    nwin, u = 20, 36
+    dec = (rng.random((nwin * cap_v, D)) * 0.08).astype(np.float32)
+    dec[rng.random(nwin * cap_v) < 0.2] = 1e15
+    dec16 = jnp.asarray(dec, jnp.bfloat16)
+    flat = np.sort(rng.randint(0, nwin, u)).astype(np.int32)
+    dup = np.concatenate([[0], flat[1:] == flat[:-1]]).astype(np.int32)
+    pen = None
+    if with_pen:
+        pen = np.where(rng.random(nwin * cap_v) < 0.3, np.inf, 0).astype(np.float32)
+    q = (rng.random((qn, D)) * 0.08).astype(np.float32)
+    vj, aj = P.ivf_window_tile_minima(
+        jnp.asarray(q), dec16, jnp.asarray(flat), jnp.asarray(dup), cap_v=cap_v,
+        interpret=True, pen=None if pen is None else jnp.asarray(pen)[:, None])
+    dec_t = torch.tensor(np.asarray(dec16.astype(jnp.float32))).to(torch.bfloat16)
+    vt, at = H.ivf_window_tile_minima(torch.from_numpy(q), dec_t, _t(flat), _t(dup),
+                                      cap_v, pen=None if pen is None else _t(pen))
+    vj, aj, vt, at = map(np.asarray, (vj, aj, vt, at))
+    assert vt.shape == (qn, u * 2 * cap_v // 8)
+    assert_keys_match(vt, at, vj, aj)
+    cols = np.repeat(dup != 0, 2 * cap_v // 8)
+    assert np.isinf(vt[:, cols]).all() and (at[:, cols] == 0).all()
+
+
 @pytest.fixture(scope="module")
 def union():
     return _make_union()
