@@ -7,9 +7,12 @@ Builds the engine of ``chip_smoke.py``'s pq phase (2^25 random uint8 codes,
 M=8, Ks=256, D=128, nlist=31623, ``reserve(2^25 + 100k)``, scan_mode
 "auto") and prints, one JSON object a line:
 
-- ``reconfigure``: its seconds, and those of the PQk-means fit and predict;
-- ``cache_build``: its seconds, those of the host layout functions it calls
-  (norms, virtual layout, transposed codes), and the rest;
+- ``reconfigure``: its seconds and the engine's own stage seconds
+  (``last_reconfigure_stats``: the sample, the codes' upload, the
+  PQk-means fit and predict);
+- ``cache_build``: its seconds and the engine's stage seconds
+  (``last_cache_build_stats``: norms, flat uploads, the transposed codes,
+  the virtual layout, the windows);
 - one line per query batch kind (linear Q=128 and 1024; ``method="auto"``,
   i.e. IVF, at Q=8, 64 and 512): the median wall time of 7 batches
   (``wall_ms``, host clock, with a device synchronize on each side); the
@@ -20,9 +23,8 @@ M=8, Ks=256, D=128, nlist=31623, ``reserve(2^25 + 100k)``, scan_mode
   kernels' intervals (overlapping kernels count once), divided by 5;
 - ``max_memory_allocated_gib`` of the whole run.
 
-Each stage is wrapped in a device synchronize, so the stage times are a
-little above those of an unobserved run. The card's name and power limit
-come first.
+The engine synchronizes with the card at the end of each stage it times.
+The card's name and power limit come first.
 """
 
 import json
@@ -35,7 +37,6 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-import rii_tpu_torch.rii as R
 from rii_tpu_torch import PQ, Rii
 
 N, M, KS, D, NLIST, N_ADD = 1 << 25, 8, 256, 128, 31623, 100_000
@@ -44,25 +45,6 @@ REPS = 7
 
 def emit(tag, obj):
     print(json.dumps({tag: obj}), flush=True)
-
-
-def time_stages(names):
-    """Wrap the engine module's functions ``names`` to add their seconds
-    (device synchronized) into the returned dict."""
-    timers = {}
-    for name in names:
-        real = getattr(R, name)
-
-        def wrapped(*a, _real=real, _name=name, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = _real(*a, **k)
-            torch.cuda.synchronize()
-            timers[_name] = timers.get(_name, 0.0) + time.perf_counter() - t
-            return out
-
-        setattr(R, name, wrapped)
-    return timers
 
 
 def device_busy(prof, batches):
@@ -132,18 +114,14 @@ def main():
     e = Rii(PQ.from_codewords(cw, device=dev)).reserve(N + N_ADD)
     for s0 in range(0, N, 1 << 22):
         e.add_codes(codes[s0:s0 + (1 << 22)])
-    timers = time_stages(("pqkmeans_fit", "pqkmeans_predict", "code_norms_np",
-                          "build_virtual_layout", "prepare_pq_scan_inputs_t"))
     t = time.perf_counter()
     e.reconfigure(nlist=NLIST)
     torch.cuda.synchronize()
-    emit("reconfigure", {"s": time.perf_counter() - t, **timers})
-    timers.clear()
+    emit("reconfigure", {"s": time.perf_counter() - t, **e.last_reconfigure_stats})
     t = time.perf_counter()
     dc = e._ensure_cache()
     torch.cuda.synchronize()
-    took = time.perf_counter() - t
-    emit("cache_build", {"s": took, **timers, "rest": took - sum(timers.values()),
+    emit("cache_build", {"s": time.perf_counter() - t, **e.last_cache_build_stats,
                          "cap": dc["cap"], "mode": dc["mode"],
                          "windows": dc["windows"]})
     profile_batches(e, queries)

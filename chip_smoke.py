@@ -44,6 +44,33 @@ Phases, each of which must pass (no exception is caught):
    replica_i8_scan_topk (I), pq_scan_topk (J, exact and packed) and the
    plain linear_scan_topk, recall against exact ADC ground truth, kernel
    I's distances exact ADC.
+5d. Checkpoint of phase 5's engine: save_index into a temporary directory
+   and load_index on the card; the restored engine adopts the saved layout
+   at its first cache build, and its linear Q=128 (kernel A) and IVF
+   L=5000, Q=32 (kernel B) answers equal the saved engine's, ids and
+   distances; the same for pickle.loads(pickle.dumps(e)), which rebuilds
+   its cache. The restore's stage seconds beside phase 5's own build.
+5e. Serving phase 5's engine: QueryServer(e, max_batch=256, dispatchers=2)
+   and 8 client threads submitting the 128 ground-truth queries one at a
+   time and 4 mini-batches of 4 (method "linear"), and 16 subset requests
+   sharing one mask of 100k ids; every result within 60 s, the linear
+   answers those of e.query_batch (ids per rank but at ties, distances
+   within 1e-5 relative: below Q=512 the bf16 tier rescores in float32),
+   recall@10 >= 0.99, subset answers inside the mask; srv.stats() logged.
+   Then a sustained closed loop on a second server: 32 client threads, each
+   with one single-query linear request outstanding at a time, for 6 s; the
+   requests submitted after the first second give the served queries/s and
+   the client-side p50/p99 latency, and every answer must be
+   e.query_batch's. Kernel A must have launched in the phase (the wrappers
+   count under a lock, so concurrent dispatchers lose no count).
+5f. OPQ at phase 5's width (D=128, M=32): OPQ.fit on 100k rows (and,
+   timed only, at M=8), add of the 2M rows, reconfigure(nlist=1000,
+   calibrate=True); linear query_batch at Q=1024 and 128 (kernel A) and
+   IVF at L=5000 with Q*wv = 2048 (kernel B); a plain PQ engine over the
+   same codewords, codes, centers and assignments (engine_from_arrays),
+   queried with opq.rotate(queries), gives equal ids and distances; linear
+   recall@10 no lower than phase 5's minus 0.01. The fits', the
+   calibration's and the reconfigure's stage seconds are logged.
 6. Engine, pq tier: the SIFT1B-shape lifecycle (the reference's billion-
    scale config M=8, Ks=256, D=128, nlist=31623 on 2^25 synthetic codes, as
    benchmarks/sift1b_shape.py runs it): add_codes ingest, reconfigure,
@@ -52,7 +79,13 @@ Phases, each of which must pass (no exception is caught):
    subset queries with |S|=1,000,000, add(+100k) scattered into the live
    cache, queries again; recall and distances against exact ADC ground
    truth computed on the card, and the launch counts of kernels C, D and E
-   during this phase.
+   during this phase. Before its add, the phase saves a v2 checkpoint
+   (about 0.7 GB, removed after) and loads it on the card: the restored
+   engine adopts the saved layout, and its first linear Q=128 batch
+   (kernel C) and first IVF Q=64 batch (kernel E) equal the live engine's
+   answers; save, load and first-query seconds are logged beside the live
+   engine's first cache build. (After the add the live windows hold the
+   new rows where the add placed them, while a restore builds them fresh.)
 7. Engine, int8 replica (the 10M band, BIGANN's 10M scale at bench.py's
    codec): N=10,000,000 synthetic codes, M=32, Ks=256, D=128, nlist=3162
    (sqrt N, the reference's default), reserve(N + 100k): ``auto`` must pick
@@ -74,8 +107,11 @@ The line before the last is the kernels' JSON record; the last line is
 """
 
 import json
+import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -871,6 +907,9 @@ def phase_engine(dev):
     dc = e._ensure_cache()
     torch.cuda.synchronize()
     stages["cache_build_s"] = time.perf_counter() - t0
+    build_stats = dict(e.last_cache_build_stats)
+    log(f"  engine: reconfigure stages {fmt(e.last_reconfigure_stats)}; "
+        f"cache build stages {fmt(build_stats)}")
     log(f"  engine: N={e.N} nlist={e.nlist} cap={dc['cap']} mode={dc['mode']} "
         f"windows={dc['windows']} nlist_v={dc['nlist_v']} "
         f"memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
@@ -951,7 +990,259 @@ def phase_engine(dev):
     if results["ivf_L10000"][1] < 0.95:
         raise AssertionError(f"IVF recall@10 at L=10000 {results['ivf_L10000'][1]} < 0.95")
     log("  stages: " + json.dumps({k: round(v, 4) for k, v in stages.items()}))
-    return launches, {"e": e, "x": x, "queries": queries, "gt": gt}
+    return launches, {"e": e, "x": x, "queries": queries, "gt": gt,
+                      "results": results, "build_stats": build_stats}
+
+
+def fmt(stats):
+    """A stage-statistics dict as JSON, seconds to 4 places."""
+    return json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
+                       for k, v in stats.items()})
+
+
+def assert_same_answers(a, b, what):
+    """Two (ids, dists) answers are equal, ids and distances."""
+    (ia, da), (ib, db) = a, b
+    if ia.shape != ib.shape or not (np.array_equal(ia, ib) and np.array_equal(da, db)):
+        raise AssertionError(
+            f"{what}: answers differ ({int((ia != ib).sum())} ids, distances "
+            f"max |diff| {float(np.abs(da - db).max()):.3e})")
+
+
+def assert_ranked_ids_match(ids_a, d_a, ids_b, d_b, rtol, what):
+    """Distances agree to rtol per rank; ids agree per rank except where
+    the distance at that rank is tied (as tests/_torch_parity.py)."""
+    if not np.allclose(d_a, d_b, rtol=rtol, atol=rtol):
+        raise AssertionError(f"{what}: distances differ, max rel "
+                             f"{float((np.abs(d_a - d_b) / np.abs(d_b)).max()):.3e}")
+    for r in range(ids_a.shape[0]):
+        for k in np.nonzero(ids_a[r] != ids_b[r])[0]:
+            ties = np.isclose(d_b[r], d_a[r, k], rtol=rtol, atol=rtol)
+            if ids_a[r, k] not in ids_b[r][ties]:
+                raise AssertionError(f"{what}: query {r} rank {k}: {ids_a[r]} vs {ids_b[r]}")
+
+
+def phase_checkpoint(dev, ctx):
+    """Phase 5d (module docstring): phase 5's engine through save_index /
+    load_index and through pickle."""
+    from rii_tpu_torch.ops import hopper_scan as H
+    from rii_tpu_torch.utils.serialization import load_index, save_index
+    e, queries, topk, L = ctx["e"], ctx["queries"], 10, 5000
+    qb = 2048 // e._probe_width_virtual(L, None, e._ensure_cache())
+
+    def answers(eng):
+        return (eng.query_batch(queries[:128], topk=topk, method="linear"),
+                eng.query_batch(queries[:qb], topk=topk, L=L, method="ivf"))
+
+    reset_launch_counts()
+    ref = answers(e)
+    stages = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "idx")
+        t0 = time.perf_counter()
+        save_index(e, path)
+        stages["save_index_s"] = time.perf_counter() - t0
+        stages["directory_gb"] = sum(os.path.getsize(os.path.join(path, f))
+                                     for f in os.listdir(path)) / 1e9
+        t0 = time.perf_counter()
+        r = load_index(path, device=dev)
+        stages["load_index_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = answers(r)
+        torch.cuda.synchronize()
+        stages["restored_first_queries_s"] = time.perf_counter() - t0
+    if not r.last_cache_build_stats["adopted_layout"]:
+        raise AssertionError("checkpoint: the restored engine did not adopt the saved layout")
+    assert_same_answers(ref[0], got[0], "checkpoint linear Q=128")
+    assert_same_answers(ref[1], got[1], f"checkpoint IVF L={L} Q={qb}")
+    t0 = time.perf_counter()
+    p = pickle.loads(pickle.dumps(e))
+    stages["pickle_round_trip_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = answers(p)
+    torch.cuda.synchronize()
+    stages["unpickled_first_queries_s"] = time.perf_counter() - t0
+    if p.last_cache_build_stats["adopted_layout"]:
+        raise AssertionError("pickle: the unpickled engine adopted a layout")
+    assert_same_answers(ref[0], got[0], "pickle linear Q=128")
+    assert_same_answers(ref[1], got[1], f"pickle IVF L={L} Q={qb}")
+    launches = {"replica_tile_keys": H.replica_tile_keys.launches,
+                "ivf_window_top2": H.ivf_window_tile_minima.launches}
+    log(f"  checkpoint: {fmt(stages)}")
+    log(f"  checkpoint: restored cache build {fmt(r.last_cache_build_stats)}")
+    log(f"  checkpoint: unpickled cache build {fmt(p.last_cache_build_stats)}")
+    log(f"  checkpoint: phase 5's own cache build {fmt(ctx['build_stats'])}")
+    log(f"  launches in the checkpoint phase: {launches}")
+    for name, c in launches.items():
+        if c == 0:
+            raise AssertionError(f"{name} was not launched by the checkpoint path")
+    del r, p
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serving(dev, ctx):
+    """Phase 5e (module docstring): QueryServer over phase 5's engine."""
+    from rii_tpu_torch import QueryServer
+    e, queries, gt, topk = ctx["e"], ctx["queries"], ctx["gt"], 10
+    tids = np.sort(np.random.RandomState(7).choice(e.N, 100000, replace=False)).astype(np.int64)
+    direct = e.query_batch(queries[:144], topk=topk, method="linear")
+    singles, minis, subsets = {}, {}, {}
+    reset_launch_counts()
+    with QueryServer(e, max_batch=256, dispatchers=2) as srv:
+        def client(c):
+            for i in range(c, 128, 8):
+                singles[i] = srv.submit(queries[i], topk=topk, method="linear")
+            if c < 4:
+                minis[c] = srv.submit(queries[128 + 4 * c:132 + 4 * c], topk=topk,
+                                      method="linear")
+            for j in (2 * c, 2 * c + 1):
+                subsets[j] = srv.submit(queries[256 + j], topk=topk, target_ids=tids)
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(client, range(8)))
+        ids = np.stack([singles[i].result(timeout=60)[0] for i in range(128)])
+        dists = np.stack([singles[i].result(timeout=60)[1] for i in range(128)])
+        mini = [minis[c].result(timeout=60) for c in range(4)]
+        sub = [subsets[j].result(timeout=60) for j in range(16)]
+        took = time.perf_counter() - t0
+    # read once stop() has joined the dispatchers, which count a request
+    # after resolving it; its qps spans the server's life, stop included
+    stats = srv.stats()
+    assert_ranked_ids_match(ids, dists, direct[0][:128], direct[1][:128], 1e-5,
+                            "serving singles")
+    assert_ranked_ids_match(np.concatenate([m[0] for m in mini]),
+                            np.concatenate([m[1] for m in mini]),
+                            direct[0][128:], direct[1][128:], 1e-5, "serving mini-batches")
+    for i_s, d_s in sub:
+        if not (np.isin(i_s, tids).all() and np.isfinite(d_s).all()):
+            raise AssertionError("serving: a subset answer outside its mask")
+    r1, r10 = recall(ids, gt, 1), recall(ids, gt, 10)
+    log(f"  serving burst (a correctness gate, not a load reading): 148 requests "
+        f"(128 singles, 4 mini-batches of 4, 16 subset), 160 queries in {took:.4f} s "
+        f"from the first submit to the last result; stats {json.dumps(stats)}; "
+        f"recall@1 {r1:.4f} @10 {r10:.4f}")
+    if r10 < 0.99:
+        raise AssertionError(f"serving recall@10 {r10} < 0.99")
+    sustained_serving(e, queries[:128], direct[0][:128], direct[1][:128], topk)
+    launches = {k: f.launches for k, f in kernel_wrappers().items() if f.launches}
+    log(f"  launches in the serving phase: {launches}")
+    if not launches.get("replica_tile_keys"):
+        raise AssertionError("serving: kernel A was never launched")
+    return launches
+
+
+SERVE_CLIENTS, SERVE_WARM_S, SERVE_S = 32, 1.0, 6.0
+
+
+def sustained_serving(e, queries, ids_ref, dists_ref, topk):
+    """Closed loop: SERVE_CLIENTS threads, each submitting one single-query
+    linear request and waiting for it before the next, for SERVE_S seconds.
+    Requests submitted after SERVE_WARM_S give the queries/s (those finished
+    by the end, over the measured span) and the client-side latencies."""
+    from rii_tpu_torch import QueryServer
+    recs = [[] for _ in range(SERVE_CLIENTS)]
+    with QueryServer(e, max_batch=256, dispatchers=2) as srv:
+        t0 = time.perf_counter()
+        t_warm, t_end = t0 + SERVE_WARM_S, t0 + SERVE_S
+
+        def client(c):
+            i = c
+            while True:
+                ts = time.perf_counter()
+                if ts >= t_end:
+                    return
+                qi = i % len(queries)
+                got = srv.submit(queries[qi], topk=topk, method="linear").result(timeout=60)
+                recs[c].append((ts, time.perf_counter(), qi, got[0], got[1]))
+                i += SERVE_CLIENTS
+
+        with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+            list(pool.map(client, range(SERVE_CLIENTS)))
+        stats = srv.stats()
+    rows = [r for rc in recs for r in rc]
+    qi = np.array([r[2] for r in rows])
+    assert_ranked_ids_match(np.stack([r[3] for r in rows]), np.stack([r[4] for r in rows]),
+                            ids_ref[qi], dists_ref[qi], 1e-5, "sustained serving")
+    meas = [r for r in rows if r[0] >= t_warm]
+    done = sum(1 for r in meas if r[1] <= t_end)
+    lat = np.sort(np.array([r[1] - r[0] for r in meas]))
+    log(f"  serving sustained: {SERVE_CLIENTS} clients closed loop, {len(rows)} requests "
+        f"in {SERVE_S} s; measured after {SERVE_WARM_S} s: {len(meas)} requests, "
+        f"{done / (SERVE_S - SERVE_WARM_S):.1f} queries/s, latency p50 "
+        f"{lat[len(lat) // 2] * 1e3:.3f} ms p99 {lat[int(len(lat) * 0.99)] * 1e3:.3f} ms "
+        f"max {lat[-1] * 1e3:.3f} ms; server stats {json.dumps(stats)}")
+
+
+def phase_opq(dev, ctx):
+    """Phase 5f (module docstring): OPQ at phase 5's width."""
+    from rii_tpu_torch import OPQ, Rii
+    from rii_tpu_torch.ops import hopper_scan as H
+    from rii_tpu_torch.utils.convert import engine_from_arrays
+    x, queries, gt, topk, L = ctx["x"], ctx["queries"], ctx["gt"], 10, 5000
+    stages, results = {}, {}
+    reset_launch_counts()
+    fits = {}
+    for m in (32, 8):
+        t0 = time.perf_counter()
+        fits[m] = OPQ(M=m, Ks=256, device=dev).fit(x[:100000], iter=10)
+        torch.cuda.synchronize()
+        stages[f"opq_fit_m{m}_s"] = time.perf_counter() - t0
+    opq = fits[32]
+    e = Rii(opq)
+    t0 = time.perf_counter()
+    e.add(x)
+    stages["add_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    e.reconfigure(nlist=1000, calibrate=True)
+    stages["reconfigure_calibrate_s"] = time.perf_counter() - t0
+    stages["calibrate_s"] = (stages["reconfigure_calibrate_s"]
+                             - sum(e.last_reconfigure_stats.values()))
+    log(f"  OPQ: reconfigure stages {fmt(e.last_reconfigure_stats)}; calibrated "
+        f"threshold {list(np.poly1d(e.threshold).coeffs)}")
+    dc = e._ensure_cache()
+    if dc["mode"] != "bf16" or dc["windows"] != "bf16":
+        raise AssertionError("the OPQ engine did not pick the bf16 replica and windows")
+    p = engine_from_arrays(opq.codewords, e.codes, e.coarse_centers, e._assignments(),
+                           device=dev)
+    for qn in (1024, 128):
+        e.query_batch(queries[:qn], topk=topk, method="linear")  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = e.query_batch(queries[:qn], topk=topk, method="linear")
+        stages[f"linear_q{qn}_s"] = time.perf_counter() - t0
+        assert_same_answers(got, p.query_batch(opq.rotate(queries[:qn]), topk=topk,
+                                               method="linear"), f"OPQ rotation linear Q={qn}")
+        results[f"linear_q{qn}"] = (recall(got[0][:128], gt, 1), recall(got[0][:128], gt, 10))
+    qb = 2048 // e._probe_width_virtual(L, None, dc)
+    out = []
+    t0 = time.perf_counter()
+    for s0 in range(0, 128, qb):
+        got = e.query_batch(queries[s0:s0 + qb], topk=topk, L=L, method="ivf")
+        assert_same_answers(got, p.query_batch(opq.rotate(queries[s0:s0 + qb]), topk=topk,
+                                               L=L, method="ivf"), f"OPQ rotation IVF L={L}")
+        out.append(got[0])
+    stages["ivf_L5000_128q_with_plain_s"] = time.perf_counter() - t0
+    ids = np.concatenate(out)[:128]
+    results["ivf_L5000"] = (recall(ids, gt, 1), recall(ids, gt, 10))
+    launches = {"replica_tile_keys": H.replica_tile_keys.launches,
+                "ivf_window_top2": H.ivf_window_tile_minima.launches}
+    log(f"  launches in the OPQ phase: {launches}")
+    for name, c in launches.items():
+        if c == 0:
+            raise AssertionError(f"{name} was not launched by the OPQ path")
+    for k, (r1, r10) in results.items():
+        log(f"  OPQ recall {k}: @1 {r1:.4f} @10 {r10:.4f} (phase 5's PQ: "
+            f"{ctx['results'].get(k, ctx['results']['ivf_L5000'])})")
+    for k in ("linear_q1024", "linear_q128"):
+        if results[k][1] < ctx["results"][k][1] - 0.01:
+            raise AssertionError(f"OPQ {k}: recall@10 {results[k][1]} below phase 5's "
+                                 f"{ctx['results'][k][1]} - 0.01")
+    log(f"  OPQ stages: {fmt(stages)}")
+    del e, p, dc
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_engine_k11(dev, ctx):
@@ -1175,6 +1466,9 @@ def drive_lifecycle(dev, cfg):
     dc = e._ensure_cache()
     torch.cuda.synchronize()
     stages["cache_build_s"] = time.perf_counter() - t0
+    build_stats = dict(e.last_cache_build_stats)
+    log(f"  engine {name}: reconfigure stages {fmt(e.last_reconfigure_stats)}; "
+        f"cache build stages {fmt(build_stats)}")
     log(f"  engine {name}: N={e.N} M={m} nlist={e.nlist} cap={dc['cap']} "
         f"mode={dc['mode']} windows={dc['windows']} nlist_v={dc['nlist_v']} "
         f"L0={e.L0} memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
@@ -1255,6 +1549,8 @@ def drive_lifecycle(dev, cfg):
         if not np.isin(ids_s, tids).all():
             raise AssertionError(f"subset {method} returned ids outside the subset")
 
+    if cfg.get("restore"):
+        check_restore(dev, e, queries, ivf_L, build_stats)
     n_dev = dc["n_dev"]
     t0 = time.perf_counter()
     e.add_codes(new_codes)
@@ -1297,12 +1593,58 @@ def drive_lifecycle(dev, cfg):
     return launches
 
 
+def check_restore(dev, e, queries, ivf_L, build_stats):
+    """The pq phase's checkpoint (module docstring, phase 6): save v2, load
+    on the card, and the restored engine's first linear Q=128 (kernel C)
+    and IVF Q=64 (kernel E) batches against the live engine's."""
+    from rii_tpu_torch.utils.serialization import load_index, save_index
+    wrappers = kernel_wrappers()
+    c, ee = wrappers["pq_tile_keys"], wrappers["ivf_dt_window_top2"]
+    topk = 10
+    ref_lin = e.query_batch(queries[:128], topk=topk, method="linear")
+    ref_ivf = e.query_batch(queries[:64], topk=topk, L=ivf_L, method="ivf")
+    stages = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "idx")
+        t0 = time.perf_counter()
+        save_index(e, path)
+        stages["save_index_s"] = time.perf_counter() - t0
+        stages["directory_gb"] = sum(os.path.getsize(os.path.join(path, f))
+                                     for f in os.listdir(path)) / 1e9
+        t0 = time.perf_counter()
+        r = load_index(path, device=dev)
+        stages["load_index_s"] = time.perf_counter() - t0
+        before = (c.launches, ee.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lin = r.query_batch(queries[:128], topk=topk, method="linear")
+        torch.cuda.synchronize()
+        stages["first_linear_q128_with_cache_build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ivf = r.query_batch(queries[:64], topk=topk, L=ivf_L, method="ivf")
+        torch.cuda.synchronize()
+        stages["first_ivf_q64_s"] = time.perf_counter() - t0
+        if c.launches == before[0] or ee.launches == before[1]:
+            raise AssertionError("restore: the first batches did not launch kernels C and E")
+    restored = r.last_cache_build_stats
+    log(f"  restore: {fmt(stages)}")
+    log(f"  restore: restored engine's cache build {fmt(restored)}")
+    log(f"  restore: live engine's first cache build {fmt(build_stats)}")
+    if not restored["adopted_layout"]:
+        raise AssertionError("restore: the restored engine did not adopt the saved layout")
+    assert_same_answers(ref_lin, lin, "restore linear Q=128")
+    assert_same_answers(ref_ivf, ivf, f"restore IVF Q=64 L={ivf_L}")
+    del r
+    torch.cuda.empty_cache()
+
+
 def phase_engine_pq(dev):
     """The SIFT1B-shape lifecycle (see the module docstring): the pq tier,
     kernels C, D and E."""
     return drive_lifecycle(dev, {
         "name": "pq", "n": 1 << 25, "m": 8, "nlist": 31623, "n_add": 100_000,
         "n_subset": 1_000_000, "ivf_qs": (8, 64, 512), "tiers": ("pq", "pq"),
+        "restore": True,
         "linear": "pq_tile_keys", "linear_exact": False,
         "ivf": lambda qn: "ivf_dt_window_top2" if qn < 128 else "ivf_pq_window_top2"})
 
@@ -1347,7 +1689,9 @@ def main():
     t0 = time.perf_counter()
     launches, ctx = phase_engine(dev)
     log(f"phase engine: {time.perf_counter() - t0:.1f} s")
-    for phase, fn in (("K11 route", phase_engine_k11), ("ops", phase_ops)):
+    for phase, fn in (("K11 route", phase_engine_k11), ("ops", phase_ops),
+                      ("checkpoint", phase_checkpoint), ("serving", phase_serving),
+                      ("OPQ", phase_opq)):
         t0 = time.perf_counter()
         for k, c in fn(dev, ctx).items():  # a kernel on two paths: both runs count
             launches[k] = launches.get(k, 0) + c

@@ -129,27 +129,38 @@ def pqkmeans_fit(codewords, codes, k, iters=5, seed=0, block=4096,
             assign.cpu().numpy().astype(np.int32))
 
 
-def pqkmeans_predict(codewords, centers, codes, device="cuda"):
-    """Nearest center of each (N, M) uint8 code: (N,) int32 numpy, computed
-    on ``device`` ("cuda" by default; raises where no card is visible).
+def predict_upload(codes, device="cuda"):
+    """The (N, M) uint8 codes of a later :func:`pqkmeans_predict_device`
+    call, uploaded to ``device`` (the upload split out of the predict, as
+    ``rii_tpu.models.pqkmeans.predict_upload`` does, so that a reconfigure
+    can time it apart)."""
+    return torch.tensor(np.asarray(codes), device=resolve_device(device))
 
-    With k <= 65535 the ids come back from the device as uint16 and are
-    widened on the host."""
-    device = resolve_device(device)
-    codes = np.asarray(codes)
-    n = codes.shape[0]
+
+def pqkmeans_predict_device(codewords, centers, codes_d):
+    """Nearest center of each uploaded code (see :func:`predict_upload`):
+    (N,) int32 numpy. With k <= 65535 the ids come back from the device as
+    uint16 and are widened on the host."""
+    n = codes_d.shape[0]
     if n == 0:
         return np.zeros((0,), dtype=np.int32)
+    device = codes_d.device
     cw = torch.tensor(np.asarray(codewords, np.float32), device=device)
     cent = torch.tensor(np.asarray(centers).astype(np.int64), device=device)
     cdec, csq = _centers_decoded(cw, cent)
     small = cent.shape[0] <= 65535
     out = np.empty(n, dtype=np.int32)
     for s in range(0, n, _PREDICT_BLOCK):
-        cb = torch.tensor(codes[s:s + _PREDICT_BLOCK], device=device)
-        a, _, _ = _assign_block(cw, cb, cdec, csq)
+        a, _, _ = _assign_block(cw, codes_d[s:s + _PREDICT_BLOCK], cdec, csq)
         a = a.to(torch.int32)
         if small:  # uint16 halves the device-to-host copy
             a = a.to(torch.uint16)
         out[s:s + _PREDICT_BLOCK] = a.cpu().numpy()
     return out
+
+
+def pqkmeans_predict(codewords, centers, codes, device="cuda"):
+    """Nearest center of each (N, M) uint8 code: (N,) int32 numpy, computed
+    on ``device`` ("cuda" by default; raises where no card is visible)."""
+    return pqkmeans_predict_device(codewords, centers,
+                                   predict_upload(codes, device=device))

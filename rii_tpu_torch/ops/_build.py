@@ -109,3 +109,14 @@ def check(rc, what):
     """Raise if a kernel entry returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+_count_lock = threading.Lock()  # guards every wrapper's .launches
+
+
+def count_launch(wrapper):
+    """Add one to ``wrapper.launches``: under a lock, since a QueryServer's
+    dispatcher threads launch concurrently and ``+=`` on an attribute is not
+    atomic."""
+    with _count_lock:
+        wrapper.launches += 1

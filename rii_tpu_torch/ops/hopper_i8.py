@@ -219,7 +219,7 @@ def replica_i8_tile_keys(queries, decoded_i8, col_scales, norms, n_valid=None):
     _build.check(fn(_ptr(q_i8), ldq, _ptr(alpha), _ptr(decoded_i8), _ptr(norms),
                     _ptr(keys), qn, d, cap, nv, _stream(decoded_i8.device)),
                  "replica_i8_tile_keys")
-    replica_i8_tile_keys.launches += 1
+    _build.count_launch(replica_i8_tile_keys)
     return keys
 
 
@@ -294,7 +294,7 @@ def replica_i8_scan_tile_minima(queries, decoded_i8, col_scales, norms_col,
     _build.check(fn(_ptr(q_i8), ldq, _ptr(alpha), _ptr(decoded_i8),
                     _ptr(norms_col), _ptr(vmin), _ptr(amin), qn, d, cap,
                     _stream(decoded_i8.device)), "replica_i8_scan_tile_minima")
-    replica_i8_scan_tile_minima.launches += 1
+    _build.count_launch(replica_i8_scan_tile_minima)
     return vmin, amin
 
 
@@ -392,7 +392,7 @@ def ivf_i8_window_tile_minima(queries, decoded_g_i8, col_scales, flat, dup,
                     _ptr(scales), _ptr(flat), _ptr(dup), _ptr(vlen), pen_p,
                     _ptr(vmin), _ptr(amin), qn, d, u, cap_v,
                     _stream(decoded_g_i8.device)), "ivf_i8_window_tile_minima")
-    ivf_i8_window_tile_minima.launches += 1
+    _build.count_launch(ivf_i8_window_tile_minima)
     return vmin, amin
 
 

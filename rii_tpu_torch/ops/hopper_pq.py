@@ -159,7 +159,7 @@ def pq_tile_keys(queries, codes_t, norms, codewords, n_valid=None):
     _build.check(fn(_ptr(q16), ldq, _ptr(codes_t), _ptr(norms), _ptr(cw16),
                     _ptr(keys), qn, m, ks, ds, cap, nv,
                     _stream(codes_t.device)), "pq_tile_keys")
-    pq_tile_keys.launches += 1
+    _build.count_launch(pq_tile_keys)
     return keys
 
 
@@ -293,7 +293,7 @@ def pq_scan_tile_minima(queries, codes, norms_col, cw_padded, blk=1024,
                     _ptr(vmin), _ptr(amin), qn, m, ks, ds, cap,
                     int(bool(packed)), _stream(codes.device)),
                  "pq_scan_tile_minima")
-    pq_scan_tile_minima.launches += 1
+    _build.count_launch(pq_scan_tile_minima)
     return vmin, amin
 
 
@@ -412,7 +412,7 @@ def ivf_pq_window_tile_minima(queries, codes_g, codewords, flat, dup, vlen,
                     _ptr(dup), _ptr(vlen), pen_p, _ptr(vmin), _ptr(amin), qn,
                     m, ks, ds, u, cap_v, _stream(codes_g.device)),
                  "ivf_pq_window_tile_minima")
-    ivf_pq_window_tile_minima.launches += 1
+    _build.count_launch(ivf_pq_window_tile_minima)
     return vmin, amin
 
 
@@ -529,7 +529,7 @@ def ivf_dt_window_tile_minima(queries, codes_g, codewords, flat, dup, vlen,
                     _ptr(vmin), _ptr(amin), qn, m, ks, ds, u, cap_v,
                     _stream(codes_g.device)),
                  "ivf_dt_window_tile_minima")
-    ivf_dt_window_tile_minima.launches += 1
+    _build.count_launch(ivf_dt_window_tile_minima)
     return vmin, amin
 
 

@@ -21,8 +21,9 @@ rows loaded by its producer warpgroup.
 
 Each wrapper runs its plain twin for tensors on the CPU, and launches its
 kernel for CUDA tensors (or raises); it never falls back from one to the
-other. Each counts its launches in a plain int attribute, ``.launches``,
-incremented only where the kernel is launched.
+other. Each counts its launches in an int attribute, ``.launches``,
+incremented under a lock (``_build.count_launch``) only where the kernel is
+launched, so that concurrent callers lose no count.
 
 The XLA epilogues of the JAX module (``_merge_packed_keys``,
 ``_merge_tile_minima`` and ``_exact_rescore_codes``) are plain torch here.
@@ -166,7 +167,7 @@ def replica_tile_keys(queries, decoded_t, norms):
                             ctypes.c_void_p])
     _build.check(fn(_ptr(q16), ldq, _ptr(decoded_t), _ptr(norms), _ptr(keys),
                     qn, d, cap, _stream(decoded_t.device)), "replica_tile_keys")
-    replica_tile_keys.launches += 1
+    _build.count_launch(replica_tile_keys)
     return keys
 
 
@@ -343,7 +344,7 @@ def replica_scan_tile_minima(queries, decoded, norms_col, blk=1024,
     _build.check(fn(_ptr(q16), ldq, _ptr(decoded), _ptr(norms_col), _ptr(vmin),
                     _ptr(amin), qn, d, cap, int(bool(packed)),
                     _stream(decoded.device)), "replica_scan_tile_minima")
-    replica_scan_tile_minima.launches += 1
+    _build.count_launch(replica_scan_tile_minima)
     return vmin, amin
 
 
@@ -485,7 +486,7 @@ def ivf_window_tile_minima(queries, decoded_g, flat, dup, cap_v, pen=None):
     _build.check(fn(_ptr(q16), ldq, _ptr(decoded_g), _ptr(flat), _ptr(dup), pen_p,
                     _ptr(vmin), _ptr(amin), qn, d, u, cap_v,
                     _stream(decoded_g.device)), "ivf_window_tile_minima")
-    ivf_window_tile_minima.launches += 1
+    _build.count_launch(ivf_window_tile_minima)
     return vmin, amin
 
 

@@ -19,10 +19,17 @@ batch that does not fit drops the cache, which is rebuilt at the next query.
 The scatters write the cache tensors in place (the JAX package's arrays are
 immutable); they run under the exclusive side of the state lock, so no
 query sees a half-written cache.
+
+A restored checkpoint (``utils.serialization.load_index``, format v2) hands
+the engine its saved norms and virtual layout as one-shot adoption state:
+the first cache build takes them in place of the norms pass and
+``build_virtual_layout``, and any mutation before it drops them.
 """
 
+import contextlib
 import copy
 import threading
+import time
 
 import numpy as np
 import torch
@@ -34,8 +41,14 @@ from rii_tpu_torch.models.ivf import (
     code_norms_np,
     posting_lists_from_assignments,
 )
+from rii_tpu_torch.models.opq import OPQ
 from rii_tpu_torch.models.pq import PQ
-from rii_tpu_torch.models.pqkmeans import pqkmeans_fit, pqkmeans_predict
+from rii_tpu_torch.models.pqkmeans import (
+    pqkmeans_fit,
+    pqkmeans_predict,
+    pqkmeans_predict_device,
+    predict_upload,
+)
 from rii_tpu_torch.ops.decode import (
     build_decoded_cache,
     codeword_norms,
@@ -172,7 +185,8 @@ class Rii:
     """Reconfigurable inverted index over PQ codes.
 
     Args:
-        fine_quantizer: a fitted :class:`rii_tpu_torch.PQ`.
+        fine_quantizer: a fitted :class:`rii_tpu_torch.PQ` or
+            :class:`rii_tpu_torch.OPQ` (queries are rotated for OPQ).
         device: where the cache lives and the scans run; defaults to the
             codec's device. Never detected.
 
@@ -181,11 +195,14 @@ class Rii:
     ``exact_rescore``. ``force_kernel_routing`` is a test hook: on the CPU it
     makes the engine take the routes it takes on CUDA, through the kernels'
     plain twins (the counterpart of the JAX engine's ``pallas_interpret``).
+    ``last_reconfigure_stats`` and ``last_cache_build_stats`` hold the
+    seconds of each stage of the last reconfigure and cache build (each
+    stage synchronized with the card), under ``rii_tpu``'s keys.
     """
 
     def __init__(self, fine_quantizer, device=None):
-        assert isinstance(fine_quantizer, PQ)
-        assert fine_quantizer.codewords is not None, "Please fit the PQ instance first"
+        assert isinstance(fine_quantizer, PQ)  # OPQ is a PQ
+        assert fine_quantizer.codewords is not None, "Please fit the PQ/OPQ instance first"
         assert fine_quantizer.Ks <= 256, "Ks must be <= 256 so that each code is uint8"
         self.device = (fine_quantizer.device if device is None
                        else resolve_device(device))
@@ -207,6 +224,10 @@ class Rii:
         self._version = 0
         self._codes_cache = None  # consolidated (N, M) uint8
         self._dc = None  # device cache dict
+        # one-shot adoption state of a v2 checkpoint, consumed by the next
+        # cache build (see the module docstring)
+        self._norms_cache = None  # (N,) float32 ||decode||^2
+        self._layout_v = None  # saved virtual layout
         self._cache_lock = threading.Lock()  # one thread builds the cache
         self._state_lock = _RWLock()  # queries shared, mutations exclusive
 
@@ -285,32 +306,55 @@ class Rii:
         """Re-cluster the stored codes into nlist coarse centers and rebuild
         the posting lists: samples min(N, nlist*100) codes with a fixed seed,
         runs PQk-means, then assigns all N codes. ``threshold`` is refreshed
-        from the analytic cost model."""
-        if calibrate:
-            raise NotImplementedError(
-                "reconfigure(calibrate=True) (the timed threshold sweep) is "
-                "not ported; use the analytic threshold (calibrate=False)")
+        from the analytic cost model, or by the timed sweep
+        (:func:`estimate_best_threshold_function`) when ``calibrate``."""
         if nlist is None:
             nlist = int(np.sqrt(self._n))
         assert 0 < nlist, "nlist must be positive"
         assert nlist <= self._n, "nlist must be <= N"
         iter = max(1, int(iter))
+        stats = {}
         with self._state_lock.write():
+            t0 = time.perf_counter()
             codes = self._consolidated_codes()
+            stats["consolidate_s"] = time.perf_counter() - t0
             n_train = min(self._n, nlist * 100)
+            t0 = time.perf_counter()
             pick = np.random.RandomState(
                 _RECONFIGURE_SAMPLE_SEED).permutation(self._n)[:n_train]
+            sample = codes[pick]
+            stats["sample_s"] = time.perf_counter() - t0
             if self._verbose:
                 print(f"Training coarse centers on {n_train} codes (nlist={nlist})")
-            centers, _ = pqkmeans_fit(self.codewords, codes[pick], k=nlist,
+            t0 = time.perf_counter()
+            centers, _ = pqkmeans_fit(self.codewords, sample, k=nlist,
                                       iters=iter, seed=_PQKMEANS_SEED,
                                       device=self.device, verbose=self._verbose)
-            assign = pqkmeans_predict(self.codewords, centers, codes,
-                                      device=self.device)
+            stats["fit_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            codes_d = predict_upload(codes, device=self.device)
+            self._sync()
+            stats["predict_upload_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            assign = pqkmeans_predict_device(self.codewords, centers, codes_d)
+            stats["predict_s"] = time.perf_counter() - t0
+            del codes_d
             self._centers = centers
-            self._assign_chunks = [assign.astype(np.int32)]
+            self._assign_chunks = [assign]
+            # new assignments void a loaded layout, even at the same n and
+            # nlist
+            self._layout_v = None
             self._bump()
-        self.threshold = self._analytic_threshold()
+        self.last_reconfigure_stats = stats
+        if self._verbose:
+            print("reconfigure stages:",
+                  {k: round(v, 2) for k, v in stats.items()})
+        # the calibration queries the engine, so it runs outside the lock
+        if calibrate:
+            probes = self.fine_quantizer.decode(codes[: min(100, self._n)])
+            self.threshold = estimate_best_threshold_function(self, probes)
+        else:
+            self.threshold = self._analytic_threshold()
         return self
 
     def add(self, vecs, update_posting_lists="auto"):
@@ -372,6 +416,8 @@ class Rii:
             self._n = 0
             self._centers = None
             self._codes_cache = None
+            self._norms_cache = None
+            self._layout_v = None
             self._bump()
 
     def _add_codes(self, codes, update_flag):
@@ -512,7 +558,7 @@ class Rii:
                     sort_target_ids=True, method="auto"):
         """Batched search of (Q, D) float32 queries sharing one target-id
         set. Returns (ids (Q, topk) int64, dists (Q, topk) float64)."""
-        with self._state_lock.read():
+        with self._state_lock.read(), self._on_device():
             return self._query_batch_impl(queries, topk, L, target_ids,
                                           sort_target_ids, method)
 
@@ -542,6 +588,8 @@ class Rii:
         assert topk <= len_target_ids <= self._n, \
             f"Make sure topk<=len(target_ids)<=N: topk={topk}, " \
             f"len(target_ids)={len_target_ids}, N={self._n}"
+        if isinstance(self.fine_quantizer, OPQ):
+            queries = self.fine_quantizer.rotate(queries)
         if method == "auto":
             method = "linear" if self._use_linear(
                 len_target_ids, L, qn=queries.shape[0]) else "ivf"
@@ -551,10 +599,14 @@ class Rii:
             ids, dists = self._query_ivf_batch(queries, topk, tids, L)
         return ids.astype(np.int64), dists.astype(np.float64)
 
+    # the low-level entries take queries already rotated into the codec's
+    # space (the reference's impl_cpp.query_linear / query_ivf)
+
     def query_linear(self, q, topk, target_ids=None):
-        """Linear scan for one (D,) float32 query. Returns (ids, dists)."""
+        """Linear scan for one (D,) float32 query, rotated for OPQ. Returns
+        (ids, dists)."""
         q = require_dtype(q, np.float32, "q")
-        with self._state_lock.read():
+        with self._state_lock.read(), self._on_device():
             ids, dists = self._query_linear_batch(
                 np.ascontiguousarray(np.atleast_2d(q)), topk,
                 None if target_ids is None or len(target_ids) == 0
@@ -562,9 +614,10 @@ class Rii:
         return ids[0].astype(np.int64), dists[0].astype(np.float64)
 
     def query_ivf(self, q, topk, target_ids, L):
-        """IVF scan for one (D,) float32 query. Returns (ids, dists)."""
+        """IVF scan for one (D,) float32 query, rotated for OPQ. Returns
+        (ids, dists)."""
         q = require_dtype(q, np.float32, "q")
-        with self._state_lock.read():
+        with self._state_lock.read(), self._on_device():
             ids, dists = self._query_ivf_batch(
                 np.ascontiguousarray(np.atleast_2d(q)), topk,
                 None if target_ids is None or len(target_ids) == 0
@@ -779,6 +832,51 @@ class Rii:
         out["device_total"] = dev
         return out
 
+    def print_params(self):
+        """Diagnostic dump (as ``rii_tpu.Rii.print_params``). The
+        ``_use_linear`` lines read the cache's layout, as ``query_batch``'s
+        route does, and so build the cache where there is none."""
+        print("verbose:", self.verbose)
+        print("M:", self.M)
+        print("Ks:", self.Ks)
+        print("fine_quantizer:", self.fine_quantizer)
+        print("N:", self.N)
+        print("nlist:", self.nlist)
+        print("L0:", self.L0)
+        print("codewords.shape:", self.codewords.shape)
+        print("coarse_centers.shape:",
+              None if self.nlist == 0 else self.coarse_centers.shape)
+        print("codes.shape:", None if self.codes is None else self.codes.shape)
+        lens = [len(pl) for pl in self.posting_lists[:11]]
+        print("[len(poslist) for poslist in posting_lists]:", lens,
+              "..." if self.nlist > 11 else "")
+        for topk in (1, 10, 100):
+            L = None if self.nlist == 0 else self._multiple_of_L0_covering_topk(topk)
+            print(f"_multiple_of_L0_covering_topk(topk={topk}): {L}")
+        print("threshold function thre_{|S|}=f(L):", self.threshold)
+        for S in [10 ** (2 + n) for n in range(5)]:
+            use_linear = (None if self.threshold is None
+                          else self._use_linear(S, self.L0))
+            print(f"_use_linear({S}, L={self.L0}): {use_linear}")
+
+    def __getstate__(self):
+        """The host state; the device cache and the locks are dropped, and
+        the codec keeps its device (an engine pickled on the card needs one
+        where it is unpickled, and raises at its first use without)."""
+        self._consolidated_codes()
+        self._assignments()
+        state = self.__dict__.copy()
+        state["_dc"] = None
+        state.pop("_cache_lock", None)
+        state.pop("_state_lock", None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._dc = None
+        self._cache_lock = threading.Lock()
+        self._state_lock = _RWLock()
+
     # ------------------------------------------------------------------ #
     # internal state
     # ------------------------------------------------------------------ #
@@ -786,6 +884,21 @@ class Rii:
     def _bump(self):
         self._version += 1
         self._dc = None
+
+    def _sync(self):
+        """Wait for the card, so that a stage's seconds are the device's
+        too; nothing on the CPU."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _on_device(self):
+        """The engine's card as the calling thread's current device, so that
+        a query from any thread (a QueryServer dispatcher) launches there;
+        nothing on the CPU."""
+        if self.device.type == "cuda":
+            # raises where no card is visible (an engine unpickled there)
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
 
     def _use_kernels(self):
         """The kernel tiers: on when the engine's device is CUDA (or the
@@ -850,9 +963,17 @@ class Rii:
         return torch.tensor(arr, device=self.device)
 
     def _build_cache(self):
+        stats = {}
+        t0 = time.perf_counter()
         codes = self._consolidated_codes()
         cw = np.asarray(self.codewords, dtype=np.float32)
-        norms = code_norms_np(cw, codes)
+        nc, self._norms_cache = self._norms_cache, None
+        if nc is not None and len(nc) == self._n:
+            norms = np.asarray(nc, dtype=np.float32)  # v2 adoption
+        else:
+            norms = code_norms_np(cw, codes)
+        stats["norms_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         cap = _pow2_at_least(max(self._n, self._cap_reserve, 1), 1024)
         codes_flat = np.zeros((cap, self.M), dtype=np.uint8)
         codes_flat[: self._n] = codes
@@ -868,6 +989,9 @@ class Rii:
             "codes_flat": self._tensor(codes_flat),
             "norms_flat": self._tensor(norms_flat),
         }
+        self._sync()
+        stats["flat_h2d_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         resolved = self._resolve_scan_mode(cap)
         dc["mode"] = resolved
         if resolved == "int8":
@@ -889,16 +1013,21 @@ class Rii:
             # are norms_flat itself
             dc["codes_t"], _ = prepare_pq_scan_inputs_t(dc["codes_flat"],
                                                         dc["norms_flat"])
+        self._sync()
+        stats["replica_s"] = time.perf_counter() - t0
         if self._centers is not None:
-            self._build_windows(dc, codes, norms, cw, resolved)
+            self._build_windows(dc, codes, norms, cw, resolved, stats)
+        self.last_cache_build_stats = stats
         self._dc = dc
         return dc
 
-    def _build_windows(self, dc, codes, norms, cw, resolved):
+    def _build_windows(self, dc, codes, norms, cw, resolved, stats):
         """The balanced virtual-bucket layout of the union IVF scan, with
         bf16 windows when the replica and windows fit the budget together,
         else int8 windows where they fit and their kernel runs, else uint8
-        code windows."""
+        code windows. A saved layout (``_layout_v``) of the same n, nlist
+        and headroom takes the place of ``build_virtual_layout``."""
+        t0 = time.perf_counter()
         nlist = self.nlist
         nlist_pad = _pow2_at_least(nlist, 8)
         dec = cw[np.arange(self.M)[None, :], self._centers.astype(np.int64)]
@@ -911,8 +1040,34 @@ class Rii:
         h = 0.125
         if self._cap_reserve > self._n > 0:
             h = max(h, self._cap_reserve / self._n - 1.0)
-        ul = build_virtual_layout(codes, norms, self._assignments(), nlist,
-                                  headroom=h)
+        lv, self._layout_v = self._layout_v, None
+        adopt = (lv is not None and lv["n"] == self._n
+                 and lv["nlist"] == nlist and lv["headroom"] == h)
+        if adopt:
+            # the saved permutation replaces the argsort and placement pass;
+            # the grouped codes and norms are one gather through it, of
+            # whole rows (a row one M-byte item: half the time of a 2-D
+            # fancy gather at 2^25 rows), the padding slots zeroed after
+            order = lv["order"]
+            valid = order >= 0
+            idx = np.maximum(order, 0)
+            rows = np.ascontiguousarray(codes).view(
+                np.dtype((np.void, self.M))).reshape(-1)
+            codes_grouped = rows[idx].view(np.uint8).reshape(-1, self.M)
+            codes_grouped *= valid[:, None]
+            norms_grouped = np.where(valid, norms[idx], np.float32(np.inf))
+            ul = {"order": order, "codes_grouped": codes_grouped,
+                  "norms_grouped": norms_grouped, "total": int(order.shape[0])}
+            for key in ("vreal", "vlen", "vstart", "counts"):
+                ul[key] = lv[key]
+            for key in ("cap_v", "nlist_v", "nlist_v_pad"):
+                ul[key] = int(lv[key])
+        else:
+            ul = build_virtual_layout(codes, norms, self._assignments(), nlist,
+                                      headroom=h)
+        stats["adopted_layout"] = adopt
+        stats["layout_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         vreal = ul["vreal"]
         vstart = ul["vstart"]
         vr = np.clip(vreal, 0, nlist_pad - 1)
@@ -976,3 +1131,73 @@ class Rii:
             dc["pq_kernel_route"] = self._use_kernels()
             # the constant term of kernel E's per-batch ADC table
             dc["cw_norms"] = codeword_norms(dc["codewords"])
+        self._sync()
+        stats["windows_s"] = time.perf_counter() - t0
+
+
+def estimate_best_threshold_function(e, queries):
+    """Timed calibration of the linear-versus-IVF threshold (the reference's
+    algorithm, as ``rii_tpu.rii.estimate_best_threshold_function``): for a
+    few L, sweep |S| doubling from 128 to N timing both methods, search the
+    crossover by halving, then fit a degree-1 polynomial threshold(L).
+
+    Probes run as batches, one call a (|S|, method) point; each call returns
+    numpy, so every timing ends with the card done."""
+    topk = 1
+
+    def run(queries_, tids, L, method):
+        qs = np.ascontiguousarray(np.atleast_2d(queries_), dtype=np.float32)
+        # the private batch entries take codec-space (OPQ-rotated) queries,
+        # as query_batch feeds them
+        if isinstance(e.fine_quantizer, OPQ):
+            qs = np.ascontiguousarray(e.fine_quantizer.rotate(qs),
+                                      dtype=np.float32)
+        t0 = time.perf_counter()
+        with e._state_lock.read(), e._on_device():
+            if method == "linear":
+                e._query_linear_batch(qs, topk, tids)
+            else:
+                e._query_ivf_batch(qs, topk, tids, L)
+        return (time.perf_counter() - t0) / qs.shape[0]
+
+    def sweep(L):
+        if e.N <= 128:
+            return e.N
+        sids = [128]
+        while sids[-1] * 2 < e.N:
+            sids.append(sids[-1] * 2)
+        sids.append(e.N)
+        for s in sids:
+            tids = np.arange(s, dtype=np.int64)
+            # warm, so that the timing is the steady state
+            run(queries[:1], tids, L, "linear")
+            run(queries[:1], tids, L, "ivf")
+            t_linear = run(queries[:3], tids, L, "linear")
+            t_ivf = run(queries[:3], tids, L, "ivf")
+            if t_ivf < t_linear:
+                if s == 128:
+                    return 128
+                s0, s1 = s // 2, s
+                for _ in range(5):
+                    s_mid = int(np.round((s0 + s1) / 2))
+                    tids = np.arange(s_mid, dtype=np.int64)
+                    if run(queries, tids, L, "ivf") < run(queries, tids, L, "linear"):
+                        s1 = s_mid
+                    else:
+                        s0 = s_mid
+                return s0
+        return e.N
+
+    xs, ys = [], []
+    for L in [k * e._multiple_of_L0_covering_topk(k) for k in (1, 2, 4, 8, 16)]:
+        if e.N < L:
+            continue
+        xs.append(L)
+        ys.append(sweep(L))
+        if ys[-1] == e.N:
+            break
+    z = [0, ys[0]] if len(xs) == 1 else np.polyfit(xs, ys, 1)
+    p = np.poly1d(z)
+    if e.verbose:
+        print("L:", xs, "threshold:", ys, "poly:", p)
+    return p
