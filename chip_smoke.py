@@ -71,6 +71,34 @@ Phases, each of which must pass (no exception is caught):
    queried with opq.rotate(queries), gives equal ids and distances; linear
    recall@10 no lower than phase 5's minus 0.01. The fits', the
    calibration's and the reconfigure's stage seconds are logged.
+5g. The sharded engine over phase 5's engine: ShardedRii on
+   make_mesh(4, device="cuda"), four shards on the one card (what a
+   four-card mesh computes), one tier at a time, each freed before the
+   next. bf16: linear query_batch at Q=1024 and 128 (kernel A, once a
+   shard), IVF at L=5000 with Q=32 (kernel B) in fast and exact mode, a
+   subset of 100k ids linear and IVF, and add of 20k rows on the delta
+   path (shards kept, no refresh; the new rows find themselves at rank 1).
+   int8 windows: IVF at Q=8 and 64 (kernel G). pq windows: IVF at Q=8 and
+   64 (kernel E); then sr.reconfigure(nlist=1000) against
+   e.reconfigure(nlist=1000) of an engine over the same codes (centers
+   and assignments bit-equal; both times logged), and IVF at Q=128
+   (kernel D, Q >= D) after a mesh reconfigure to nlist=4000, at the
+   largest L that keeps the batch's union under half the capacity (at
+   nlist=1000 a batch of Q >= 64 covers the engine's layout, which then
+   takes the linear scan). Each kernel is held to its plain twin on the
+   arguments the shards gave it in one batch (every shard's call, the
+   tolerance of phase 3). The bf16 tier's answers are held to phase 5's
+   engine on the same batch (its launches left out of the phase's
+   counts), which runs the same selector: ids per rank but at ties,
+   distances within 1e-5 relative where both rescore in float32 (Q < 512
+   linear, and IVF), recall@10 at Q=1024 no lower than the engine's minus
+   0.005. The int8 and code tiers' answers are held to the same shards
+   with the window kernel replaced by its plain twin (the same selector,
+   in plain PyTorch) to the same 1e-5; no distance may lie below the exact
+   top-k, and recall@10 beside the exact-mode walk's is logged. Subset
+   answers lie in the subset. Logged beside the card's name and power
+   limit: ms a batch beside the engine's, refresh seconds per tier,
+   delta-add seconds, reconfigure seconds, peak memory.
 6. Engine, pq tier: the SIFT1B-shape lifecycle (the reference's billion-
    scale config M=8, Ks=256, D=128, nlist=31623 on 2^25 synthetic codes, as
    benchmarks/sift1b_shape.py runs it): add_codes ingest, reconfigure,
@@ -100,12 +128,14 @@ Phases, each of which must pass (no exception is caught):
    G and staying off the linear scan, and add(+50k).
 Phases 7 and 8 print ``memory_breakdown`` and check that the replica and the
 decoded windows stay within ``decoded_cache_budget``. Each engine phase
-sets every launch count to 0 just before it and reads them just after.
+sets every launch count to 0 just before it and reads them just after;
+kernels A, B, D, E and G must each launch in phase 5g.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import os
 import pickle
@@ -227,14 +257,23 @@ def kernels_a_call(fn, calls=5):
     return launched / calls, len(ran) / calls, sorted(set(ran))
 
 
-def compare_keys(name, v_k, s_k, v_t, s_t):
+def compare_keys(name, v_k, s_k, v_t, s_t, packed_bits=0):
     """Unpacked values within the tolerance; slots agree on >= 99% of the
-    tiles, and where they differ the values still agree (a near-tie)."""
+    tiles, and where they differ the values still agree (a near-tie). Any
+    shape: the calls of one path may be flattened and concatenated. Keys
+    unpacked from floats whose low ``packed_bits`` bits hold the slot keep
+    23 - packed_bits mantissa bits: one step of those is added to the
+    bound, since a rounding difference below it can flip the last kept bit
+    (the phases that scale their inputs keep that step under the bound)."""
     fin = torch.isfinite(v_t)
     if not torch.equal(fin, torch.isfinite(v_k)):
         raise AssertionError(f"{name}: +inf pattern differs")
     err = (v_k[fin] - v_t[fin]).abs()
     bound = TOL_ATOL + TOL_RTOL * v_t[fin].abs()
+    if packed_bits:
+        v = v_t[fin]
+        bound = bound + torch.ldexp(torch.ones_like(v),
+                                    torch.frexp(v).exponent - (24 - packed_bits))
     if not bool((err <= bound).all()):
         raise AssertionError(f"{name}: max |diff| {err.max().item():.3e} over tolerance")
     agree = (s_k[fin] == s_t[fin]).float().mean().item()
@@ -1009,15 +1048,19 @@ def assert_same_answers(a, b, what):
             f"max |diff| {float(np.abs(da - db).max()):.3e})")
 
 
-def assert_ranked_ids_match(ids_a, d_a, ids_b, d_b, rtol, what):
+def assert_ranked_ids_match(ids_a, d_a, ids_b, d_b, rtol, what, past_last=False):
     """Distances agree to rtol per rank; ids agree per rank except where
-    the distance at that rank is tied (as tests/_torch_parity.py)."""
+    the distance at that rank is tied (as tests/_torch_parity.py). With
+    ``past_last``, a tie with the last rank may run past it: an id tied
+    with the last distance is accepted though the other answer cut it."""
     if not np.allclose(d_a, d_b, rtol=rtol, atol=rtol):
         raise AssertionError(f"{what}: distances differ, max rel "
                              f"{float((np.abs(d_a - d_b) / np.abs(d_b)).max()):.3e}")
     for r in range(ids_a.shape[0]):
         for k in np.nonzero(ids_a[r] != ids_b[r])[0]:
             ties = np.isclose(d_b[r], d_a[r, k], rtol=rtol, atol=rtol)
+            if past_last and ties[-1]:
+                continue
             if ids_a[r, k] not in ids_b[r][ties]:
                 raise AssertionError(f"{what}: query {r} rank {k}: {ids_a[r]} vs {ids_b[r]}")
 
@@ -1243,6 +1286,420 @@ def phase_opq(dev, ctx):
     del e, p, dc
     torch.cuda.empty_cache()
     return launches
+
+
+# phase 5g's sizes: phase 5's engine (N=2M, nlist=1000) over four shards of
+# one card. Kernel D needs Q >= D=128 with the batch's union under half the
+# capacity, where both the engine and the shards scan windows; at nlist=1000
+# (wv=64) a batch of Q >= 64 covers the engine's layout and it takes the
+# linear scan. So D runs after a finer mesh reconfigure (nlist=4000, about
+# three windows a list), at the largest L of L_d whose wv is at most 16
+# (a union of at most 2048 windows at Q=128).
+SHARDED = {"shards": 4, "L": 5000, "q_ivf": 32, "q_small": (8, 64), "add": 20000,
+           "subset": 100000, "nlist_d": 4000, "L_d": (2000, 1000, 500, 250),
+           "q_d": 128}
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+class uncounted:
+    """Launches inside are left out of the phase's counts (the single-device
+    engine's reference answers): every count is restored on exit."""
+
+    def __enter__(self):
+        self.saved = {k: f.launches for k, f in kernel_wrappers().items()}
+
+    def __exit__(self, *exc):
+        for k, f in kernel_wrappers().items():
+            f.launches = self.saved[k]
+
+
+def require_launches(names, what):
+    """Each of ``names`` (the JSON record's names) launched at least once
+    since the counts were last set to 0."""
+    counts = {k: f.launches for k, f in kernel_wrappers().items()}
+    missing = [n for n in names if not counts[n]]
+    if missing:
+        raise AssertionError(f"{what}: {missing} never launched ({counts})")
+
+
+def timed_batch(fn, reps=5):
+    """(answer, median host seconds of fn() over reps runs after one warm
+    run); fn returns numpy, so each run ends with the card done."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t0)
+    return out, float(np.median(times))
+
+
+@contextlib.contextmanager
+def patched(module, name, fn):
+    """``module.name`` is ``fn`` inside the block."""
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def window_twins():
+    """The window kernels' wrappers by the names ``ops/ivf.py`` calls them,
+    each with its JSON record's name and its plain twin."""
+    from rii_tpu_torch.ops import hopper_i8 as HI
+    from rii_tpu_torch.ops import hopper_pq as HP
+    from rii_tpu_torch.ops import hopper_scan as H
+    return {"ivf_window_tile_minima": ("ivf_window_top2", H.ivf_window_tile_minima_plain),
+            "ivf_i8_window_tile_minima": ("ivf_i8_window_top2",
+                                          HI.ivf_i8_window_tile_minima_plain),
+            "ivf_dt_window_tile_minima": ("ivf_dt_window_top2",
+                                          HP.ivf_dt_window_tile_minima_plain),
+            "ivf_pq_window_tile_minima": ("ivf_pq_window_top2",
+                                          HP.ivf_pq_window_tile_minima_plain)}
+
+
+def twin_keys(name, args, kw):
+    """(values, slots) of the kernel and of its plain twin on one captured
+    call, flattened: ``name`` is ``replica_scan_topk_t`` (kernel A, the
+    sharded linear scan's entry) or a window kernel's name in ops/ivf.py."""
+    from rii_tpu_torch.ops import hopper_scan as H
+    from rii_tpu_torch.ops import ivf as IV
+    if name == "replica_scan_topk_t":
+        q, dec_t, norms_rep = args[:3]
+        out = [H._unpack(f(q, dec_t, norms_rep[0]), 0x7F)
+               for f in (H.replica_tile_keys, H.replica_tile_keys_plain)]
+    else:
+        out = [f(*args, **kw) for f in (getattr(IV, name), window_twins()[name][1])]
+    return [t.reshape(-1) for pair in out for t in pair]
+
+
+def phase_sharded(dev, ctx):
+    """Phase 5g (module docstring): ShardedRii over phase 5's engine on a
+    four-shard mesh of the one card."""
+    run = ShardedPhase(dev, ctx)
+    try:
+        return run.drive()
+    finally:
+        log("  sharded: " + json.dumps(run.figs))
+
+
+class ShardedPhase:
+    """Phase 5g's state and gates. Every kernel is held to its plain twin on
+    the arguments the shards gave it. The answers are held to a reference
+    that runs the same selector: the engine's (ranks but at ties, 1e-5)
+    for the bf16 tier, whose windows and replica the engine's cache holds
+    too; the same shards with the window kernel swapped for its plain twin
+    for the int8 and code tiers (the engine's int8 windows take other
+    column scales, and its code windows the engine does not build at this
+    size)."""
+
+    RTOL = 1e-5  # both sides rescore in float32 (Q < 512, IVF)
+
+    def __init__(self, dev, ctx):
+        from rii_tpu_torch.parallel import make_mesh
+        self.dev = dev
+        self.cfg = ctx.get("sharded_cfg", SHARDED)
+        self.e, self.queries, self.gt = ctx["e"], ctx["queries"], ctx["gt"]
+        self.topk, self.L = 10, self.cfg["L"]
+        self.mesh = make_mesh(self.cfg["shards"],
+                              device="cuda" if dev.type == "cuda" else "cpu")
+        self.figs = {"card": card_line() if dev.type == "cuda" else "cpu"}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+
+    def sync(self):
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def peak_gib(self, key):
+        if self.dev.type == "cuda":
+            self.figs[key] = torch.cuda.max_memory_allocated() / 2**30
+
+    def free(self):
+        if self.dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def check(self, got, ref, what):
+        """The same selector on both sides: ranks but at ties, 1e-5."""
+        assert_ranked_ids_match(got[0], got[1], ref[0], ref[1], self.RTOL,
+                                f"sharded {what}", past_last=True)
+        if not np.isfinite(got[1]).all():
+            raise AssertionError(f"sharded {what}: non-finite distances")
+
+    def log_walk(self, got, lin, walk, what):
+        """No rank nearer than the exact top-k (``lin``); recall@10 beside
+        the exact-mode walk's (``walk``), logged."""
+        gt = self.gt[:len(got[0])]
+        if not (np.isfinite(got[1]).all()
+                and (got[1] >= lin[1] * (1 - self.RTOL) - self.RTOL).all()):
+            raise AssertionError(f"sharded {what}: a distance below the exact top-k")
+        self.figs[f"{what}: recall10, the exact walk's"] = [recall(got[0], gt, 10),
+                                                           recall(walk[0], gt, 10)]
+
+    def held_to_twin(self, module, name, run, what):
+        """run() once with ``module.name`` recording its calls, then the
+        kernel held to its plain twin on every captured call (all shards'
+        calls flattened into one comparison, phase 3's tolerance; these
+        launches are left out of the counts). Returns run()'s answer."""
+        calls, fn = [], getattr(module, name)
+
+        def spy(*args, **kw):
+            calls.append((args, kw))
+            return fn(*args, **kw)
+
+        with patched(module, name, spy):
+            out = run()
+        with uncounted():
+            parts = [twin_keys(name, a, kw) for a, kw in calls]
+        del calls
+        v_k, s_k, v_t, s_t = (torch.cat([p[i] for p in parts]) for i in range(4))
+        del parts
+        label = window_twins()[name][0] if name in window_twins() else "replica_tile_keys"
+        err = compare_keys(f"sharded {what}: {label} against its twin", v_k, s_k, v_t, s_t,
+                           packed_bits=7 if name == "replica_scan_topk_t" else 0)
+        self.figs[f"{what}: {label} max |diff| to its twin"] = err
+        return out
+
+    def plain_route(self, name, run):
+        """run() with ops/ivf.py's window kernel ``name`` replaced by its
+        plain twin: the same selector as the kernel route, no launch."""
+        from rii_tpu_torch.ops import ivf as IV
+        with uncounted(), patched(IV, name, window_twins()[name][1]):
+            return run()
+
+    def both(self, name, run_sharded, run_engine):
+        """The engine's batch (left out of the counts) and the shards', each
+        the median of 5 host-clock runs after a warm one."""
+        with uncounted():
+            ref, t_e = timed_batch(run_engine)
+        got, t_s = timed_batch(run_sharded)
+        self.figs[f"{name}_ms"] = [t_s * 1e3, t_e * 1e3]  # sharded, engine
+        return got, ref
+
+    def engine(self, *args, **kw):
+        """The engine's answer, left out of the counts."""
+        with uncounted():
+            return self.e.query_batch(*args, topk=self.topk, **kw)
+
+    def walk(self, sr, qs, L):
+        """The exact-mode walk of ``sr`` on a batch (float32 probes, exact
+        selection, the plain union scan)."""
+        sr.topk_recall = None
+        try:
+            return sr.query_batch(qs, topk=self.topk, L=L, method="ivf")
+        finally:
+            sr.topk_recall = 0.99
+
+    def refresh(self, tier):
+        from rii_tpu_torch.parallel import ShardedRii
+        t0 = time.perf_counter()
+        sr = ShardedRii(self.e, mesh=self.mesh, use_decoded=tier)
+        self.sync()
+        self.figs[f"refresh_{tier}_s"] = time.perf_counter() - t0
+        return sr
+
+    def launched(self, kernel, before, what):
+        if kernel_wrappers()[kernel].launches == before:
+            raise AssertionError(f"sharded {what}: {kernel} was not launched")
+
+    def drive(self):
+        reset_launch_counts()
+        walks = self.bf16_tier()
+        for tier, name in (("i8", "ivf_i8_window_tile_minima"),
+                           (False, "ivf_dt_window_tile_minima")):
+            sr = self.window_tier(tier, name, walks)
+        self.reconfigure_and_d(sr)
+        del sr
+        self.free()
+        launches = {k: f.launches for k, f in kernel_wrappers().items() if f.launches}
+        log(f"  launches in the sharded phase: {launches}")
+        require_launches(["replica_tile_keys", "ivf_window_top2", "ivf_i8_window_top2",
+                          "ivf_dt_window_top2", "ivf_pq_window_top2"], "the sharded phase")
+        return launches
+
+    def bf16_tier(self):
+        """Kernel A (linear), kernel B (IVF), subsets, the delta add.
+        Returns the exact walks of the later tiers' batches, after the add."""
+        e, queries, gt, topk, L, cfg = (self.e, self.queries, self.gt, self.topk,
+                                        self.L, self.cfg)
+        sr = self.refresh(True)
+        if sr.decoded_t is None or sr.ivf["mode"] != "bf16":
+            raise AssertionError("sharded: the bf16 tier did not build its kernel route")
+        from rii_tpu_torch.ops import ivf as IV
+        from rii_tpu_torch.parallel import distributed as PD
+        for qn in (1024, 128):
+            got, ref = self.both(f"linear_q{qn}",
+                                 lambda: sr.query_batch(queries[:qn], topk=topk),
+                                 lambda: e.query_batch(queries[:qn], topk=topk,
+                                                       method="linear"))
+            self.held_to_twin(PD, "replica_scan_topk_t",
+                              lambda: sr.query_batch(queries[:qn], topk=topk),
+                              f"linear Q={qn}")
+            if qn < 512:
+                self.check(got, ref, f"linear Q={qn}")
+            r_s, r_e = recall(got[0][:128], gt, 10), recall(ref[0][:128], gt, 10)
+            self.figs[f"recall10_linear_q{qn}"] = [r_s, r_e]
+            if r_s < r_e - 0.005:
+                raise AssertionError(f"sharded linear Q={qn}: recall@10 {r_s} < {r_e} - 0.005")
+        require_launches(["replica_tile_keys"], "sharded bf16 linear")
+        q_ivf = queries[:cfg["q_ivf"]]
+        b0 = kernel_wrappers()["ivf_window_top2"].launches
+        got, ref = self.both("ivf_q32",
+                             lambda: sr.query_batch(q_ivf, topk=topk, L=L, method="ivf"),
+                             lambda: e.query_batch(q_ivf, topk=topk, L=L, method="ivf"))
+        self.check(got, ref, f"IVF Q={len(q_ivf)} L={L}")
+        self.launched("ivf_window_top2", b0, "bf16 IVF")
+        self.held_to_twin(IV, "ivf_window_tile_minima",
+                          lambda: sr.query_batch(q_ivf, topk=topk, L=L, method="ivf"),
+                          f"IVF Q={len(q_ivf)}")
+        sr.topk_recall = e.topk_recall = None  # exact mode: the plain union scan
+        try:
+            got, ref = self.both("ivf_q32_exact",
+                                 lambda: sr.query_batch(q_ivf, topk=topk, L=L, method="ivf"),
+                                 lambda: e.query_batch(q_ivf, topk=topk, L=L, method="ivf"))
+            self.check(got, ref, f"IVF exact Q={len(q_ivf)} L={L}")
+        finally:
+            sr.topk_recall = e.topk_recall = 0.99
+        tids = np.sort(np.random.RandomState(7).choice(e.N, cfg["subset"],
+                                                       replace=False)).astype(np.int64)
+        for method, q_s in (("linear", queries[:128]), ("ivf", q_ivf)):
+            got, ref = self.both(f"subset_{method}",
+                                 lambda: sr.query_batch(q_s, topk=topk, L=L, target_ids=tids,
+                                                        method=method),
+                                 lambda: e.query_batch(q_s, topk=topk, L=L, target_ids=tids,
+                                                       method=method))
+            self.check(got, ref, f"subset {method} |S|={len(tids)}")
+            if not np.isin(got[0][got[0] >= 0], tids).all():
+                raise AssertionError(f"sharded subset {method}: ids outside the subset")
+        # add on the delta path: in-place scatters, no refresh
+        held, cap0, n0 = list(sr.codes) + sr.decoded_t[0], sr.cap, e.N
+        y = np.random.RandomState(11).random((cfg["add"], e.M * e.fine_quantizer.Ds)
+                                             ).astype(np.float32)
+        t0 = time.perf_counter()
+        sr.add(y)
+        self.sync()
+        self.figs["delta_add_s"] = time.perf_counter() - t0
+        if (sr.cap != cap0 or sr._engine_version != e._version or sr._n_dev != e.N
+                or not all(a is b for a, b in zip(list(sr.codes) + sr.decoded_t[0], held))):
+            raise AssertionError("sharded add: the delta path refreshed the shards")
+        got = sr.query_batch(y[:128], topk=topk)
+        if not (got[0][:, 0] == n0 + np.arange(128)).all():
+            raise AssertionError("sharded add: the new rows do not find themselves at rank 1")
+        self.check(got, self.engine(y[:128], method="linear"), "linear after the add")
+        # IVF reaches the new rows through their posting lists, as the
+        # engine, whose cache took the same rows in place
+        q_new = y[:cfg["q_ivf"]]
+        got, ref = self.both("ivf_after_add",
+                             lambda: sr.query_batch(q_new, topk=topk, L=L, method="ivf"),
+                             lambda: e.query_batch(q_new, topk=topk, L=L, method="ivf"))
+        self.check(got, ref, "IVF after the add")
+        self.figs["ivf_after_add_self_at_rank1"] = float(
+            (got[0][:, 0] == n0 + np.arange(cfg["q_ivf"])).mean())
+        # the later tiers' batches, on this state: the exact walk and the
+        # exact top-k
+        walks = {}
+        for qn in cfg["q_small"]:
+            qs = queries[:qn]
+            walks[qn] = (self.walk(sr, qs, L), self.engine(qs, method="linear"))
+        self.peak_gib("peak_gib_bf16")
+        del sr, held
+        self.free()
+        return walks
+
+    def window_tier(self, tier, name, walks):
+        """int8 windows (kernel G) or code windows (kernel E at Q < D), at
+        the batch sizes of ``cfg["q_small"]``; ``name`` is the window
+        kernel's in ops/ivf.py. Returns the shards."""
+        from rii_tpu_torch.ops import ivf as IV
+        sr = self.refresh(tier)
+        kernel = window_twins()[name][0]
+        for qn in self.cfg["q_small"]:
+            qs = self.queries[:qn]
+
+            def run():
+                return sr.query_batch(qs, topk=self.topk, L=self.L, method="ivf")
+
+            k0 = kernel_wrappers()[kernel].launches
+            got, ref_e = self.both(f"ivf_{tier}_q{qn}", run,
+                                   lambda: self.e.query_batch(qs, topk=self.topk, L=self.L,
+                                                              method="ivf"))
+            self.launched(kernel, k0, f"{tier} IVF Q={qn}")
+            self.held_to_twin(IV, name, run, f"{tier} IVF Q={qn}")
+            self.check(got, self.plain_route(name, run), f"{tier} IVF Q={qn} (plain route)")
+            walk, lin = walks[qn]
+            self.log_walk(got, lin, walk, f"{tier} IVF Q={qn}")
+            self.figs[f"ivf_{tier}_q{qn}: ranks off the engine's"] = int(
+                (got[0] != ref_e[0]).sum())
+        self.peak_gib(f"peak_gib_{tier}")
+        if tier == "i8":
+            del sr
+            self.free()
+            return None
+        return sr
+
+    def reconfigure_and_d(self, sr):
+        """The mesh reconfigure against the single-device one over the same
+        codes (bit-equal), then kernel D at Q >= D on a finer layout."""
+        from rii_tpu_torch.utils.convert import engine_from_arrays
+        e, cfg = self.e, self.cfg
+        e2 = engine_from_arrays(e.codewords, e.codes, e.coarse_centers, e._assignments(),
+                                device=self.dev)
+        t0 = time.perf_counter()
+        e2.reconfigure(nlist=e.nlist)
+        self.figs["reconfigure_s"] = [None, time.perf_counter() - t0]
+        self.figs["reconfigure_engine_stages"] = {
+            k: round(v, 4) for k, v in e2.last_reconfigure_stats.items()}
+        t0 = time.perf_counter()
+        sr.reconfigure(nlist=e.nlist)
+        self.sync()
+        self.figs["reconfigure_s"][0] = time.perf_counter() - t0  # sharded, engine
+        self.figs["reconfigure_mesh_stages"] = {
+            k: round(v, 4) for k, v in e.last_reconfigure_stats.items()}
+        if not (np.array_equal(e.coarse_centers, e2.coarse_centers)
+                and np.array_equal(e._assignments(), e2._assignments())):
+            raise AssertionError("sharded reconfigure: not bit-equal to the single-device one")
+        del e2
+        t0 = time.perf_counter()
+        sr.reconfigure(nlist=cfg["nlist_d"])
+        self.figs[f"reconfigure_mesh_nlist{cfg['nlist_d']}_s"] = time.perf_counter() - t0
+        iv = sr.ivf
+
+        def wv_of(L_):
+            return e._probe_width_virtual(L_, None, iv)
+
+        L_d = max([L_ for L_ in cfg["L_d"] if wv_of(L_) <= 16], default=None)
+        if L_d is None:
+            raise AssertionError(f"sharded: no L of {cfg['L_d']} keeps wv <= 16")
+        qs = self.queries[:cfg["q_d"]]
+        self.figs["ivf_pq_d"] = {"nlist": e.nlist, "nlist_v": iv["nlist_v"], "L": L_d,
+                                 "wv": wv_of(L_d)}
+        from rii_tpu_torch.ops import ivf as IV
+
+        def run():
+            return sr.query_batch(qs, topk=self.topk, L=L_d, method="ivf")
+
+        what = f"pq IVF Q={cfg['q_d']} nlist={e.nlist} L={L_d}"
+        d0 = kernel_wrappers()["ivf_pq_window_top2"].launches
+        got, ref_e = self.both(f"ivf_pq_q{cfg['q_d']}", run,
+                               lambda: e.query_batch(qs, topk=self.topk, L=L_d,
+                                                     method="ivf"))
+        self.launched("ivf_pq_window_top2", d0, what)
+        self.held_to_twin(IV, "ivf_pq_window_tile_minima", run, what)
+        self.check(got, self.plain_route("ivf_pq_window_tile_minima", run),
+                   f"{what} (plain route)")
+        self.log_walk(got, self.engine(qs, method="linear"), self.walk(sr, qs, L_d), what)
+        self.figs[f"ivf_pq_q{cfg['q_d']}: ranks off the engine's"] = int(
+            (got[0] != ref_e[0]).sum())
+        self.peak_gib("peak_gib")
 
 
 def phase_engine_k11(dev, ctx):
@@ -1691,7 +2148,7 @@ def main():
     log(f"phase engine: {time.perf_counter() - t0:.1f} s")
     for phase, fn in (("K11 route", phase_engine_k11), ("ops", phase_ops),
                       ("checkpoint", phase_checkpoint), ("serving", phase_serving),
-                      ("OPQ", phase_opq)):
+                      ("OPQ", phase_opq), ("sharded", phase_sharded)):
         t0 = time.perf_counter()
         for k, c in fn(dev, ctx).items():  # a kernel on two paths: both runs count
             launches[k] = launches.get(k, 0) + c

@@ -8,9 +8,11 @@ This package imports ``torch`` and never ``jax``.
 
 The entry points run on the card unless the caller asks for the CPU:
 ``PQ(...)``, ``OPQ(...)``, their ``from_codewords(...)``, ``pqkmeans_fit``,
-``pqkmeans_predict``, ``engine_from_arrays``, ``load_index`` and
-``measure_rtt`` default to ``device="cuda"``, and ``Rii(pq)`` takes the
-codec's device (or ``device=``). Asking for CUDA without a card raises; pass ``device="cpu"``
+``pqkmeans_predict``, ``engine_from_arrays``, ``load_index``,
+``measure_rtt`` and the sharded engine's meshes (``rii_tpu_torch.parallel``:
+``make_mesh``, ``make_mesh_hc``, ``init_distributed``) default to
+``device="cuda"``, ``Rii(pq)`` takes the codec's device (or ``device=``)
+and ``ShardedRii(e)`` the engine's. Asking for CUDA without a card raises; pass ``device="cpu"``
 to run on the CPU.
 """
 

@@ -72,6 +72,54 @@ def _update_centers(codewords, centers, sums, counts):
     return torch.where(counts[:, None] > 0, new, centers)
 
 
+def _blocks(codes_d, blk, blocks):
+    """The non-empty (blk, M) blocks ``blocks`` (indexes) of ``codes_d``."""
+    for b in blocks:
+        cb = codes_d[b * blk:(b + 1) * blk]
+        if cb.shape[0]:
+            yield cb
+
+
+def _group_stats(codewords, codes_d, blk, blocks, centers_dec, csq, k):
+    """Decoded sums (k, D) and counts (k,) of one reduction group: its
+    blocks of ``codes_d`` (``blocks``, indexes in order) summed in sequence.
+    The distributed fit computes each group on the shard that holds it."""
+    sums = torch.zeros((k, centers_dec.shape[1]), dtype=torch.float32,
+                       device=codes_d.device)
+    counts = torch.zeros((k,), dtype=torch.float32, device=codes_d.device)
+    for cb in _blocks(codes_d, blk, blocks):
+        a, _, dec_b = _assign_block(codewords, cb, centers_dec, csq)
+        # a one-hot product, not index_add_: float atomics on the card
+        # would make the sums differ from run to run
+        oh = torch.nn.functional.one_hot(a, k).to(torch.float32)
+        sums += oh.T @ dec_b
+        counts += oh.sum(0)
+    return sums, counts
+
+
+def _combine_group_stats(stats):
+    """The group partials [(sums_g, counts_g), ...] added in group order:
+    the one combine order of the single-device and the distributed fits,
+    so that both give the same float32 sums."""
+    sums = torch.zeros_like(stats[0][0])
+    counts = torch.zeros_like(stats[0][1])
+    for sums_g, counts_g in stats:
+        sums += sums_g
+        counts += counts_g
+    return sums, counts
+
+
+def _assign_blocks(codewords, codes_d, blk, blocks, centers_dec, csq):
+    """Assignment-only pass over ``blocks`` of ``codes_d``: (assign (n,)
+    int64, errors (n,) f32) of their rows, in block order."""
+    assigns, errs = [], []
+    for cb in _blocks(codes_d, blk, blocks):
+        a, e, _ = _assign_block(codewords, cb, centers_dec, csq)
+        assigns.append(a)
+        errs.append(e)
+    return torch.cat(assigns), torch.cat(errs)
+
+
 def pqkmeans_fit(codewords, codes, k, iters=5, seed=0, block=4096,
                  device="cuda", verbose=False):
     """Cluster (N, M) uint8 codes into k centers that are themselves codes.
@@ -89,41 +137,18 @@ def pqkmeans_fit(codewords, codes, k, iters=5, seed=0, block=4096,
     blk, nb = fit_layout(n, block=block)
     per_group = nb // _CANON_GROUPS
     codes_d = torch.tensor(codes, device=device)
-    d = cw.shape[0] * cw.shape[2]
-
-    def blocks_of(g):
-        for b in range(g * per_group, (g + 1) * per_group):
-            cb = codes_d[b * blk:(b + 1) * blk]
-            if cb.shape[0]:
-                yield cb
+    groups = [range(g * per_group, (g + 1) * per_group)
+              for g in range(_CANON_GROUPS)]
 
     for _ in range(iters - 1):
         cdec, csq = _centers_decoded(cw, centers)
-        sums = torch.zeros((k, d), dtype=torch.float32, device=device)
-        counts = torch.zeros((k,), dtype=torch.float32, device=device)
-        for g in range(_CANON_GROUPS):
-            sums_g = torch.zeros_like(sums)
-            counts_g = torch.zeros_like(counts)
-            for cb in blocks_of(g):
-                a, _, dec_b = _assign_block(cw, cb, cdec, csq)
-                # a one-hot product, not index_add_: float atomics on the
-                # card would make the sums differ from run to run
-                oh = torch.nn.functional.one_hot(a, k).to(torch.float32)
-                sums_g += oh.T @ dec_b
-                counts_g += oh.sum(0)
-            sums += sums_g
-            counts += counts_g
+        sums, counts = _combine_group_stats(
+            [_group_stats(cw, codes_d, blk, g, cdec, csq, k) for g in groups])
         centers = _update_centers(cw, centers, sums, counts)
     cdec, csq = _centers_decoded(cw, centers)
-    assigns, errs = [], []
-    for g in range(_CANON_GROUPS):
-        for cb in blocks_of(g):
-            a, e, _ = _assign_block(cw, cb, cdec, csq)
-            assigns.append(a)
-            errs.append(e)
-    assign = torch.cat(assigns)
+    assign, errs = _assign_blocks(cw, codes_d, blk, range(nb), cdec, csq)
     if verbose:
-        err = float(torch.cat(errs).mean())
+        err = float(errs.mean())
         print(f"pqkmeans: k={k}, N={n}, iters={iters}, mean err {err:.6f}")
     return (centers.to(torch.uint8).cpu().numpy(),
             assign.cpu().numpy().astype(np.int32))

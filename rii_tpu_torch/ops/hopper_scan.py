@@ -47,7 +47,7 @@ _IVF_TILE = 8  # slots per IVF tile (two candidates each)
 _PACK_CLAMP = 3.0e38  # +inf clamped finite so that packing never makes a NaN
 _PACK_RESTORE = 2.9e38  # restored to +inf after unpacking
 _TN_MIN_Q = 512  # the JAX package's NN/TN crossover; the engine's rescore
-                 # policy (Rii._resolve_rescore) still keys on it
+                 # policy (rii.resolve_rescore) still keys on it
 _TWIN_SCORES = 1 << 26  # f32 scores a twin holds at once (256 MiB)
 _SUB = 256  # the JAX row-major kernels' sub-block: blk must be a multiple
 

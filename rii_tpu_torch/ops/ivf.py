@@ -32,6 +32,14 @@ from rii_tpu_torch.ops.hopper_scan import (
 _INF = float("inf")
 
 
+def _searchsorted_member(sorted_ids, n_valid, values):
+    """True where ``values`` appears in ``sorted_ids[:n_valid]`` (the sorted
+    subset ids, padded past ``n_valid`` with a sentinel above every id)."""
+    pos = torch.searchsorted(sorted_ids, values)
+    pos = pos.clamp(0, sorted_ids.shape[0] - 1)
+    return (sorted_ids[pos] == values) & (pos < n_valid)
+
+
 def _probe_topk(cscores, w):
     """The w nearest (virtual) centers per query: (Q, w) ids, exact (the
     JAX package's approximate top-k in the fast mode is a TPU speed device).
@@ -52,8 +60,13 @@ def _coarse_scores(q_all, centers_dec, centers_norms, exact):
 
 
 def _union(q_all, centers_dec, centers_norms, w, nlist_pad, recall_target,
-           probe_recall):
-    """Sorted union of the batch's probes: (flat (U,) int32, dup (U,) bool)."""
+           probe_recall, probes=None):
+    """Sorted union of the batch's probes: (flat (U,) int32, dup (U,) bool).
+    ``probes``, an externally selected (flat, dup) union (the sharded
+    engine's global probe selection), is taken as it is."""
+    if probes is not None:
+        flat, dup = probes
+        return flat.to(torch.int32), dup.to(torch.bool)
     qn = q_all.shape[0]
     dev = q_all.device
     pr = recall_target if probe_recall == "inherit" else probe_recall
@@ -69,18 +82,19 @@ def _union(q_all, centers_dec, centers_norms, w, nlist_pad, recall_target,
 
 
 def _rescore_slots(q_all, slot_top, valid, order_g, norms_g, codes, codewords,
-                   rows_fn, topk):
+                   rows_fn, topk, codes_grouped=False):
     """Exact re-rank of candidate grouped slots (Q, k).
 
-    With ``codes`` the rows are decoded exactly from the uint8 codes through
-    ``order_g``; otherwise ``rows_fn(safe_slots)`` gives them. Negative ids
-    are clamped before any gather and masked by ``valid`` afterwards."""
+    With ``codes`` the rows are decoded exactly from the uint8 codes, read
+    through ``order_g`` (original order) or by slot (``codes_grouped``);
+    otherwise ``rows_fn(safe_slots)`` gives them. Negative ids are clamped
+    before any gather and masked by ``valid`` afterwards."""
     qn, k = slot_top.shape
     safe = slot_top.clamp(min=0).long()
     if codes is None:
         rows, q = rows_fn(safe), q_all.to(torch.bfloat16).float()
     else:
-        ids0 = order_g[safe].clamp(min=0).long()
+        ids0 = safe if codes_grouped else order_g[safe].clamp(min=0).long()
         rows = onehot_decode(codes[ids0.reshape(-1)], codewords).reshape(qn, k, -1)
         q = q_all
     cross = torch.einsum("qkd,qd->qk", rows, q)
@@ -101,7 +115,8 @@ def ivf_union_scan_topk(queries, decoded_g, norms_g, order_g, centers_dec,
                         centers_norms, w, topk, cap_u, nlist_pad,
                         target_mask=None, recall_target=None,
                         use_kernel=False, probe_recall="inherit", codes=None,
-                        codewords=None, overfetch=2):
+                        codewords=None, overfetch=2, probes=None,
+                        codes_grouped=False):
     """Batched IVF probe over the union of the batch's probed windows.
 
     queries (Q, D) f32; decoded_g (nlist_pad*cap_u, D) bf16 (1e15 on padding
@@ -110,7 +125,11 @@ def ivf_union_scan_topk(queries, decoded_g, norms_g, order_g, centers_dec,
     centers, +inf norms on padding; target_mask optional (total,) bool,
     False slots excluded. ``use_kernel`` takes kernel B; otherwise the plain
     chunked branch. With ``codes``/``codewords`` the selection overfetches
-    and re-ranks in exact float32 ADC.
+    and re-ranks in exact float32 ADC; ``codes`` are (cap, M) in original
+    order, or the (total, M) grouped codes with ``codes_grouped``.
+    ``probes``: an externally selected sorted union (flat (U,) int32 window
+    ids, dup (U,) bool), in place of the batch's own (the sharded engine's
+    global probe selection).
 
     Returns (dists (Q, topk) f32 ascending, ids (Q, topk) int64, -1 padded).
     """
@@ -119,7 +138,7 @@ def ivf_union_scan_topk(queries, decoded_g, norms_g, order_g, centers_dec,
     if target_mask is not None:
         norms_g = torch.where(target_mask, norms_g, torch.full_like(norms_g, _INF))
     flat, dup = _union(q_all, centers_dec, centers_norms, w, nlist_pad,
-                       recall_target, probe_recall)
+                       recall_target, probe_recall, probes)
     k_sel = topk if codes is None else max(topk * overfetch, topk + 8)
 
     def rows_fn(safe):
@@ -137,7 +156,7 @@ def ivf_union_scan_topk(queries, decoded_g, norms_g, order_g, centers_dec,
         # point at slots whose norms may be finite: keep them masked
         dist, slots = _rescore_slots(q_all, slot_top, torch.isfinite(neg_sel),
                                      order_g, norms_g, codes, codewords,
-                                     rows_fn, topk)
+                                     rows_fn, topk, codes_grouped)
         return _ids_of(order_g, slots, dist, topk)
 
     # plain branch: whole windows gathered in chunks, one product per chunk;
@@ -162,7 +181,8 @@ def ivf_union_scan_topk(queries, decoded_g, norms_g, order_g, centers_dec,
     slot_top = torch.gather(slots, 1, p)
     if codes is not None:
         dist, sl = _rescore_slots(q_all, slot_top, torch.isfinite(v), order_g,
-                                  norms_g, codes, codewords, rows_fn, topk)
+                                  norms_g, codes, codewords, rows_fn, topk,
+                                  codes_grouped)
         return _ids_of(order_g, sl, dist, topk)
     qsq = (q_all * q_all).sum(-1)
     return _ids_of(order_g, slot_top, v + qsq[:, None], topk)
@@ -189,7 +209,8 @@ def ivf_union_scan_topk_pq(queries, codes_g, norms_g, order_g, codewords,
                            centers_dec, centers_norms, w, topk, cap_u,
                            nlist_pad, target_mask=None, recall_target=None,
                            probe_recall="inherit", vlen=None,
-                           use_kernel=False, overfetch=2, cw_norms=None):
+                           use_kernel=False, overfetch=2, cw_norms=None,
+                           probes=None):
     """Union-bucket IVF over uint8 code windows (the pq tier).
 
     Two branches, as in the JAX module. ``use_kernel`` (with ``vlen``, the
@@ -203,14 +224,15 @@ def ivf_union_scan_topk_pq(queries, codes_g, norms_g, order_g, codewords,
 
     The plain branch decodes the windows chunk by chunk: in float32 in exact
     mode (``recall_target=None``), else in bf16 with an exact float32
-    rescore of the selected slots."""
+    rescore of the selected slots. ``probes`` as in
+    :func:`ivf_union_scan_topk`."""
     q_all = queries.float()
     qn, d = q_all.shape
     m = codes_g.shape[1]
     if target_mask is not None:
         norms_g = torch.where(target_mask, norms_g, torch.full_like(norms_g, _INF))
     flat, dup = _union(q_all, centers_dec, centers_norms, w, nlist_pad,
-                       recall_target, probe_recall)
+                       recall_target, probe_recall, probes)
     if use_kernel:
         pen = None
         if target_mask is not None:
@@ -263,14 +285,17 @@ def ivf_union_scan_topk_i8(queries, decoded_g_i8, col_scales, norms_g,
                            order_g, codes, codewords, centers_dec,
                            centers_norms, vlen, w, topk, cap_u, nlist_pad,
                            target_mask=None, recall_target=None,
-                           probe_recall="inherit"):
+                           probe_recall="inherit", probes=None,
+                           codes_grouped=False):
     """Union-bucket IVF over int8 windows, the middle memory tier (port of
     the JAX module's ``ivf_union_scan_topk_i8``).
 
     decoded_g_i8 (total, D) int8 grouped rows with column scales
     ``col_scales`` (D,); norms_g (total,) f32, +inf on padding; order_g
     int32 original ids, -1 on padding; codes (cap, M) uint8 in original
-    order, read through order_g for the rescore; vlen (nlist_pad,) int32
+    order, read through order_g for the rescore, or with ``codes_grouped``
+    the (total, M) grouped codes read by slot (the sharded engine's store);
+    ``probes`` as in :func:`ivf_union_scan_topk`; vlen (nlist_pad,) int32
     member count of each window; target_mask
     optional (total,) bool, riding as the 0/+inf penalty stream. Kernel G
     selects ``min(max(2*topk, topk+8), ncols)`` slots at int8 precision;
@@ -284,7 +309,7 @@ def ivf_union_scan_topk_i8(queries, decoded_g_i8, col_scales, norms_g,
         norms_g = torch.where(target_mask, norms_g, torch.full_like(norms_g, _INF))
         pen = torch.where(target_mask, 0.0, _INF).to(torch.float32)
     flat, dup = _union(q_all, centers_dec, centers_norms, w, nlist_pad,
-                       recall_target, probe_recall)
+                       recall_target, probe_recall, probes)
     vmin, amin = ivf_i8_window_tile_minima(q_all, decoded_g_i8, col_scales,
                                            flat, dup.to(torch.int32),
                                            vlen[flat.long()], cap_u, pen=pen)
@@ -296,5 +321,5 @@ def ivf_union_scan_topk_i8(queries, decoded_g_i8, col_scales, norms_g,
     # slots whose codes decode to finite distances: keep them masked
     dist, slots = _rescore_slots(q_all, slot_top, torch.isfinite(sel),
                                  order_g, norms_g, codes, codewords, None,
-                                 topk)
+                                 topk, codes_grouped)
     return _ids_of(order_g, slots, dist, topk)

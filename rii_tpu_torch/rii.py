@@ -111,6 +111,14 @@ def _pad_queries(queries, lo=1):
     return np.concatenate([queries, pad], axis=0), qn
 
 
+def resolve_rescore(exact_rescore, qn):
+    """Exact-rescore policy of the bf16 tiers for a batch of ``qn`` queries:
+    "auto" rescores below ``_TN_MIN_Q`` queries; True/False force it."""
+    if exact_rescore == "auto":
+        return qn < _TN_MIN_Q
+    return bool(exact_rescore)
+
+
 class _RWLock:
     """Many concurrent readers (queries) or one exclusive writer (mutation).
 
@@ -308,6 +316,34 @@ class Rii:
         runs PQk-means, then assigns all N codes. ``threshold`` is refreshed
         from the analytic cost model, or by the timed sweep
         (:func:`estimate_best_threshold_function`) when ``calibrate``."""
+
+        def fit(sample, k, iters):
+            centers, _ = pqkmeans_fit(self.codewords, sample, k=k, iters=iters,
+                                      seed=_PQKMEANS_SEED, device=self.device,
+                                      verbose=self._verbose)
+            return centers
+
+        def predict(codes, centers, stats):
+            t0 = time.perf_counter()
+            codes_d = predict_upload(codes, device=self.device)
+            self._sync()
+            stats["predict_upload_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            assign = pqkmeans_predict_device(self.codewords, centers, codes_d)
+            stats["predict_s"] = time.perf_counter() - t0
+            return assign
+
+        return self._reconfigure(nlist, iter, calibrate, fit, predict)
+
+    def _reconfigure(self, nlist, iter, calibrate, fit, predict, on_swap=None):
+        """The body of :meth:`reconfigure` with its two steps given: ``fit(
+        sample, k, iters)`` returns the (k, M) uint8 centers, ``predict(codes,
+        centers, stats)`` the (N,) int32 posting assignment and adds its
+        stages' seconds to ``stats`` (the mesh build passes its own). The
+        sample, the seeds, the state swap and the threshold refresh are one
+        code path for both. Everything up to the swap runs in one exclusive
+        section; ``on_swap``, if given, runs at its end, so that a sharded
+        view rebuilds its shards before any query sees the new state."""
         if nlist is None:
             nlist = int(np.sqrt(self._n))
         assert 0 < nlist, "nlist must be positive"
@@ -327,24 +363,19 @@ class Rii:
             if self._verbose:
                 print(f"Training coarse centers on {n_train} codes (nlist={nlist})")
             t0 = time.perf_counter()
-            centers, _ = pqkmeans_fit(self.codewords, sample, k=nlist,
-                                      iters=iter, seed=_PQKMEANS_SEED,
-                                      device=self.device, verbose=self._verbose)
+            centers = fit(sample, nlist, iter)
             stats["fit_s"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            codes_d = predict_upload(codes, device=self.device)
-            self._sync()
-            stats["predict_upload_s"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            assign = pqkmeans_predict_device(self.codewords, centers, codes_d)
-            stats["predict_s"] = time.perf_counter() - t0
-            del codes_d
+            assign = predict(codes, centers, stats)
             self._centers = centers
             self._assign_chunks = [assign]
             # new assignments void a loaded layout, even at the same n and
             # nlist
             self._layout_v = None
             self._bump()
+            if not calibrate:
+                self.threshold = self._analytic_threshold()
+            if on_swap is not None:
+                on_swap()
         self.last_reconfigure_stats = stats
         if self._verbose:
             print("reconfigure stages:",
@@ -353,8 +384,6 @@ class Rii:
         if calibrate:
             probes = self.fine_quantizer.decode(codes[: min(100, self._n)])
             self.threshold = estimate_best_threshold_function(self, probes)
-        else:
-            self.threshold = self._analytic_threshold()
         return self
 
     def add(self, vecs, update_posting_lists="auto"):
@@ -423,7 +452,12 @@ class Rii:
     def _add_codes(self, codes, update_flag):
         """Append a code batch, and scatter it into the live device cache
         when there is one with room (else the cache is dropped and rebuilt
-        at the next query)."""
+        at the next query). Returns (n0, assign, version): the batch's first
+        id, its assignments and the engine's version after the append, all
+        read inside the append's exclusive section, so that they describe
+        this batch whatever other thread appends too (the sharded engine's
+        delta placement needs that, and the version to see any other
+        mutation in between)."""
         codes = np.ascontiguousarray(codes, dtype=np.uint8)
         assert codes.ndim == 2 and codes.shape[1] == self.M
         msg = ("reconfigure() must be called before add(vecs=X, "
@@ -464,8 +498,10 @@ class Rii:
             finally:
                 if not ok:
                     self._dc = None
+            version = self._version
         if self._verbose:
             print(f"{codes.shape[0]} new vectors are added. Total: {self._n}")
+        return n0, assign, version
 
     def _apply_add_to_cache(self, codes, assign, n0):
         """Scatter k new rows into the live device cache (the reference's
@@ -624,13 +660,6 @@ class Rii:
                 else require_dtype(target_ids, np.int64, "target_ids"), L)
         return ids[0].astype(np.int64), dists[0].astype(np.float64)
 
-    def _resolve_rescore(self, qn):
-        """Exact-rescore policy of the bf16 tiers: "auto" rescores below
-        ``_TN_MIN_Q`` queries; True/False force it."""
-        if self.exact_rescore == "auto":
-            return qn < _TN_MIN_Q
-        return bool(self.exact_rescore)
-
     def _subset_mask(self, dc, tids):
         mask = torch.zeros(dc["cap"], dtype=torch.bool, device=self.device)
         mask[torch.tensor(np.clip(tids, 0, dc["cap"] - 1),
@@ -641,7 +670,7 @@ class Rii:
         dc = self._ensure_cache()
         qp, qn = _pad_queries(queries)
         qd = torch.tensor(qp, device=self.device)
-        rs = self._resolve_rescore(qd.shape[0])
+        rs = resolve_rescore(self.exact_rescore, qd.shape[0])
         rs_codes = dc["codes_flat"] if rs else None
         rs_cw = dc["codewords"] if rs else None
         norms = dc["norms_flat"]
@@ -702,12 +731,19 @@ class Rii:
                                         block=dc["block"])
         return i[:qn].cpu().numpy(), d[:qn].cpu().numpy()
 
-    def _probe_width_virtual(self, L, s, dc):
-        """Probe width in virtual buckets, with the reference's candidate
-        budget: its +3 whole lists become +3 * (windows per list)."""
+    def _probe_budget_virtual(self, L, s, dc):
+        """The reference's candidate budget in virtual buckets: L rows of
+        ``s`` (N by default), plus its +3 whole lists as +3 * (windows per
+        list). ``dc`` is a layout with ``nlist_v`` (the device cache, or a
+        sharded view's windows)."""
         denom = self._n if s is None else s
         slack = 3 * max(1, -(-dc["nlist_v"] // max(1, self.nlist)))
-        wv = int(np.round(float(L) * dc["nlist_v"] / denom)) + slack
+        return int(np.round(float(L) * dc["nlist_v"] / max(1, denom))) + slack
+
+    def _probe_width_virtual(self, L, s, dc):
+        """Probe width in virtual buckets: the budget rounded up to a power
+        of two, at most ``dc["nlist_v_pad"]``."""
+        wv = self._probe_budget_virtual(L, s, dc)
         return min(dc["nlist_v_pad"], _pow2_at_least(max(1, wv)))
 
     def _query_ivf_batch(self, queries, topk, tids, L, force_full=False):
@@ -733,7 +769,7 @@ class Rii:
             # the window kernel pays off on big unions only (the JAX
             # package's measured crossover, kept as is)
             u_est = min(qd.shape[0] * wv, dc["nlist_v_pad"])
-            rs = self._resolve_rescore(qd.shape[0])
+            rs = resolve_rescore(self.exact_rescore, qd.shape[0])
             d, i = ivf_union_scan_topk(
                 qd, dc["decoded_g"], dc["norms_g"], dc["order_g"],
                 dc["centers_dec_v"], dc["centers_norms_v"], w=wv, topk=topk,
@@ -907,6 +943,10 @@ class Rii:
         if self.topk_recall is None:
             return False
         return self.force_kernel_routing or self.device.type == "cuda"
+
+    def _use_decoded_cache(self, cap):
+        """Whether a cache of capacity ``cap`` holds the bf16 replica."""
+        return self._resolve_scan_mode(cap) == "bf16"
 
     def _resolve_scan_mode(self, cap):
         """scan_mode ('auto'|'pq'|'bf16'|'int8') -> the concrete tier."""

@@ -52,3 +52,18 @@ def assert_keys_match(v_a, l_a, v_b, l_b, rtol=1e-5, atol=1e-5, agree=0.99):
     np.testing.assert_array_equal(np.isfinite(v_a), fin)
     np.testing.assert_allclose(v_a[fin], v_b[fin], rtol=rtol, atol=atol)
     assert (l_a[fin] == l_b[fin]).mean() >= agree
+
+
+def port_engine(je, **attrs):
+    """A CPU port engine over a JAX engine's arrays (codewords, codes,
+    coarse centers, assignments and, for OPQ, the rotation), so that both
+    hold the same state; ``attrs`` set on it (scan_mode, topk_recall, ...)."""
+    from rii_tpu_torch.utils.convert import engine_from_arrays
+
+    rot = getattr(je.fine_quantizer, "rotation_matrix", None)
+    te = engine_from_arrays(je.codewords, je.codes, je.coarse_centers,
+                            je._assignments(), device="cpu",
+                            rotation_matrix=rot)
+    for k, v in attrs.items():
+        setattr(te, k, v)
+    return te

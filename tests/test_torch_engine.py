@@ -435,6 +435,7 @@ def test_cuda_without_a_card_raises(setup, monkeypatch):
 def test_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; import rii_tpu_torch; "
             "import rii_tpu_torch.utils.convert, rii_tpu_torch.ops.ivf; "
+            "import rii_tpu_torch.parallel; "
             "assert 'rii_tpu' not in sys.modules")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
