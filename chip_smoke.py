@@ -7,8 +7,9 @@ Phases, each of which must pass (no exception is caught):
 
 1. The card: requires ``torch.cuda.is_available()`` and prints the card's
    name and power limit from ``nvidia-smi``.
-2. Build: compiles the CUDA kernels from ``rii_tpu_torch/csrc`` with nvcc,
-   one process per source, all started together.
+2. Build: compiles the CUDA kernels from ``rii_tpu_torch/csrc`` with nvcc
+   and the TexMex reader with g++, one process per source, all started
+   together.
 3. Kernel against twin: each kernel against its plain PyTorch twin on the
    card, at the main path's shapes, with the CPU tests' tolerances, timed
    with CUDA events (median of 7), beside its bound (the larger of its
@@ -99,6 +100,34 @@ Phases, each of which must pass (no exception is caught):
    answers lie in the subset. Logged beside the card's name and power
    limit: ms a batch beside the engine's, refresh seconds per tier,
    delta-add seconds, reconfigure seconds, peak memory.
+5h. The reference's exact walk and the last modules, on phase 5's engine
+   and data, before 5g (which adds rows to that engine and reconfigures
+   it). The native TexMex reader (built by g++ from
+   rii_tpu_torch/csrc/texmex_native.cpp; the phase fails, printing the
+   build error, where it did not build): a .bvecs file of phase 5's rows
+   times 255 (2,000,000 x 128, 264 MB), an .fvecs file of the queries and
+   an .ivecs file of their ground truth, read back through
+   bvecs_read_batches (2^19 rows a batch), fvecs_read, ivecs_read and
+   native.bvecs_read_f32, bit-equal to what was written and to the
+   readers' numpy path, a count past the end and a count of 0 giving the
+   numpy path's shapes; MB/s of both paths. The numpy oracle
+   (utils.oracle.query_ivf_oracle) walks phase 5's own codes, coarse
+   centers and posting lists for 32 queries at L=5000 and 8 queries over
+   a sorted subset of 100,000 ids at L=1000; an exact-mode engine
+   (topk_recall=None) over phase 5's arrays dominates the walk at every
+   rank (engine distance <= oracle * (1 + 1e-4) + 1e-6) and returns
+   exact ADC (ops.decode.adc_oracle on the card and adc_np, within 1e-5 of
+   ||q||^2 + ||x||^2, the float32 terms the engine's identity cancels);
+   phase 5's engine in fast mode at Q=32, L=5000 launches kernel B, held
+   to its twin on that batch, and dominates no less than the same batch
+   with B swapped for its twin, less 1/(Q*topk) (the ROADMAP's bar logged
+   beside it). The whole-bucket layout (models.ivf.build_grouped_layout,
+   numpy, timed) and ops.ivf.ivf_scan_topk on the card at the walk's
+   width (round(2.5) + 3 = 5): dominance 1 and exact ADC as above;
+   ivf_scan_topk_decoded (bf16 cross terms) logged with its ms a batch.
+   models.kmeans.kmeans_fit on 131,072 rows at k=1024, 20 iterations: its
+   assignments are assign()'s at its centers, its error no higher than at
+   its initial rows; seconds logged.
 6. Engine, pq tier: the SIFT1B-shape lifecycle (the reference's billion-
    scale config M=8, Ks=256, D=128, nlist=31623 on 2^25 synthetic codes, as
    benchmarks/sift1b_shape.py runs it): add_codes ingest, reconfigure,
@@ -129,7 +158,7 @@ Phases, each of which must pass (no exception is caught):
 Phases 7 and 8 print ``memory_breakdown`` and check that the replica and the
 decoded windows stay within ``decoded_cache_budget``. Each engine phase
 sets every launch count to 0 just before it and reads them just after;
-kernels A, B, D, E and G must each launch in phase 5g.
+kernels A, B, D, E and G must each launch in phase 5g, and B in phase 5h.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -320,8 +349,9 @@ def phase_card():
 
 def phase_build():
     from rii_tpu_torch.ops import _build
-    names = ("replica_tc", "ivf_pq_window")
-    # one nvcc per source, all started together
+    names = ("replica_tc", "ivf_pq_window", "texmex_native")
+    # one compiler per source (nvcc for the kernels, g++ for the TexMex
+    # reader), all started together
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(lambda nm: _build.load_library(nm, verbose=True), names))
     for name in names:
@@ -1288,6 +1318,277 @@ def phase_opq(dev, ctx):
     return launches
 
 
+# phase 5h's sizes, on phase 5's engine (N=2M, nlist=1000): the oracle's
+# batches (Q=32 at L=5000, whose walk width is round(2.5) + 3 = 5; 8
+# queries over a sorted subset at L=1000), the readers' batch and the
+# k-means problem
+ORACLE = {"q": 32, "L": 5000, "q_subset": 8, "subset": 100000, "L_subset": 1000,
+          "batch": 1 << 19, "kmeans_rows": 131072, "kmeans_k": 1024, "kmeans_iters": 20}
+DOMINANCE_RTOL, DOMINANCE_ATOL = 1e-4, 1e-6  # tests/test_oracle_parity.py's
+# exact ADC: 1e-5 of ||q||^2 + ||x||^2, the float32 terms whose difference the
+# engine's identity ||x||^2 - 2 q.x + ||q||^2 forms (at phase 5's data the
+# nearest distances are ~0.7 against ~86: there one float32 step of the terms
+# is ~1e-5 of the distance, and 1e-5 of the distance itself is not reachable)
+ADC_RTOL = 1e-5
+
+
+def dominance(engine_d, oracle_d):
+    """Share of the oracle's (query, rank) entries whose engine distance is
+    no worse: engine <= oracle * (1 + 1e-4) + 1e-6."""
+    hits = total = 0
+    for row, d_o in zip(engine_d, oracle_d):
+        k = len(d_o)
+        hits += int((row[:k] <= d_o * (1 + DOMINANCE_RTOL) + DOMINANCE_ATOL).sum())
+        total += k
+    return hits / total
+
+
+def check_adc(dev, e, queries, ids, dists, what):
+    """Returned distances are the exact ADC of the returned ids: within
+    1e-5 of ||q||^2 + ||x||^2 (``ADC_RTOL``) of ``ops.decode.adc_oracle`` on
+    ``dev`` and of the numpy oracle's ``adc_np``. Returns the largest error
+    relative to those terms and relative to the distance itself."""
+    from rii_tpu_torch.models.ivf import code_norms_np
+    from rii_tpu_torch.ops.decode import adc_oracle
+    from rii_tpu_torch.utils.oracle import adc_np, dtable_np
+    cw = torch.tensor(e.codewords, device=dev)
+    worst = {"of_terms": 0.0, "of_distance": 0.0}
+    for q, row, d in zip(queries, ids, dists):
+        ok = row >= 0
+        codes = e.codes[row[ok]]
+        terms = float((q.astype(np.float64) ** 2).sum()) + code_norms_np(
+            e.codewords, codes).astype(np.float64)
+        ref_dev = adc_oracle(torch.tensor(q, device=dev), torch.tensor(codes, device=dev),
+                             cw).cpu().numpy().astype(np.float64)
+        ref_np = adc_np(dtable_np(q, e.codewords), codes).astype(np.float64)
+        for ref, name in ((ref_dev, "adc_oracle"), (ref_np, "adc_np")):
+            err = np.abs(d[ok] - ref)
+            worst["of_terms"] = max(worst["of_terms"], float((err / terms).max(initial=0.0)))
+            worst["of_distance"] = max(worst["of_distance"],
+                                       float((err / ref).max(initial=0.0)))
+            if not (err <= ADC_RTOL * terms).all():
+                raise AssertionError(f"{what}: distances off {name} by "
+                                     f"{(err / terms).max():.3e} of ||q||^2 + ||x||^2")
+    return worst
+
+
+def sync(dev):
+    """Wait for the card (nothing to wait for on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_oracle(dev, ctx):
+    """Phase 5h (module docstring): the native reader, the engine held to
+    the reference's exact walk, the whole-bucket IVF ops and k-means, on
+    phase 5's engine and data."""
+    cfg = ctx.get("oracle_cfg", ORACLE)
+    figs = {"card": card_line() if dev.type == "cuda" else "cpu"}
+    reset_launch_counts()
+    try:
+        oracle_native_reader(ctx, cfg, figs)
+        walks = oracle_engine(dev, ctx, cfg, figs)
+        oracle_grouped_ops(dev, ctx, cfg, figs, walks)
+        oracle_kmeans(dev, ctx, cfg, figs)
+    finally:
+        log("  oracle: " + json.dumps(figs))
+    launches = {k: f.launches for k, f in kernel_wrappers().items() if f.launches}
+    log(f"  launches in the oracle phase: {launches}")
+    require_launches(["ivf_window_top2"], "the oracle phase")
+    return launches
+
+
+def write_texmex(path, arr):
+    """One TexMex file: each row an int32 dimension, then its payload."""
+    d = arr.shape[1]
+    rec = np.empty((len(arr), 4 + d * arr.itemsize), np.uint8)
+    rec[:, :4] = np.frombuffer(np.int32(d).tobytes(), np.uint8)
+    rec[:, 4:] = np.ascontiguousarray(arr).view(np.uint8).reshape(len(arr), -1)
+    rec.tofile(path)
+    return rec.nbytes
+
+
+def oracle_native_reader(ctx, cfg, figs):
+    """The readers through the native library, bit-equal to what was
+    written and to their numpy path; MB/s of both."""
+    from rii_tpu_torch import native
+    from rii_tpu_torch.utils import io as tio
+    if not native.available():
+        raise AssertionError(f"the native TexMex reader did not build: {native.build_error}")
+    xb = (ctx["x"] * 255).astype(np.uint8)
+    gt = ctx["gt"].astype(np.int32)[:, None]
+    queries = ctx["queries"]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: os.path.join(tmp, f"x.{k}") for k in ("bvecs", "fvecs", "ivecs")}
+        nbytes = write_texmex(paths["bvecs"], xb)
+        write_texmex(paths["fvecs"], queries)
+        write_texmex(paths["ivecs"], gt)
+
+        def read_all():
+            t0 = time.perf_counter()
+            b = np.concatenate(list(tio.bvecs_read_batches(paths["bvecs"], cfg["batch"])))
+            took = time.perf_counter() - t0
+            return took, b, tio.fvecs_read(paths["fvecs"]), tio.ivecs_read(paths["ivecs"])
+
+        def edges():
+            n_q = len(queries)
+            return [tio.fvecs_read(paths["fvecs"], count=n_q, offset=n_q - 24).shape,
+                    tio.fvecs_read(paths["fvecs"], count=0).shape,
+                    tio.ivecs_read(paths["ivecs"], count=len(gt) + 5, offset=3).shape,
+                    [a.shape for a in tio.bvecs_read_batches(
+                        paths["bvecs"], cfg["batch"], count=len(xb) + 5)]]
+
+        t_nat, *got_nat = read_all()
+        t0 = time.perf_counter()
+        b2f = native.bvecs_read_f32(paths["bvecs"])
+        t_b2f = time.perf_counter() - t0
+        edge_nat = edges()
+        with patched(native, "available", lambda: False):
+            t_np, *got_np = read_all()
+            edge_np = edges()
+    for name, a, b, ref in zip(("bvecs", "fvecs", "ivecs"), got_nat, got_np, (xb, queries, gt)):
+        if not (a.dtype == b.dtype == ref.dtype and np.array_equal(a, ref)
+                and np.array_equal(b, ref)):
+            raise AssertionError(f"native reader: {name} differs from what was written")
+    if not np.array_equal(b2f, xb.astype(np.float32)):
+        raise AssertionError("native reader: bvecs_read_f32 differs from what was written")
+    if edge_nat != edge_np:
+        raise AssertionError(f"native reader: clamped reads {edge_nat} against numpy's {edge_np}")
+    figs["reader_bvecs_mb_s"] = {"native": nbytes / t_nat / 1e6, "numpy": nbytes / t_np / 1e6,
+                                 "native_f32": nbytes / t_b2f / 1e6, "mb": nbytes / 1e6}
+
+
+def oracle_engine(dev, ctx, cfg, figs):
+    """The exact walk of the reference, from the engine's own arrays: an
+    exact-mode engine over phase 5's arrays dominates it at every rank
+    with exact ADC distances; phase 5's engine in fast mode (kernel B) is
+    no lower than the same batch with B swapped for its twin. Returns the
+    oracle's walks: {"full": (queries, distances)}."""
+    from rii_tpu_torch.ops import hopper_scan as H
+    from rii_tpu_torch.ops import ivf as IV
+    from rii_tpu_torch.utils.convert import engine_from_arrays
+    from rii_tpu_torch.utils.oracle import query_ivf_oracle
+    e, queries, topk = ctx["e"], ctx["queries"], 10
+    qf, L = queries[:cfg["q"]], cfg["L"]
+    qs, Ls = queries[:cfg["q_subset"]], cfg["L_subset"]
+    tids = np.sort(np.random.RandomState(7).choice(e.N, cfg["subset"], replace=False)
+                   ).astype(np.int64)
+    t0 = time.perf_counter()
+    pl = e.posting_lists
+    walk = {"full": [query_ivf_oracle(q, topk, L, e.codewords, e.coarse_centers, pl,
+                                      e.codes)[1] for q in qf],
+            "subset": [query_ivf_oracle(q, topk, Ls, e.codewords, e.coarse_centers, pl,
+                                        e.codes, target_ids=tids)[1] for q in qs]}
+    figs["oracle_walks_s"] = time.perf_counter() - t0
+    figs["oracle_w"] = min(e.nlist, int(round(float(L) * e.nlist / e.N)) + 3)
+
+    ex = engine_from_arrays(e.codewords, e.codes, e.coarse_centers, e._assignments(),
+                            device=dev)
+    ex.topk_recall = None
+    t0 = time.perf_counter()
+    full = ex.query_batch(qf, topk=topk, L=L, method="ivf")
+    sub = ex.query_batch(qs, topk=topk, L=Ls, target_ids=tids, method="ivf")
+    figs["exact_first_batches_s"] = time.perf_counter() - t0
+    for name, got, w in (("full", full, walk["full"]), ("subset", sub, walk["subset"])):
+        dom = dominance(got[1], w)
+        figs[f"exact_{name}_dominance"] = dom
+        if dom != 1.0:
+            raise AssertionError(f"oracle: exact-mode {name} dominance {dom} < 1")
+    if not np.isin(sub[0][sub[0] >= 0], tids).all():
+        raise AssertionError("oracle: exact-mode subset ids outside the subset")
+    figs["exact_adc_max_err"] = [check_adc(dev, ex, qf, *full, "oracle exact full"),
+                                 check_adc(dev, ex, qs, *sub, "oracle exact subset")]
+    del ex
+
+    # fast mode: phase 5's engine, kernel B, against its twin route
+    def fast():
+        return e.query_batch(qf, topk=topk, L=L, method="ivf")
+
+    b0 = H.ivf_window_tile_minima.launches
+    got, _, err = held_to_twin(IV, "ivf_window_tile_minima", fast,
+                               f"oracle fast Q={len(qf)} L={L}")
+    if H.ivf_window_tile_minima.launches == b0:
+        raise AssertionError("oracle: the fast-mode batch did not launch kernel B")
+    with uncounted(), patched(IV, "ivf_window_tile_minima", H.ivf_window_tile_minima_plain):
+        twin = fast()
+    dom, dom_twin = dominance(got[1], walk["full"]), dominance(twin[1], walk["full"])
+    figs["fast_dominance"] = {"kernel": dom, "twin_route": dom_twin,
+                              "roadmap_bar_bf16": [0.991, 0.998]}
+    figs["fast_b_max_abs_diff_to_twin"] = err
+    if dom < dom_twin - 1 / (len(qf) * topk):
+        raise AssertionError(f"oracle: fast-mode dominance {dom} below the twin route's "
+                             f"{dom_twin} less 1/(Q*topk)")
+    return {"full": (qf, walk["full"])}
+
+
+def oracle_grouped_ops(dev, ctx, cfg, figs, walks):
+    """build_grouped_layout over phase 5's codes, then ivf_scan_topk (f32)
+    and ivf_scan_topk_decoded (bf16 cross terms) on ``dev`` at the
+    oracle's width."""
+    from rii_tpu_torch.models.ivf import build_grouped_layout, code_norms_np
+    from rii_tpu_torch.ops.decode import build_decoded_cache, onehot_decode
+    from rii_tpu_torch.ops.ivf import ivf_scan_topk, ivf_scan_topk_decoded
+    e, topk = ctx["e"], 10
+    qf, oracle_d = walks["full"]
+    t0 = time.perf_counter()
+    norms = code_norms_np(e.codewords, e.codes)
+    lay = build_grouped_layout(e.codes, norms, e._assignments(), e.nlist)
+    figs["grouped_layout_s"] = time.perf_counter() - t0
+    figs["grouped_cap_max"] = lay["cap_max"]
+
+    def t(a):
+        return torch.tensor(a, device=dev)
+
+    cw = t(e.codewords)
+    cdec = onehot_decode(t(e.coarse_centers), cw)
+    cnorm = (cdec * cdec).sum(-1)
+    common = (cdec, cnorm, t(lay["bucket_start"]))
+    tail = (t(lay["norms_grouped"]), t(lay["order"]), t(lay["slot_cluster"]))
+    kw = dict(w=figs["oracle_w"], topk=topk, cap_max=lay["cap_max"])
+    q = t(qf)
+    codes_g = t(lay["codes_grouped"])
+    decoded = build_decoded_cache(t(e.codes), cw)
+
+    def f32():
+        return ivf_scan_topk(q, cw, *common, codes_g, *tail, **kw)
+
+    def bf16():
+        return ivf_scan_topk_decoded(q, decoded, *common, *tail, **kw)
+
+    outs = {}
+    for name, fn in (("f32", f32), ("bf16", bf16)):
+        d, i = (a.cpu().numpy() for a in fn())
+        outs[name] = (i, d.astype(np.float64))
+        figs[f"grouped_{name}_dominance"] = dominance(outs[name][1], oracle_d)
+        figs[f"grouped_{name}_ms"] = cuda_ms(fn) if dev.type == "cuda" else None
+    if figs["grouped_f32_dominance"] != 1.0:
+        raise AssertionError(f"grouped f32 scan: dominance {figs['grouped_f32_dominance']} < 1")
+    figs["grouped_f32_adc_max_err"] = check_adc(dev, e, qf, *outs["f32"], "grouped f32 scan")
+    del decoded, codes_g
+
+
+def oracle_kmeans(dev, ctx, cfg, figs):
+    """kmeans_fit on phase 5's rows: its assignments are assign()'s at its
+    centers, and its error is no higher than at its initial rows."""
+    from rii_tpu_torch.models.kmeans import assign, kmeans_fit
+    n, k, iters = cfg["kmeans_rows"], cfg["kmeans_k"], cfg["kmeans_iters"]
+    x = torch.tensor(ctx["x"][:n], device=dev)
+    picks = torch.randperm(n, generator=torch.Generator().manual_seed(5))[:k].to(dev)
+    err0 = float(assign(x, x[picks])[1].mean())
+    sync(dev)
+    t0 = time.perf_counter()
+    centers, idx = kmeans_fit(x, k, iters=iters, generator=torch.Generator().manual_seed(5))
+    sync(dev)
+    figs["kmeans_fit_s"] = time.perf_counter() - t0
+    idx2, d2 = assign(x, centers)
+    err = float(d2.mean())
+    figs["kmeans_mse"] = {"initial": err0, "fitted": err}
+    if not torch.equal(idx, idx2):
+        raise AssertionError("k-means: kmeans_fit's assignments are not assign()'s")
+    if err > err0:
+        raise AssertionError(f"k-means: error {err} above the initial rows' {err0}")
+
+
 # phase 5g's sizes: phase 5's engine (N=2M, nlist=1000) over four shards of
 # one card. Kernel D needs Q >= D=128 with the batch's union under half the
 # capacity, where both the engine and the shards scan windows; at nlist=1000
@@ -1382,6 +1683,32 @@ def twin_keys(name, args, kw):
     return [t.reshape(-1) for pair in out for t in pair]
 
 
+def held_to_twin(module, name, run, what):
+    """run() once with ``module.name`` recording its calls, then the kernel
+    held to its plain twin on every captured call (all calls flattened into
+    one comparison, phase 3's tolerance; these launches are left out of the
+    counts). Returns (run()'s answer, the kernel's record name, max |diff|)."""
+    calls, fn = [], getattr(module, name)
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return fn(*args, **kw)
+
+    with patched(module, name, spy):
+        out = run()
+    if not calls:
+        raise AssertionError(f"{what}: {name} was not called")
+    with uncounted():
+        parts = [twin_keys(name, a, kw) for a, kw in calls]
+    del calls
+    v_k, s_k, v_t, s_t = (torch.cat([p[i] for p in parts]) for i in range(4))
+    del parts
+    label = window_twins()[name][0] if name in window_twins() else "replica_tile_keys"
+    err = compare_keys(f"{what}: {label} against its twin", v_k, s_k, v_t, s_t,
+                       packed_bits=7 if name == "replica_scan_topk_t" else 0)
+    return out, label, err
+
+
 def phase_sharded(dev, ctx):
     """Phase 5g (module docstring): ShardedRii over phase 5's engine on a
     four-shard mesh of the one card."""
@@ -1417,8 +1744,7 @@ class ShardedPhase:
             torch.cuda.reset_peak_memory_stats()
 
     def sync(self):
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize()
+        sync(self.dev)
 
     def peak_gib(self, key):
         if self.dev.type == "cuda":
@@ -1446,26 +1772,8 @@ class ShardedPhase:
                                                            recall(walk[0], gt, 10)]
 
     def held_to_twin(self, module, name, run, what):
-        """run() once with ``module.name`` recording its calls, then the
-        kernel held to its plain twin on every captured call (all shards'
-        calls flattened into one comparison, phase 3's tolerance; these
-        launches are left out of the counts). Returns run()'s answer."""
-        calls, fn = [], getattr(module, name)
-
-        def spy(*args, **kw):
-            calls.append((args, kw))
-            return fn(*args, **kw)
-
-        with patched(module, name, spy):
-            out = run()
-        with uncounted():
-            parts = [twin_keys(name, a, kw) for a, kw in calls]
-        del calls
-        v_k, s_k, v_t, s_t = (torch.cat([p[i] for p in parts]) for i in range(4))
-        del parts
-        label = window_twins()[name][0] if name in window_twins() else "replica_tile_keys"
-        err = compare_keys(f"sharded {what}: {label} against its twin", v_k, s_k, v_t, s_t,
-                           packed_bits=7 if name == "replica_scan_topk_t" else 0)
+        """:func:`held_to_twin` over every shard's call, its error kept."""
+        out, label, err = held_to_twin(module, name, run, f"sharded {what}")
         self.figs[f"{what}: {label} max |diff| to its twin"] = err
         return out
 
@@ -2148,7 +2456,8 @@ def main():
     log(f"phase engine: {time.perf_counter() - t0:.1f} s")
     for phase, fn in (("K11 route", phase_engine_k11), ("ops", phase_ops),
                       ("checkpoint", phase_checkpoint), ("serving", phase_serving),
-                      ("OPQ", phase_opq), ("sharded", phase_sharded)):
+                      ("OPQ", phase_opq), ("oracle", phase_oracle),
+                      ("sharded", phase_sharded)):
         t0 = time.perf_counter()
         for k, c in fn(dev, ctx).items():  # a kernel on two paths: both runs count
             launches[k] = launches.get(k, 0) + c

@@ -1,12 +1,16 @@
-"""Host-side construction of the grouped IVF storage layout (numpy only).
+"""Host-side construction of the grouped IVF storage layouts (numpy only).
 
-A copy of the numpy host code of ``rii_tpu.models.ivf``: importing anything
-under ``rii_tpu`` imports jax, and this package must not. The functions are
-the same line for line, so the layouts (and the posting lists derived from
-them) are identical between the two packages.
+A copy of the numpy host code of ``rii_tpu.models.ivf``: this package
+imports nothing of ``rii_tpu``. The functions are the same line for line,
+so the layouts (and the posting lists derived from them) are identical
+between the two packages. The engine builds the virtual layout;
+:func:`build_grouped_layout`, one window a whole bucket, feeds the
+ops-level ``ops.ivf.ivf_scan_topk`` and ``ivf_scan_topk_decoded``.
 """
 
 import numpy as np
+
+_PAD = 8  # slot alignment per bucket of the grouped layout
 
 
 def code_norms_np(codewords, codes):
@@ -25,6 +29,77 @@ def code_norms_np(codewords, codes):
     for j in range(1, m):
         out += cnorms[j][codes[:, j]]
     return out.astype(np.float32, copy=False)
+
+
+def build_grouped_layout(codes, norms, assignments, nlist):
+    """Whole-bucket grouped layout from per-id cluster assignments.
+
+    A single flat code array permuted so each cluster's members are
+    contiguous, every bucket padded to an 8-slot multiple:
+
+        order[slot]         -> original vector id (-1 on padding slots)
+        codes_grouped[slot] -> PQ code of that id (0 on padding)
+        norms_grouped[slot] -> ||decode(code)||^2 (+inf on padding: auto-masked)
+        slot_cluster[slot]  -> cluster of the slot (-1 on padding)
+        bucket_start[c]     -> first slot of cluster c
+        bucket_len[c]       -> true member count of cluster c
+
+    Probing cluster c is then a (start, cap_max) window; a tail of cap_max
+    slots keeps every window in bounds. assignments may contain -1 (ids not
+    yet in any posting list, the reference's add(update_posting_lists=False)
+    state); those ids are absent from the layout until the next
+    reconfigure/update.
+
+    Returns a dict of numpy arrays + static ints (cap_max, total).
+    """
+    m = codes.shape[1] if codes.ndim == 2 else 0
+    assignments = np.asarray(assignments, dtype=np.int64)
+    in_bucket = assignments >= 0
+    counts = np.bincount(assignments[in_bucket], minlength=nlist)
+    padded = ((counts + _PAD - 1) // _PAD) * _PAD  # may be 0 for empty buckets
+    bucket_start = np.zeros(nlist, dtype=np.int32)
+    if nlist > 1:
+        bucket_start[1:] = np.cumsum(padded)[:-1].astype(np.int32)
+    cap_max = int(max(int(padded.max()) if nlist else _PAD, _PAD))
+    total = int(padded.sum()) + cap_max  # tail window so every slice is in bounds
+    total = ((total + _PAD - 1) // _PAD) * _PAD
+
+    order = np.full(total, -1, dtype=np.int32)
+    # stable sort by cluster keeps ids ascending within each bucket, matching the
+    # reference's sequential push_back order (reference src/rii.h:356-358).
+    ids = np.nonzero(in_bucket)[0]
+    sorted_ids = ids[np.argsort(assignments[ids], kind="stable")]
+    # slot = bucket start + rank within bucket; rank is position minus the
+    # bucket's first position in the sorted view (vectorized: no O(nlist)
+    # Python loop)
+    srt = assignments[sorted_ids]
+    dst = (bucket_start[srt].astype(np.int64)
+           + np.arange(ids.size, dtype=np.int64)
+           - np.searchsorted(srt, srt))
+    order[dst] = sorted_ids.astype(np.int32)
+
+    codes_grouped = np.zeros((total, m), dtype=np.uint8)
+    norms_grouped = np.full(total, np.inf, dtype=np.float32)
+    valid = order >= 0
+    codes_grouped[valid] = codes[order[valid]]
+    norms_grouped[valid] = norms[order[valid]]
+
+    # probing masks a (start, cap_max) window by slot_cluster == probed
+    # cluster, so windows that overrun a short bucket never leak neighbours
+    # into the candidate set
+    slot_cluster = np.full(total, -1, dtype=np.int32)
+    slot_cluster[dst] = assignments[sorted_ids].astype(np.int32)
+
+    return {
+        "slot_cluster": slot_cluster,
+        "order": order,
+        "codes_grouped": codes_grouped,
+        "norms_grouped": norms_grouped,
+        "bucket_start": bucket_start,
+        "bucket_len": counts.astype(np.int32),
+        "cap_max": cap_max,
+        "total": total,
+    }
 
 
 def build_virtual_layout(codes, norms, assignments, nlist, cap_v=256, pad_to=8,

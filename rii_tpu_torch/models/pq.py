@@ -67,8 +67,8 @@ class PQ:
         sub = torch.tensor(vecs, device=self.device).reshape(
             n, self.M, self.Ds).transpose(0, 1).contiguous()  # (M, N, Ds)
         gen = torch.Generator().manual_seed(self.seed)
-        centers = kmeans_fit_batched(sub, k=self.Ks, iters=int(iter),
-                                     generator=gen)
+        centers, _ = kmeans_fit_batched(sub, k=self.Ks, iters=int(iter),
+                                        generator=gen)
         self.codewords = centers.cpu().numpy().astype(np.float32)
         return self
 

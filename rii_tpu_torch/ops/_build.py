@@ -1,11 +1,13 @@
-"""Build and load the package's CUDA kernels.
+"""Build and load the package's CUDA kernels and its host C++ library.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface and loaded with ``ctypes``. The build runs at
-first use, into ``build/rii_tpu_torch/`` at the root of the checkout, under a
-file name keyed by a hash of the source, the shared headers and the flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is. Nothing here runs when the
-module is imported.
+library with a plain C interface and loaded with ``ctypes``; a
+``csrc/<name>.cpp`` (the TexMex reader, ``texmex_native.cpp``) is compiled
+for the host by ``g++`` with OpenMP. The build runs at first use, into
+``build/rii_tpu_torch/`` at the root of the checkout, under a file name
+keyed by a hash of the source, the shared headers (``.cu`` only) and the
+flags, so an edited source is rebuilt and an unchanged one is loaded as it
+is. Nothing here runs when the module is imported.
 """
 
 import ctypes
@@ -22,6 +24,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rii_tpu_torch"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+_HOST_FLAGS = ["-O3", "-fPIC", "-fopenmp", "-shared"]
 
 _lock = threading.Lock()  # guards _name_locks
 _name_locks = {}  # (name, defines, csrc) -> lock held while it is built and loaded
@@ -41,23 +44,42 @@ def _nvcc():
     return found
 
 
-def _flags(defines):
-    return _FLAGS + [f"-D{d}" for d in defines]
+def _gxx():
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the host C++ library is built "
+                           "with g++ and OpenMP")
+    return found
+
+
+def _source(name, csrc):
+    """``csrc/<name>.cu`` where it exists, else the host ``<name>.cpp``."""
+    cu = csrc / f"{name}.cu"
+    return cu if cu.exists() else csrc / f"{name}.cpp"
+
+
+def _flags(defines, host=False):
+    return (_HOST_FLAGS if host else _FLAGS) + [f"-D{d}" for d in defines]
 
 
 def library_path(name, defines=(), csrc=None):
-    """Where ``csrc/<name>.cu`` is built for the current source, the shared
-    headers (``csrc/*.cuh``), the flags and the preprocessor ``defines``;
-    ``csrc`` another directory of sources (default: this package's)."""
+    """Where ``csrc/<name>.cu`` (or ``.cpp``) is built for the current
+    source, the shared headers (``csrc/*.cuh``, for a ``.cu``), the flags
+    and the preprocessor ``defines``; ``csrc`` another directory of sources
+    (default: this package's)."""
     csrc = Path(csrc) if csrc is not None else _CSRC
-    src = (csrc / f"{name}.cu").read_bytes()
-    headers = b"".join(p.read_bytes() for p in sorted(csrc.glob("*.cuh")))
-    key = hashlib.sha256(src + headers + " ".join(_flags(defines)).encode()).hexdigest()[:16]
+    path = _source(name, csrc)
+    host = path.suffix == ".cpp"
+    headers = b"" if host else b"".join(
+        p.read_bytes() for p in sorted(csrc.glob("*.cuh")))
+    key = hashlib.sha256(path.read_bytes() + headers
+                         + " ".join(_flags(defines, host)).encode()).hexdigest()[:16]
     return _BUILD_DIR / f"lib{name}-{key}.so"
 
 
 def load_library(name, verbose=False, defines=(), csrc=None):
-    """Build ``csrc/<name>.cu`` if needed and return the loaded library.
+    """Build ``csrc/<name>.cu`` (nvcc) or ``csrc/<name>.cpp`` (g++) if
+    needed and return the loaded library.
     ``defines`` ("NAME=VALUE" strings) build a variant of it, as the
     benchmarks' probe builds do; ``csrc`` builds the source of another
     checkout (``<checkout>/rii_tpu_torch/csrc``), as a benchmark's
@@ -76,15 +98,19 @@ def load_library(name, verbose=False, defines=(), csrc=None):
         out = library_path(name, defines, csrc)
         if not out.exists():
             _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            src = _source(name, csrc)
+            host = src.suffix == ".cpp"
+            cmd = [_gxx() if host else _nvcc(), *_flags(defines, host)]
+            if verbose and not host:
+                cmd.insert(1, "-Xptxas=-v")
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
             os.close(fd)
-            cmd = [_nvcc(), *_flags(defines), "-o", tmp, str(csrc / f"{name}.cu")]
-            if verbose:
-                cmd.insert(1, "-Xptxas=-v")
-            res = subprocess.run(cmd, capture_output=True, text=True)
+            res = subprocess.run([*cmd, "-o", tmp, str(src)], capture_output=True,
+                                 text=True)
             if res.returncode != 0:
                 os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stderr}")
+                raise RuntimeError(f"{Path(cmd[0]).name} failed for {src.name}:\n"
+                                   f"{res.stderr}")
             if verbose and res.stderr:
                 print(res.stderr, end="")
             os.replace(tmp, out)  # atomic: a concurrent build sees all or none

@@ -46,6 +46,30 @@ def decode_norms(codes, codewords):
     return cnorms[sub, codes.long()].sum(-1)
 
 
+def dtable(query, codewords):
+    """Classic ADC distance table of one (D,) query: (M, Ks) float32 of
+    ||q_m - codeword_{m,k}||^2, on the tensors' device.
+
+    The reference's DTable (reference src/rii.h:361-373). The hot paths
+    never form it (they use the decoded-domain identity, or kernel E's bf16
+    batched :func:`build_dtable`); it is exposed for oracles, debugging and
+    external consumers: ADC(q, code) == dtable(q)[m, code_m] summed over m.
+    """
+    cw = codewords.to(torch.float32)
+    m, _, ds = cw.shape
+    diff = query.to(torch.float32).reshape(m, 1, ds) - cw
+    return (diff * diff).sum(-1)
+
+
+def adc_oracle(query, codes, codewords):
+    """Reference-formulation ADC distances of one query to (B, M) codes
+    through the table (slow, exact): sum_m dtable[m, codes[:, m]], (B,)
+    float32."""
+    dt = dtable(query, codewords)  # (M, Ks)
+    sub = torch.arange(dt.shape[0], device=codes.device)[None, :]
+    return dt[sub, codes.long()].sum(-1)
+
+
 def codeword_norms(codewords):
     """(M, Ks, Ds) codewords -> (M, Ks) float32 ||cw[m, k]||^2, the constant
     term of :func:`build_dtable`, summed in order along Ds."""

@@ -1,4 +1,5 @@
-"""Union-bucket IVF scan (counterpart of ``rii_tpu.ops.ivf``).
+"""Union-bucket IVF scan, and the whole-bucket IVF ops (counterpart of
+``rii_tpu.ops.ivf``).
 
 A query batch's probed (virtual) buckets are merged into one sorted union
 with duplicates marked; every window of the union is a contiguous
@@ -13,6 +14,13 @@ E over uint8 code windows, ``hopper_pq``) followed by an exact rescore, and
 a plain chunked branch. The int8 windows always take their kernel (kernel
 G, ``hopper_i8``), as in JAX. Probe selection and every top-k are exact
 (``torch.topk``).
+
+:func:`ivf_scan_topk` and :func:`ivf_scan_topk_decoded` probe whole buckets
+of the grouped layout (``models.ivf.build_grouped_layout``), one (start,
+cap_max) window a probed cluster, in plain torch. The engine does not call
+them: it builds the virtual layout whenever centers exist. They take the
+JAX functions' arguments but ``precision`` (float32 throughout) and, for
+``ivf_scan_topk``, ``recall_target`` (the selection is exact).
 """
 
 import torch
@@ -323,3 +331,110 @@ def ivf_union_scan_topk_i8(queries, decoded_g_i8, col_scales, norms_g,
                                  order_g, norms_g, codes, codewords, None,
                                  topk, codes_grouped)
     return _ids_of(order_g, slots, dist, topk)
+
+
+def _bucket_windows(cscores, bucket_start, w, cap_max):
+    """The w nearest clusters' (start, cap_max) windows: (slots (Q, w*cap_max)
+    int64, the cluster each slot was probed for (Q, w*cap_max))."""
+    qn = cscores.shape[0]
+    probe = _probe_topk(cscores, w)  # (Q, w), ties to the lower cluster
+    starts = bucket_start.long()[probe]
+    offs = torch.arange(cap_max, device=cscores.device)
+    slots = (starts[:, :, None] + offs).reshape(qn, w * cap_max)
+    expect = probe[:, :, None].expand(qn, w, cap_max).reshape(qn, w * cap_max)
+    return slots, expect
+
+
+def _bucket_topk(q_all, slots, expect, norms_grouped, order, slot_cluster,
+                 target_ids, n_targets, topk, chunk, cross_fn):
+    """Exact top-k over the probed windows' slots, ``chunk`` candidates a
+    query at a time. A slot counts only where its cluster is the one it was
+    probed for and, with ``target_ids``, where its id is in the subset;
+    ``cross_fn(slots_c, ids_c)`` gives the (Q, c) cross terms q.x. Returns
+    (dists (Q, topk) f32 ascending, ids (Q, topk) int64, -1 padded)."""
+    qn, n_cand = slots.shape
+    vals, idxs = [], []
+    for s in range(0, n_cand, chunk):
+        sl, ex = slots[:, s:s + chunk], expect[:, s:s + chunk]
+        ids_c = order[sl].long()
+        nrm = torch.where(slot_cluster[sl].long() == ex, norms_grouped[sl],
+                          torch.full(sl.shape, _INF, device=sl.device))
+        if target_ids is not None:
+            member = _searchsorted_member(target_ids, n_targets,
+                                          ids_c.to(target_ids.dtype))
+            nrm = torch.where(member, nrm, torch.full_like(nrm, _INF))
+        sc = nrm - 2.0 * cross_fn(sl, ids_c)
+        v, p = _smallest(sc, min(topk, sc.shape[1]))
+        vals.append(v)
+        idxs.append(torch.gather(ids_c, 1, p))
+    vals, idxs = torch.cat(vals, 1), torch.cat(idxs, 1)
+    v, p = _smallest(vals, min(topk, vals.shape[1]))
+    qsq = (q_all * q_all).sum(-1)
+    return _finish(v + qsq[:, None], torch.gather(idxs, 1, p), topk)
+
+
+def _chunk_of(qn, d, chunk):
+    """Candidates a query per step: at most ``chunk``, and at most 2^24
+    float32 elements of gathered rows for the batch (64 MiB)."""
+    return max(1, min(chunk, (1 << 24) // max(1, qn * d)))
+
+
+def ivf_scan_topk(queries, codewords, centers_dec, centers_norms, bucket_start,
+                  codes_grouped, norms_grouped, order, slot_cluster, w, topk,
+                  cap_max, target_ids=None, n_targets=None, chunk=4096):
+    """Probe the w nearest coarse centers per query and ADC-score their
+    members in float32.
+
+    queries (Q, D) f32; centers_dec (nlist_pad, D) decoded coarse centers
+    f32; centers_norms (nlist_pad,) ||center||^2, +inf on padded clusters;
+    bucket_start (nlist_pad,) first slot of each cluster; codes_grouped /
+    norms_grouped / order / slot_cluster the grouped layout (padding: +inf
+    norms, order -1, slot_cluster -1; at least cap_max slots of tail so
+    every window is in bounds); cap_max >= the longest padded bucket;
+    target_ids optional (S_pad,) SORTED ascending, padded with values above
+    every id (int32 max), ``n_targets`` of them valid.
+
+    Returns (dists (Q, topk) f32 ascending, ids (Q, topk) int64, -1 where
+    exhausted).
+    """
+    q_all = queries.float()
+    qn, d = q_all.shape
+    cw = codewords.float()
+    cscores = centers_norms[None, :] - 2.0 * (q_all @ centers_dec.float().T)
+    slots, expect = _bucket_windows(cscores, bucket_start, w, cap_max)
+
+    def cross(sl, _ids):
+        dec = onehot_decode(codes_grouped[sl.reshape(-1)], cw).reshape(
+            qn, sl.shape[1], d)
+        return torch.einsum("qcd,qd->qc", dec, q_all)
+
+    return _bucket_topk(q_all, slots, expect, norms_grouped, order,
+                        slot_cluster, target_ids, n_targets, topk,
+                        _chunk_of(qn, d, chunk), cross)
+
+
+def ivf_scan_topk_decoded(queries, decoded, centers_dec, centers_norms,
+                          bucket_start, norms_grouped, order, slot_cluster,
+                          w, topk, cap_max, target_ids=None, n_targets=None,
+                          chunk=2048, recall_target=None):
+    """:func:`ivf_scan_topk` over the (cap, D) bf16 replica in ORIGINAL id
+    order: candidates are gathered as replica rows (window slot -> original
+    id -> row) and scored with a bf16 cross term summed in float32, as
+    ``ops.scan._bf16_cross``; the norms stay float32. The probes are scored
+    in float32 with ``recall_target=None``, else with bf16 products; the
+    selection is exact either way. Other arguments and the returns as
+    :func:`ivf_scan_topk`."""
+    q_all = queries.float()
+    qn, d = q_all.shape
+    exact = recall_target is None
+    cscores = _coarse_scores(q_all, centers_dec.float(), centers_norms, exact)
+    slots, expect = _bucket_windows(cscores, bucket_start, w, cap_max)
+    q16 = q_all.to(torch.bfloat16).float()
+
+    def cross(_sl, ids_c):
+        rows = decoded[ids_c.clamp(min=0)].float()  # (Q, c, D)
+        return torch.einsum("qcd,qd->qc", rows, q16)
+
+    return _bucket_topk(q_all, slots, expect, norms_grouped, order,
+                        slot_cluster, target_ids, n_targets, topk,
+                        _chunk_of(qn, d, chunk), cross)

@@ -1,4 +1,4 @@
-"""The port's TexMex readers (rii_tpu_torch.utils.io, numpy only) against
+"""The port's TexMex readers (rii_tpu_torch.utils.io) against
 rii_tpu's, on synthetic files: the cases of tests/test_io.py."""
 
 import struct
