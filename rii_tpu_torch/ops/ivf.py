@@ -36,6 +36,7 @@ from rii_tpu_torch.ops.hopper_scan import (
     _smallest,
     ivf_window_tile_minima,
 )
+from rii_tpu_torch.utils.profiling import note, recording, stage
 
 _INF = float("inf")
 
@@ -87,6 +88,14 @@ def _union(q_all, centers_dec, centers_norms, w, nlist_pad, recall_target,
     dup = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev),
                      flat[1:] == flat[:-1]])
     return flat, dup
+
+
+def _count_union_rows(vlen, flat, dup):
+    """While spans are recorded: the live rows of the union's distinct
+    windows as the engine call's ``union_rows`` counter, kept as a tensor
+    (read after the call, so no synchronise)."""
+    if vlen is not None and recording():
+        note("union_rows", torch.where(dup, 0, vlen[flat.long()]).sum())
 
 
 def _rescore_slots(q_all, slot_top, valid, order_g, norms_g, codes, codewords,
@@ -143,10 +152,12 @@ def ivf_union_scan_topk(queries, decoded_g, norms_g, order_g, centers_dec,
     """
     q_all = queries.float()
     qn, d = q_all.shape
-    if target_mask is not None:
-        norms_g = torch.where(target_mask, norms_g, torch.full_like(norms_g, _INF))
+    stage("rii.probe", q_all.device)
     flat, dup = _union(q_all, centers_dec, centers_norms, w, nlist_pad,
                        recall_target, probe_recall, probes)
+    stage("rii.scan")
+    if target_mask is not None:
+        norms_g = torch.where(target_mask, norms_g, torch.full_like(norms_g, _INF))
     k_sel = topk if codes is None else max(topk * overfetch, topk + 8)
 
     def rows_fn(safe):
@@ -158,6 +169,7 @@ def ivf_union_scan_topk(queries, decoded_g, norms_g, order_g, centers_dec,
             pen = torch.where(target_mask, 0.0, _INF).to(torch.float32)
         vmin, amin = ivf_window_tile_minima(q_all, decoded_g, flat,
                                             dup.to(torch.int32), cap_u, pen=pen)
+        stage("rii.select", q_all.device)
         neg_sel, pos = _smallest(vmin, min(k_sel, vmin.shape[1]))
         slot_top = torch.gather(amin, 1, pos)
         # +inf-scored candidates (duplicate windows, padding, excluded slots)
@@ -184,6 +196,7 @@ def ivf_union_scan_topk(queries, decoded_g, norms_g, order_g, centers_dec,
         v, p = _smallest(sc, min(k_sel, sc.shape[1]))
         vals.append(v)
         slots.append((fl[:, None] * cap_u + off).reshape(-1)[p])
+    stage("rii.select", q_all.device)
     vals, slots = torch.cat(vals, 1), torch.cat(slots, 1)
     v, p = _smallest(vals, min(k_sel, vals.shape[1]))
     slot_top = torch.gather(slots, 1, p)
@@ -237,10 +250,13 @@ def ivf_union_scan_topk_pq(queries, codes_g, norms_g, order_g, codewords,
     q_all = queries.float()
     qn, d = q_all.shape
     m = codes_g.shape[1]
-    if target_mask is not None:
-        norms_g = torch.where(target_mask, norms_g, torch.full_like(norms_g, _INF))
+    stage("rii.probe", q_all.device)
     flat, dup = _union(q_all, centers_dec, centers_norms, w, nlist_pad,
                        recall_target, probe_recall, probes)
+    stage("rii.scan")
+    _count_union_rows(vlen, flat, dup)
+    if target_mask is not None:
+        norms_g = torch.where(target_mask, norms_g, torch.full_like(norms_g, _INF))
     if use_kernel:
         pen = None
         if target_mask is not None:
@@ -252,6 +268,7 @@ def ivf_union_scan_topk_pq(queries, codes_g, norms_g, order_g, codewords,
                                                    cw_norms=cw_norms)
         else:
             vmin, amin = ivf_pq_window_tile_minima(*args, pen=pen)
+        stage("rii.select", q_all.device)
         sel, pos = _smallest(vmin, min(topk * overfetch, vmin.shape[1]))
         slot_top = torch.gather(amin, 1, pos)
         # +inf selections (duplicate windows, padding, excluded slots) point
@@ -278,6 +295,7 @@ def ivf_union_scan_topk_pq(queries, codes_g, norms_g, order_g, codewords,
         v, p = _smallest(sc, min(topk, sc.shape[1]))
         vals.append(v)
         slots.append((fl[:, None] * cap_u + off).reshape(-1)[p])
+    stage("rii.select", q_all.device)
     vals, slots = torch.cat(vals, 1), torch.cat(slots, 1)
     v, p = _smallest(vals, min(topk, vals.shape[1]))
     slot_top = torch.gather(slots, 1, p)
@@ -312,15 +330,19 @@ def ivf_union_scan_topk_i8(queries, decoded_g_i8, col_scales, norms_g,
     Returns (dists (Q, topk) f32 ascending, ids (Q, topk) int64, -1 padded).
     """
     q_all = queries.float()
+    stage("rii.probe", q_all.device)
+    flat, dup = _union(q_all, centers_dec, centers_norms, w, nlist_pad,
+                       recall_target, probe_recall, probes)
+    stage("rii.scan")
+    _count_union_rows(vlen, flat, dup)
     pen = None
     if target_mask is not None:
         norms_g = torch.where(target_mask, norms_g, torch.full_like(norms_g, _INF))
         pen = torch.where(target_mask, 0.0, _INF).to(torch.float32)
-    flat, dup = _union(q_all, centers_dec, centers_norms, w, nlist_pad,
-                       recall_target, probe_recall, probes)
     vmin, amin = ivf_i8_window_tile_minima(q_all, decoded_g_i8, col_scales,
                                            flat, dup.to(torch.int32),
                                            vlen[flat.long()], cap_u, pen=pen)
+    stage("rii.select", q_all.device)
     # int8 selection reorders near-boundary candidates: overfetch before
     # the exact rescore, as the JAX module does
     sel, pos = _smallest(vmin, min(max(2 * topk, topk + 8), vmin.shape[1]))

@@ -77,6 +77,7 @@ from rii_tpu_torch.ops.scan import (
     subset_scan_topk,
     subset_scan_topk_decoded,
 )
+from rii_tpu_torch.utils.profiling import begin_call, end_call, note, stage
 
 _RECONFIGURE_SAMPLE_SEED = 123  # mirrors std::default_random_engine(123)
 _PQKMEANS_SEED = 0  # mirrors mt19937(0) in the reference's PQk-means
@@ -593,18 +594,28 @@ class Rii:
     def query_batch(self, queries, topk=1, L=None, target_ids=None,
                     sort_target_ids=True, method="auto"):
         """Batched search of (Q, D) float32 queries sharing one target-id
-        set. Returns (ids (Q, topk) int64, dists (Q, topk) float64)."""
+        set. Returns (ids (Q, topk) int64, dists (Q, topk) float64).
+
+        While a torch profiler records, the call records its spans
+        (``utils.profiling``: ``rii.query_batch`` and its stages)."""
         with self._state_lock.read(), self._on_device():
-            return self._query_batch_impl(queries, topk, L, target_ids,
-                                          sort_target_ids, method)
+            root = begin_call("rii.query_batch")
+            try:
+                return self._query_batch_impl(queries, topk, L, target_ids,
+                                              sort_target_ids, method)
+            finally:
+                if root is not None:
+                    end_call(root)
 
     def _query_batch_impl(self, queries, topk, L, target_ids,
                           sort_target_ids, method):
+        stage("rii.prepare")
         assert 0 < self._n, "No codes to be searched"
         assert 0 < self.nlist, "Posting lists are not available; call reconfigure first"
         assert method in ("auto", "linear", "ivf")
         queries = require_dtype(queries, np.float32, "queries")
         queries = np.ascontiguousarray(np.atleast_2d(queries))
+        note("queries", queries.shape[0])
         if topk is None:
             topk = self._n
         assert 1 <= topk <= self._n
@@ -633,6 +644,7 @@ class Rii:
             ids, dists = self._query_linear_batch(queries, topk, tids)
         else:
             ids, dists = self._query_ivf_batch(queries, topk, tids, L)
+        stage("rii.download")
         return ids.astype(np.int64), dists.astype(np.float64)
 
     # the low-level entries take queries already rotated into the codec's
@@ -667,7 +679,9 @@ class Rii:
         return mask
 
     def _query_linear_batch(self, queries, topk, tids):
+        stage("rii.prepare")
         dc = self._ensure_cache()
+        stage("rii.upload")
         qp, qn = _pad_queries(queries)
         qd = torch.tensor(qp, device=self.device)
         rs = resolve_rescore(self.exact_rescore, qd.shape[0])
@@ -679,6 +693,8 @@ class Rii:
             tids_pad = np.zeros(_pow2_at_least(s, 16), dtype=np.int64)
             tids_pad[:s] = tids
             tt = torch.tensor(tids_pad, device=self.device)
+            note("route", "linear_subset_gather")
+            stage("rii.scan")
             if "decoded_flat" in dc:
                 d, i = subset_scan_topk_decoded(
                     qd, dc["decoded_flat"], norms, tt, s, topk,
@@ -689,6 +705,8 @@ class Rii:
         else:
             # mid/large subsets: a masked full scan (+inf norms exclude)
             mask = None if tids is None else self._subset_mask(dc, tids)
+            note("route", "linear" if mask is None else "linear_masked")
+            stage("rii.scan")
             if "decoded_i8" in dc:
                 # the int8 tier: kernel F, always rescored exactly
                 if mask is not None:
@@ -729,6 +747,7 @@ class Rii:
                 d, i = linear_scan_topk(qd, dc["codes_flat"], norms,
                                         dc["codewords"], topk, mask=mask,
                                         block=dc["block"])
+        stage("rii.download")
         return i[:qn].cpu().numpy(), d[:qn].cpu().numpy()
 
     def _probe_budget_virtual(self, L, s, dc):
@@ -747,10 +766,13 @@ class Rii:
         return min(dc["nlist_v_pad"], _pow2_at_least(max(1, wv)))
 
     def _query_ivf_batch(self, queries, topk, tids, L, force_full=False):
+        stage("rii.prepare")
         dc = self._ensure_cache()
         use_kernels = self._use_kernels()
+        stage("rii.upload")
         qp, qn = _pad_queries(queries, lo=8 if use_kernels else 1)
         qd = torch.tensor(qp, device=self.device)
+        stage("rii.prepare")
         s = None if tids is None else len(tids)
         rt = self.topk_recall
         wv = dc["nlist_v_pad"] if force_full else self._probe_width_virtual(
@@ -760,7 +782,10 @@ class Rii:
         if probe_full or 2 * union_slots >= dc["cap"]:
             # the union covers most of the database: the contiguous linear
             # scan reads every row faster than the windows would
-            return self._query_linear_batch(queries, topk, tids)
+            ids, dists = self._query_linear_batch(queries, topk, tids)
+            note("route", "ivf_to_linear")
+            return ids, dists
+        stage("rii.upload")
         tm = None
         if tids is not None:
             tm = self._subset_mask(dc, tids)[
@@ -802,13 +827,17 @@ class Rii:
                 vlen=dc["vlen_g"],
                 use_kernel=use_kernels and dc["pq_kernel_route"],
                 cw_norms=dc["cw_norms"])
+        stage("rii.download")
         d = d[:qn].cpu().numpy()
         i = i[:qn].cpu().numpy()
         # fewer than topk candidates found: widen to full coverage (the
         # reference keeps walking lists until it has L candidates)
         if not force_full and not probe_full and not np.isfinite(d).all():
-            return self._query_ivf_batch(queries, topk, tids, L,
-                                         force_full=True)
+            ids, dists = self._query_ivf_batch(queries, topk, tids, L,
+                                               force_full=True)
+            note("route", "ivf_widened")
+            return ids, dists
+        note("route", "ivf")
         return i, d
 
     # ------------------------------------------------------------------ #
