@@ -25,7 +25,12 @@ Phases, each of which must pass (no exception is caught):
    Kernel E builds its ADC table in its one launch. The records of B, D, E
    and G carry the CUDA kernels one wrapper call launches
    (``kernels_a_call``, torch.profiler over 5 calls), counted once every
-   phase has run, so that no profiler session slows a timed launch.
+   phase has run, so that no profiler session slows a timed launch. The
+   selection kernel (``csrc/select_k.cu``, record ``select_k``) at the
+   SIFT1B shard's two union selections, (512, 2^21) at k=20 and (512,
+   179,604) at k=64: bit-equal to its twin, timed beside its bound (the
+   scores' bytes over 3.35 TB/s), the twin and ``torch.topk``, and at the
+   probe's shape ``torch.sort(stable=True)``.
 4. Small reference: a CUDA engine against a CPU engine on the same codes.
 5. Engine: the bf16 path through the public API at a SIFT-shaped config
    (N=2,000,000, D=128, M=32, Ks=256, nlist=1000, topk=10): PQ fit,
@@ -313,10 +318,12 @@ def compare_keys(name, v_k, s_k, v_t, s_t, packed_bits=0):
 
 
 def kernel_wrappers():
-    """The ten kernels' wrappers (A-J) by the names the JSON record uses."""
+    """The ten kernels' wrappers (A-J) and the selection kernel's by the
+    names the JSON record uses."""
     from rii_tpu_torch.ops import hopper_i8 as HI
     from rii_tpu_torch.ops import hopper_pq as HP
     from rii_tpu_torch.ops import hopper_scan as H
+    from rii_tpu_torch.ops import select as S
     return {"replica_tile_keys": H.replica_tile_keys,
             "ivf_window_top2": H.ivf_window_tile_minima,
             "pq_tile_keys": HP.pq_tile_keys,
@@ -326,7 +333,8 @@ def kernel_wrappers():
             "ivf_i8_window_top2": HI.ivf_i8_window_tile_minima,
             "replica_scan_tile_minima": H.replica_scan_tile_minima,
             "replica_i8_scan_tile_minima": HI.replica_i8_scan_tile_minima,
-            "pq_scan_tile_minima": HP.pq_scan_tile_minima}
+            "pq_scan_tile_minima": HP.pq_scan_tile_minima,
+            "select_k": S.smallest_k}
 
 
 def reset_launch_counts():
@@ -349,7 +357,7 @@ def phase_card():
 
 def phase_build():
     from rii_tpu_torch.ops import _build
-    names = ("replica_tc", "ivf_pq_window", "texmex_native")
+    names = ("replica_tc", "ivf_pq_window", "select_k", "texmex_native")
     # one compiler per source (nvcc for the kernels, g++ for the TexMex
     # reader), all started together
     with ThreadPoolExecutor(len(names)) as pool:
@@ -476,6 +484,7 @@ def phase_kernels(dev):
     records += phase_kernels_pq(dev, g)
     records += phase_kernels_i8(dev, g)
     records += phase_kernels_rowmajor(dev, g)
+    records += phase_kernels_select(dev, g)
     return records
 
 
@@ -898,6 +907,55 @@ def phase_kernels_rowmajor(dev, g):
                     "Q": 1024, **j_bound(1024), "library_ms": None,
                     **at_q(j_bound(128), 128)})
     return records
+
+
+def phase_kernels_select(dev, g):
+    """The selection kernel at the SIFT1B shard's two union selections:
+    kernel D's tile minima (Q=512, 2^21 columns, k=20: topk 10 overfetched
+    twice) and the probe selection over its virtual windows (Q=512, 179,604
+    windows, w=64), on normal scores with a run of +inf (duplicate windows).
+    Held to its twin bit for bit; timed beside its bound (the scores' bytes
+    once over the memory rate), the twin (a stable sort, sliced) and
+    ``torch.topk`` (``library_ms``), at the probe's shape also the stable
+    sort alone (``library_sort_ms_probe``)."""
+    from rii_tpu_torch.ops import select as S
+    rec = {"name": "select_k", "route": "cuda",
+           "source": "rii_tpu_torch/csrc/select_k.cu",
+           "replaces": "none: stands where rii_tpu/ops/ivf.py:50, :204, :406 call lax.top_k"}
+    for tag, (rows, n, k) in (("tiles", (512, 1 << 21, 20)),
+                              ("probe", (512, 179_604, 64))):
+        x = torch.randn((rows, n), generator=g, device=dev)
+        x[:, :n // 64] = float("inf")
+        v, c = S.smallest_k(x, k)
+        tv, tc = S.smallest_k_plain(x, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(c, tc) and torch.equal(v.view(torch.int32),
+                                                   tv.contiguous().view(torch.int32))):
+            raise AssertionError(f"select_k {tag}: differs from its twin")
+        del v, c, tv, tc
+        f = {"rows": rows, "n": n, "k": k,
+             "ms": cuda_ms(lambda: S.smallest_k(x, k)),
+             "plain_ms": cuda_ms(lambda: S.smallest_k_plain(x, k), reps=3),
+             "library_ms": cuda_ms(lambda: torch.topk(x, k, dim=1, largest=False,
+                                                      sorted=True)),
+             **bound(rows * n * 4, 0, "bf16")}
+        if tag == "probe":
+            f["library_sort_ms"] = cuda_ms(lambda: torch.sort(x, dim=1, stable=True),
+                                           reps=3)
+        f["bound_share"] = f["bound_ms"] / f["ms"]
+        log(f"  select_k {tag} ({rows}, {n}) k={k}: kernel {f['ms']:.3f} ms, bound "
+            f"{f['bound_ms']:.3f} ms ({100 * f['bound_share']:.1f}%), plain "
+            f"{f['plain_ms']:.3f} ms, torch.topk {f['library_ms']:.3f} ms"
+            + (f", torch.sort {f['library_sort_ms']:.3f} ms" if tag == "probe" else ""))
+        rec.update(f if tag == "tiles" else suffixed(f, tag))
+        del x
+        torch.cuda.empty_cache()
+    # a memset and two launches whatever the shape: counted on a small one,
+    # so that no 4 GiB input stays held until the counts are taken
+    small = torch.randn((8, 4096), generator=g, device=dev)
+    count_kernels_later(rec, "kernels_a_call", "select_k (8, 4096) k=20",
+                        lambda: S.smallest_k(small, 20))
+    return [rec]
 
 
 def phase_small_reference():

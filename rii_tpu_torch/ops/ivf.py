@@ -12,8 +12,12 @@ Two branches for the bf16 and pq window tiers, as in the JAX module: the
 window kernels (kernel B over bf16 windows, ``hopper_scan``; kernels D and
 E over uint8 code windows, ``hopper_pq``) followed by an exact rescore, and
 a plain chunked branch. The int8 windows always take their kernel (kernel
-G, ``hopper_i8``), as in JAX. Probe selection and every top-k are exact
-(``torch.topk``).
+G, ``hopper_i8``), as in JAX. Probe selection and every top-k are exact.
+The union's two large selections, each query's probes from its coarse
+scores and its best slots from a window kernel's tile minima, go through
+the selection kernel (``ops/select.py``; its twin on the CPU), which breaks
+ties toward the lower column as ``lax.top_k`` does; the plain branches and
+the rescores select with ``torch.topk``.
 
 :func:`ivf_scan_topk` and :func:`ivf_scan_topk_decoded` probe whole buckets
 of the grouped layout (``models.ivf.build_grouped_layout``), one (start,
@@ -36,6 +40,7 @@ from rii_tpu_torch.ops.hopper_scan import (
     _smallest,
     ivf_window_tile_minima,
 )
+from rii_tpu_torch.ops.select import SELECT_K_MAX, smallest_k, takes_kernel
 from rii_tpu_torch.utils.profiling import note, recording, stage
 
 _INF = float("inf")
@@ -50,12 +55,37 @@ def _searchsorted_member(sorted_ids, n_valid, values):
 
 
 def _probe_topk(cscores, w):
-    """The w nearest (virtual) centers per query: (Q, w) ids, exact (the
-    JAX package's approximate top-k in the fast mode is a TPU speed device).
-    The windows of one posting list share its center, so scores tie often:
-    a stable sort breaks ties toward the lower index, as ``lax.top_k`` does,
-    and both packages probe the same windows."""
-    return torch.sort(cscores, dim=1, stable=True).indices[:, :w]
+    """The w nearest (virtual) centers per query: (Q, min(w, n)) ids, exact
+    (the JAX package's approximate top-k in the fast mode is a TPU speed
+    device). The windows of one posting list share its center, so scores
+    tie often: ties go to the lower index, as ``lax.top_k`` does, and both
+    packages probe the same windows. Equal bit for bit to
+    ``torch.sort(cscores, dim=1, stable=True).indices[:, :w]``, which it is
+    past the selection kernel's largest k."""
+    if w > SELECT_K_MAX:
+        return torch.sort(cscores, dim=1, stable=True).indices[:, :w]
+    return smallest_k(cscores, w)[1]
+
+
+def _select_tiles(vmin, amin, k):
+    """The k best tile minima of each query, exact, ties to the lower
+    column: (values (Q, k'), their grouped slots (Q, k'), whether the
+    selection kernel ran), k' = min(k, ncol). Past the kernel's largest k a
+    CUDA tensor takes ``torch.topk``, whose order among ties is unstated."""
+    k = min(k, vmin.shape[1])
+    if vmin.is_cuda and k > SELECT_K_MAX:
+        sel, pos = _smallest(vmin, k)
+    else:
+        sel, pos = smallest_k(vmin, k)
+    return sel, torch.gather(amin, 1, pos), takes_kernel(vmin, k)
+
+
+def _note_selections(*took):
+    """While spans are recorded: how many of the call's union selections
+    (probe, tile minima) took the selection kernel, as the root's
+    ``select_kernel`` counter."""
+    if recording():
+        note("select_kernel", sum(map(int, took)))
 
 
 def _coarse_scores(q_all, centers_dec, centers_norms, exact):
@@ -70,24 +100,27 @@ def _coarse_scores(q_all, centers_dec, centers_norms, exact):
 
 def _union(q_all, centers_dec, centers_norms, w, nlist_pad, recall_target,
            probe_recall, probes=None):
-    """Sorted union of the batch's probes: (flat (U,) int32, dup (U,) bool).
-    ``probes``, an externally selected (flat, dup) union (the sharded
-    engine's global probe selection), is taken as it is."""
-    if probes is not None:
-        flat, dup = probes
-        return flat.to(torch.int32), dup.to(torch.bool)
+    """Sorted union of the batch's probes: (flat (U,) int32, dup (U,) bool,
+    whether the probe selection took the selection kernel). ``probes``, an
+    externally selected (flat, dup) union (the sharded engine's global probe
+    selection), is taken as it is. Where the batch's probes could cover
+    every window (qn * w >= nlist_pad) the union is every window, and no
+    probe is scored or selected."""
     qn = q_all.shape[0]
     dev = q_all.device
+    if probes is not None:
+        flat, dup = probes
+        return flat.to(torch.int32), dup.to(torch.bool), False
+    if qn * w >= nlist_pad:
+        return (torch.arange(nlist_pad, dtype=torch.int32, device=dev),
+                torch.zeros(nlist_pad, dtype=torch.bool, device=dev), False)
     pr = recall_target if probe_recall == "inherit" else probe_recall
     cscores = _coarse_scores(q_all, centers_dec, centers_norms, pr is None)
     probe = _probe_topk(cscores, w)
-    if qn * w >= nlist_pad:
-        return (torch.arange(nlist_pad, dtype=torch.int32, device=dev),
-                torch.zeros(nlist_pad, dtype=torch.bool, device=dev))
     flat = torch.sort(probe.reshape(-1).to(torch.int32)).values
     dup = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev),
                      flat[1:] == flat[:-1]])
-    return flat, dup
+    return flat, dup, takes_kernel(cscores, w)
 
 
 def _count_union_rows(vlen, flat, dup):
@@ -153,8 +186,8 @@ def ivf_union_scan_topk(queries, decoded_g, norms_g, order_g, centers_dec,
     q_all = queries.float()
     qn, d = q_all.shape
     stage("rii.probe", q_all.device)
-    flat, dup = _union(q_all, centers_dec, centers_norms, w, nlist_pad,
-                       recall_target, probe_recall, probes)
+    flat, dup, probe_k = _union(q_all, centers_dec, centers_norms, w,
+                                nlist_pad, recall_target, probe_recall, probes)
     stage("rii.scan")
     if target_mask is not None:
         norms_g = torch.where(target_mask, norms_g, torch.full_like(norms_g, _INF))
@@ -170,8 +203,8 @@ def ivf_union_scan_topk(queries, decoded_g, norms_g, order_g, centers_dec,
         vmin, amin = ivf_window_tile_minima(q_all, decoded_g, flat,
                                             dup.to(torch.int32), cap_u, pen=pen)
         stage("rii.select", q_all.device)
-        neg_sel, pos = _smallest(vmin, min(k_sel, vmin.shape[1]))
-        slot_top = torch.gather(amin, 1, pos)
+        neg_sel, slot_top, tile_k = _select_tiles(vmin, amin, k_sel)
+        _note_selections(probe_k, tile_k)
         # +inf-scored candidates (duplicate windows, padding, excluded slots)
         # point at slots whose norms may be finite: keep them masked
         dist, slots = _rescore_slots(q_all, slot_top, torch.isfinite(neg_sel),
@@ -197,6 +230,7 @@ def ivf_union_scan_topk(queries, decoded_g, norms_g, order_g, centers_dec,
         vals.append(v)
         slots.append((fl[:, None] * cap_u + off).reshape(-1)[p])
     stage("rii.select", q_all.device)
+    _note_selections(probe_k)
     vals, slots = torch.cat(vals, 1), torch.cat(slots, 1)
     v, p = _smallest(vals, min(k_sel, vals.shape[1]))
     slot_top = torch.gather(slots, 1, p)
@@ -251,8 +285,8 @@ def ivf_union_scan_topk_pq(queries, codes_g, norms_g, order_g, codewords,
     qn, d = q_all.shape
     m = codes_g.shape[1]
     stage("rii.probe", q_all.device)
-    flat, dup = _union(q_all, centers_dec, centers_norms, w, nlist_pad,
-                       recall_target, probe_recall, probes)
+    flat, dup, probe_k = _union(q_all, centers_dec, centers_norms, w,
+                                nlist_pad, recall_target, probe_recall, probes)
     stage("rii.scan")
     _count_union_rows(vlen, flat, dup)
     if target_mask is not None:
@@ -269,8 +303,8 @@ def ivf_union_scan_topk_pq(queries, codes_g, norms_g, order_g, codewords,
         else:
             vmin, amin = ivf_pq_window_tile_minima(*args, pen=pen)
         stage("rii.select", q_all.device)
-        sel, pos = _smallest(vmin, min(topk * overfetch, vmin.shape[1]))
-        slot_top = torch.gather(amin, 1, pos)
+        sel, slot_top, tile_k = _select_tiles(vmin, amin, topk * overfetch)
+        _note_selections(probe_k, tile_k)
         # +inf selections (duplicate windows, padding, excluded slots) point
         # at slots whose codes decode to finite distances: keep them masked
         dist, slots = _rescore_grouped_codes(q_all, slot_top,
@@ -296,6 +330,7 @@ def ivf_union_scan_topk_pq(queries, codes_g, norms_g, order_g, codewords,
         vals.append(v)
         slots.append((fl[:, None] * cap_u + off).reshape(-1)[p])
     stage("rii.select", q_all.device)
+    _note_selections(probe_k)
     vals, slots = torch.cat(vals, 1), torch.cat(slots, 1)
     v, p = _smallest(vals, min(topk, vals.shape[1]))
     slot_top = torch.gather(slots, 1, p)
@@ -331,8 +366,8 @@ def ivf_union_scan_topk_i8(queries, decoded_g_i8, col_scales, norms_g,
     """
     q_all = queries.float()
     stage("rii.probe", q_all.device)
-    flat, dup = _union(q_all, centers_dec, centers_norms, w, nlist_pad,
-                       recall_target, probe_recall, probes)
+    flat, dup, probe_k = _union(q_all, centers_dec, centers_norms, w,
+                                nlist_pad, recall_target, probe_recall, probes)
     stage("rii.scan")
     _count_union_rows(vlen, flat, dup)
     pen = None
@@ -345,8 +380,8 @@ def ivf_union_scan_topk_i8(queries, decoded_g_i8, col_scales, norms_g,
     stage("rii.select", q_all.device)
     # int8 selection reorders near-boundary candidates: overfetch before
     # the exact rescore, as the JAX module does
-    sel, pos = _smallest(vmin, min(max(2 * topk, topk + 8), vmin.shape[1]))
-    slot_top = torch.gather(amin, 1, pos)
+    sel, slot_top, tile_k = _select_tiles(vmin, amin, max(2 * topk, topk + 8))
+    _note_selections(probe_k, tile_k)
     # +inf selections (duplicate windows, padding, excluded slots) point at
     # slots whose codes decode to finite distances: keep them masked
     dist, slots = _rescore_slots(q_all, slot_top, torch.isfinite(sel),
