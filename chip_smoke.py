@@ -582,6 +582,9 @@ def phase_kernels_pq(dev, g):
                     v_k, a_k, v_t, a_t))
             t_k = cuda_ms(lambda: fn(q, codes_g, cw, flat, dup, vl, cap_v))
             t_t = cuda_ms(lambda: twin(q, codes_g, cw, flat, dup, vl, cap_v))
+            if name == "ivf_pq_window_top2":
+                topk_figs = window_topk_figures(q, codes_g, cw, flat, dup, vl, cap_v,
+                                                pen)
             rows = int(vl[dup == 0].sum())  # live rows of the distinct entries
             calls[qn] = (lambda q=q, flat=flat, dup=dup, vl=vl, fn=fn:
                          fn(q, codes_g, cw, flat, dup, vl, cap_v))
@@ -607,6 +610,8 @@ def phase_kernels_pq(dev, g):
                             "rii_tpu/ops/pallas_scan.py:1261 _ivf_pq_window_kernel"),
                "max_abs_err": max(errs), "ms": t_k, "plain_ms": t_t, "U": u, "Q": q_main,
                **w_bound(q_main), "library_ms": None}
+        if name == "ivf_pq_window_top2":
+            rec.update(topk_figs)
         for qn in qns:
             count_kernels_later(rec, "kernels_a_call" + ("" if qn == q_main else f"_q{qn}"),
                                 f"{name} Q={qn}", calls[qn])
@@ -615,6 +620,30 @@ def phase_kernels_pq(dev, g):
             rec.update(at_q(w_bound(qn), qn))
         records.append(rec)
     return records
+
+
+def window_topk_figures(q, codes_g, cw, flat, dup, vl, cap_v, pen, k=20):
+    """Kernel D selecting each query's k best tile minima in its epilogue
+    (the entry's ``k``, the union's call at topk 10) against its full
+    output and the selection the union made of it before (the selection
+    kernel and a gather): equal bit for bit, with and without the pen
+    stream; both timed (CUDA events)."""
+    from rii_tpu_torch.ops import hopper_pq as HP
+    from rii_tpu_torch.ops.ivf import _select_tiles
+    fn = HP.ivf_pq_window_tile_minima
+    for p in (None, pen):
+        got = fn(q, codes_g, cw, flat, dup, vl, cap_v, pen=p, k=k)
+        want = _select_tiles(*fn(q, codes_g, cw, flat, dup, vl, cap_v, pen=p), k)[:2]
+        if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+                and torch.equal(got[1], want[1])):
+            raise AssertionError(f"ivf_pq_window_top2 k={k}: the epilogue's selection "
+                                 "differs from the selection of the full output")
+    del got, want
+    t_f = cuda_ms(lambda: fn(q, codes_g, cw, flat, dup, vl, cap_v, k=k))
+    t_s = cuda_ms(lambda: _select_tiles(*fn(q, codes_g, cw, flat, dup, vl, cap_v), k))
+    log(f"  ivf_pq_window_top2 Q={q.shape[0]} U={flat.shape[0]} k={k}: selecting "
+        f"epilogue {t_f:.3f} ms, full output and the selection kernel {t_s:.3f} ms")
+    return {f"ms_topk{k}": t_f, f"ms_full_select_k{k}": t_s}
 
 
 def phase_kernels_i8(dev, g):
@@ -1737,6 +1766,9 @@ def twin_keys(name, args, kw):
         out = [H._unpack(f(q, dec_t, norms_rep[0]), 0x7F)
                for f in (H.replica_tile_keys, H.replica_tile_keys_plain)]
     else:
+        # a call that selected in kernel D's epilogue is held through its
+        # full minima (the selection is held to the full output's apart)
+        kw = {a: v for a, v in kw.items() if a != "k"}
         out = [f(*args, **kw) for f in (getattr(IV, name), window_twins()[name][1])]
     return [t.reshape(-1) for pair in out for t in pair]
 

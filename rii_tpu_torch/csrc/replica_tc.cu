@@ -27,7 +27,11 @@
 //   D  _ivf_pq_window_kernel, entry rii_tc_pq_window_top2: the union of
 //      probed windows of the grouped row-major codes (ivf_pq_window.cu
 //      holds the contract, kernel E's too), per 8-slot group the best and
-//      second-best score, ||dec||^2 computed in the kernel;
+//      second-best score, ||dec||^2 computed in the kernel; entry
+//      rii_tc_pq_window_topk: each query's k best of those, selected in
+//      the epilogue (kTopK) and merged across the grid by a second launch,
+//      in place of the full output (the selection rii_tpu/ops/ivf.py makes
+//      of it with lax.top_k);
 //   G  _ivf_i8_window_multi_kernel and _ivf_i8_window_kernel, entry
 //      rii_tc_i8_window_top2: the union's windows of the grouped int8 rows
 //      (total, D), D's top-2 with F's int8 score, the dequantized rows'
@@ -166,6 +170,8 @@
 //   scattered one a row. D's output (8 bytes a query and group) is its
 //   bound; one m64 tile a warpgroup keeps the staging and the codebook in
 //   shared memory beside the ring, so Q=512 decodes each tile 4 times.
+//   Selecting in its epilogue (kTopK, below) D stages and writes none of
+//   that output, only each query's best candidates.
 // - Int8 windows (G). D's walk over the union's windows and D's epilogue,
 //   on F's s8 product: producer thread r loads slot r's 128 bytes of a
 //   chunk (16-byte loads where the row is so aligned, else narrower ones,
@@ -242,7 +248,11 @@
 // byte) comes next. B (U=2048, cap_v=256, D=128): its bytes, the rows of
 // the union's distinct windows (0.12 GB) and its output (Q * U * 512
 // bytes: 0.034 GB at Q=32, 0.134 GB at Q=128), 0.047 / 0.077 ms; the
-// producer's norm (two fmas a bf16 word) comes next.
+// producer's norm (two fmas a bf16 word) comes next. D selecting in its
+// epilogue writes no output but its lists (Q * nsg * k keys, a few MB):
+// at Q=512 over 2^23 slots its bound is the bf16 operations, 1.1e12
+// (1.1 ms; 0.66 ms for the live rows alone, about 60% of the slots at the
+// SIFT1B shard's shape), the codes read next (67 MB).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -255,6 +265,7 @@
 
 #include "device_state.cuh"
 #include "packed_keys.cuh"
+#include "select_keys.cuh"
 
 // Probe builds (rii_tpu_torch/benchmarks/tc_split.py) switch the product,
 // the epilogue or C's decoding off to split the kernel's time; a normal
@@ -288,6 +299,13 @@ constexpr int kTop2Tiles = 2;  // D: tiles of results a warpgroup stages before 
 // padded so that the quads' rows hit other banks
 constexpr int kTop2Row = 2 * kTop2Tiles * kGroups + 4;
 static_assert(kTop2Tiles * kGroups == 32, "D's write-out gives a lane one staged group");
+// D's selecting epilogue (kTopK): keys a row's list holds in device memory,
+// and the largest k it serves (a list is cut to k keys when it lacks room
+// for the next 32)
+constexpr int kListCap = 128;
+constexpr int kTopKMax = 64;
+constexpr int kPubTiles = 4;  // tiles between reads of the rows' published thresholds
+static_assert(kTopKMax + 32 <= kListCap, "a cut list has room for a tile's 32 candidates");
 
 
 // Operand types: T = uint16_t holds bf16, T = int8_t int8.
@@ -323,15 +341,22 @@ __host__ __device__ constexpr bool loads_window_rows(int l) { return l == kI8Win
 __host__ __device__ constexpr bool walks_windows(int l) {
   return l == kCodeWin || loads_window_rows(l);
 }
-// kTop2: B's, D's and G's best and second-best of each 8-slot group.
-enum Out { kKeys = 0, kPacked = 1, kExact = 2, kTop2 = 3 };
+// kTop2: B's, D's and G's best and second-best of each 8-slot group;
+// kTopK: D's, selected in the epilogue, each query's k best of them.
+enum Out { kKeys = 0, kPacked = 1, kExact = 2, kTop2 = 3, kTopK = 4 };
 
 // Bytes of a warpgroup's staged results: kKeys, kPacked, kExact a value
 // and a slot per row for kOutTiles tiles; kTop2 a row's best and second
-// keys of each group of kTop2Tiles tiles, and each group's grouped slot.
+// keys of each group of kTop2Tiles tiles, and each group's grouped slot;
+// kTopK none (its lists lie in device memory, their counts in kCountBytes).
 template <int kOut, int kMT>
-constexpr int kStagedBytes = kOut == kTop2 ? (kMT * 64 * kTop2Row + kTop2Tiles * kGroups) * 4
-                                           : kMT * 64 * 2 * kOutTiles * 4;
+constexpr int kStagedBytes = kOut == kTopK  ? 0
+                             : kOut == kTop2 ? (kMT * 64 * kTop2Row + kTop2Tiles * kGroups) * 4
+                                             : kMT * 64 * 2 * kOutTiles * 4;
+
+// kTopK: each row's count of keys in its list.
+template <int kOut, int kMT>
+constexpr int kCountBytes = kOut == kTopK ? kConsumers * kMT * 64 * 4 : 0;
 
 // Bytes a ring stage holds beside its chunk: int8 (F, I), the tile's norms
 // (a bulk copy with chunk 0); B, D and G, the norms and grouped slots the
@@ -349,7 +374,8 @@ constexpr int kSideBytes = walks_windows(kLayout) ? 2 * kNormBytes
 // 4-dim halves of 8 bytes (Ds not a multiple of 8, or cw not 16-byte
 // aligned). B, D and G: the union's U window ids flat, their dup and vlen
 // (not B's), pen (grouped slots, or null), cap_v rows a window, the
-// output's ncol columns; G: the int8 rows' column scales.
+// output's ncol columns; G: the int8 rows' column scales. D's selecting
+// epilogue: cand, the lists (cand_keys keys), and k.
 struct CodeSrc {
   const uint8_t* codes;
   const uint16_t* cw;
@@ -363,6 +389,9 @@ struct CodeSrc {
   int cap_v, U;
   long long ncol;
   const float* scales;
+  unsigned long long* cand;
+  long long cand_keys;
+  int topk;
 };
 
 // ---- shared memory, barriers, copies ------------------------------------------
@@ -1010,6 +1039,17 @@ __device__ __forceinline__ void merge2(float& a, float& b, float ra, float rb) {
   a = fminf(a, ra);
 }
 
+// The 32 norms of a thread's columns 8j + lb + {0, 1} from the stage's
+// side bytes nr, clamped for packing.
+__device__ __forceinline__ void side_norms(const float* nr, int lb, float (&nv)[32]) {
+#pragma unroll
+  for (int j = 0; j < kGroups; ++j) {
+    const float2 n2 = *reinterpret_cast<const float2*>(nr + 8 * j + lb);
+    nv[2 * j] = fminf(n2.x, kPackClamp);
+    nv[2 * j + 1] = fminf(n2.y, kPackClamp);
+  }
+}
+
 template <int kMT, typename A>
 __device__ __forceinline__ void tile_top2(const A (&acc)[kMT][64], const float* nr,
                                           const float (&a2)[2 * kMT], int lane, int row_w,
@@ -1018,12 +1058,7 @@ __device__ __forceinline__ void tile_top2(const A (&acc)[kMT][64], const float* 
   const bool odd1 = lane & 1;
   const bool odd2 = lane & 2;
   float nv[32];
-#pragma unroll
-  for (int j = 0; j < kGroups; ++j) {
-    const float2 n2 = *reinterpret_cast<const float2*>(nr + 8 * j + lb);
-    nv[2 * j] = fminf(n2.x, kPackClamp);
-    nv[2 * j + 1] = fminf(n2.y, kPackClamp);
-  }
+  side_norms(nr, lb, nv);
 #pragma unroll
   for (int r = 0; r < 2 * kMT; ++r) {
     float a[kGroups], b[kGroups];
@@ -1064,6 +1099,301 @@ __device__ __forceinline__ void tile_top2(const A (&acc)[kMT][64], const float* 
       row[j] = a[q];
       row[kTop2Tiles * kGroups + j] = b[q];
     }
+  }
+}
+
+// ---- D's selecting epilogue (kTopK) -------------------------------------------
+//
+// In place of writing each 8-slot group's best and second-best key, the
+// block keeps each of its query rows' k best of them: candidates in the
+// order of select_keys.cuh, the value (the unpacked key, as kTop2 writes
+// it) above the candidate's column in kTop2's output (entry eu's columns
+// eu * 2 * nt8 + sec * nt8 + group, nt8 = cap_v / 8), times 8, plus its
+// slot in the group (the key's 3 bits). So the keys order as the selection
+// kernel orders kTop2's output, ties to the lower column, and the grouped
+// slot follows from the key and the union's flat and dup.
+//
+// A row's list lies in device memory, kListCap keys at
+// cand + ((q * nsg + sg) * kListCap) (L2 holds them: loads and stores with
+// .cg, never the read-only path), its count in shared memory. Each thread
+// holds its two rows' threshold: a key at or above it cannot be among the
+// row's k smallest (the k-th smallest of the row's list at its last cut, or
+// a smaller one that another slot group's block published for the row, an
+// atomic minimum in device memory read every kPubTiles tiles), and its
+// value. A tile's scores are reduced in-thread first (each group's two
+// columns on the thread, then their minimum): where no thread of the warp
+// holds a column at or below its row's threshold value, the tile offers
+// the row nothing, and the quad's butterfly (tile_top2's) is skipped. Else
+// the butterfly runs and each thread tests its groups' best and
+// second-best against the threshold, appending what passes to the row's
+// list (a slot from an atomic add on the count). A list that lacks room
+// for the next tile's 32 is sorted in the warp's registers (warp_sort128),
+// cut to k and written back, and the threshold tightens and is published.
+// At the end each list is cut to k keys (kNone past the keys held), and a
+// small launch (window_topk_merge) merges a row's nsg lists.
+
+// Sorts the warp's 128 keys ascending, lane l holding keys 4l..4l+3 in x:
+// a bitonic network in registers, across lanes by shuffles.
+__device__ __forceinline__ void warp_sort128(unsigned long long (&x)[4], int lane) {
+#pragma unroll
+  for (int size = 2; size <= 128; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = 4 * lane + j;
+        const bool up = (i & size) == 0;  // i's run ascends
+        if (stride >= 4) {
+          const unsigned long long y = __shfl_xor_sync(kFull, x[j], stride >> 2);
+          // the pair's lower element keeps the smaller in an ascending run
+          x[j] = (((i & stride) == 0) == up) == (x[j] < y) ? x[j] : y;
+        } else if ((j & stride) == 0) {
+          const unsigned long long u = x[j], v = x[j + stride];
+          x[j] = (u < v) == up ? u : v;
+          x[j + stride] = (u < v) == up ? v : u;
+        }
+      }
+    }
+  }
+}
+
+// Sorts row list lg (count keys, at most kListCap) and keeps its first k;
+// once k are held, the k-th lowers the threshold (thr, its value thv).
+__device__ __forceinline__ void list_cut(unsigned long long* lg, int& count, int k,
+                                         unsigned long long& thr, float& thv, int lane) {
+  static_assert(kListCap == 128, "a cut sorts four keys a lane");
+  __syncwarp();  // the lanes' appends are visible
+  unsigned long long x[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) x[j] = 4 * lane + j < count ? __ldcg(lg + 4 * lane + j) : kNone;
+  warp_sort128(x, lane);
+  if (count >= k) {
+    count = k;
+    const int j = (k - 1) & 3;
+    const unsigned long long mine = j == 0 ? x[0] : j == 1 ? x[1] : j == 2 ? x[2] : x[3];
+    const unsigned long long kth = __shfl_sync(kFull, mine, (k - 1) >> 2);
+    if (kth < thr) {
+      thr = kth;
+      thv = order_value(static_cast<unsigned>(thr >> 32));
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (4 * lane + j < count) __stcg(lg + 4 * lane + j, x[j]);
+  }
+  __syncwarp();
+}
+
+// The lists of one block's rows: their keys, each row's count (shared
+// memory, the warpgroup's 64 rows), each row's shared threshold.
+struct TopkLists {
+  unsigned long long* cand;     // the lists, kListCap keys a row and slot group
+  unsigned long long* row_thr;  // (Q,) the rows' published thresholds
+  int* cnt;                     // the warpgroup's rows' counts
+  int k, sg, nsg;
+};
+
+// Query row q's list of this block's slot group.
+__device__ __forceinline__ unsigned long long* row_list(const TopkLists& tl, int q) {
+  return tl.cand + (static_cast<long long>(q) * tl.nsg + tl.sg) * kListCap;
+}
+
+// Appends key to row `row`'s list (query row q) where it lies below thr.
+__device__ __forceinline__ void list_append(const TopkLists& tl, int row, int q,
+                                            unsigned long long key, unsigned long long thr) {
+  if (key < thr) __stcg(row_list(tl, q) + atomicAdd(tl.cnt + row, 1), key);
+}
+
+// D's top 2 of each 8-slot group (tile_top2's arithmetic and butterfly),
+// offered to the thread's rows' lists: row r is 64 (r / 2) + 8 (r % 2) +
+// row_w of the warpgroup, query row qw + that; thr, thv its threshold.
+// Returns whether the warp offered any row a candidate (a butterfly ran).
+template <int kMT, typename A>
+__device__ __forceinline__ bool tile_topk(const A (&acc)[kMT][64], const float (&nv)[32],
+                                          const float (&a2)[2 * kMT], int lane, int row_w,
+                                          int tile, int Q, int qw, const CodeSrc& cs,
+                                          const TopkLists& tl,
+                                          const unsigned long long (&thr)[2 * kMT],
+                                          const float (&thv)[2 * kMT]) {
+  const int lb = 2 * (lane & 3);
+  const bool odd1 = lane & 1;
+  const bool odd2 = lane & 2;
+  const int nt8 = cs.cap_v / 8;
+  bool offered = false;
+#pragma unroll
+  for (int i = 0; i < kMT; ++i) {
+    // the m-tile's two rows' groups first, in straight-line code (the rows
+    // interleave), and each row's least key on the thread, a tree of minima
+    float a[2][kGroups], b[2][kGroups];
+    bool need[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 2 * i + h;
+      float lo[kGroups];
+#pragma unroll
+      for (int j = 0; j < kGroups; ++j) {
+        const float k0 = key3(score_of(acc[r >> 1][4 * j + 2 * (r & 1)], a2[r], nv[2 * j]), lb);
+        const float k1 = key3(score_of(acc[r >> 1][4 * j + 2 * (r & 1) + 1], a2[r], nv[2 * j + 1]),
+                              lb + 1);
+        a[h][j] = fminf(k0, k1);
+        b[h][j] = fmaxf(k0, k1);
+        lo[j] = a[h][j];
+      }
+#pragma unroll
+      for (int w = kGroups / 2; w > 0; w >>= 1) {
+#pragma unroll
+        for (int j = 0; j < w; ++j) lo[j] = fminf(lo[j], lo[j + w]);
+      }
+      // a value above the threshold's leaves the row nothing in this tile
+      const bool live = qw + row_w + 64 * i + 8 * h < Q;
+      need[h] = live && !(__int_as_float(__float_as_int(lo[0]) & ~7) > thv[r]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 2 * i + h;
+      if (!__any_sync(0xffffffffu, need[h])) continue;
+      offered = true;
+      const int row = row_w + 64 * (r >> 1) + 8 * (r & 1);
+#pragma unroll
+      for (int p = 0; p < kGroups / 2; ++p) {
+        const float ka = odd1 ? a[h][2 * p + 1] : a[h][2 * p];
+        const float kb = odd1 ? b[h][2 * p + 1] : b[h][2 * p];
+        const float sa = odd1 ? a[h][2 * p] : a[h][2 * p + 1];
+        const float sb = odd1 ? b[h][2 * p] : b[h][2 * p + 1];
+        a[h][p] = ka;
+        b[h][p] = kb;
+        merge2(a[h][p], b[h][p], __shfl_xor_sync(0xffffffffu, sa, 1),
+               __shfl_xor_sync(0xffffffffu, sb, 1));
+      }
+#pragma unroll
+      for (int q = 0; q < kGroups / 4; ++q) {
+        const float ka = odd2 ? a[h][2 * q + 1] : a[h][2 * q];
+        const float kb = odd2 ? b[h][2 * q + 1] : b[h][2 * q];
+        const float sa = odd2 ? a[h][2 * q] : a[h][2 * q + 1];
+        const float sb = odd2 ? b[h][2 * q] : b[h][2 * q + 1];
+        a[h][q] = ka;
+        b[h][q] = kb;
+        merge2(a[h][q], b[h][q], __shfl_xor_sync(0xffffffffu, sa, 2),
+               __shfl_xor_sync(0xffffffffu, sb, 2));
+      }
+      if (qw + row >= Q) continue;
+#pragma unroll
+      for (int q = 0; q < kGroups / 4; ++q) {
+        // group 4q + lane % 4: its best, then (not below the best) its second
+        const float va = unpack_key<3>(a[h][q]);
+        if (va > thv[r]) continue;
+        const int grp = tile * kGroups + 4 * q + (lane & 3);
+        const int eu = grp / nt8;  // the union entry
+        if (eu >= cs.U) continue;
+        const unsigned c8 = static_cast<unsigned>(eu * 2 * nt8 + (grp - eu * nt8)) << 3;
+        list_append(tl, row, qw + row, make_key(va, c8 | (__float_as_uint(a[h][q]) & 7u)), thr[r]);
+        const float vb = unpack_key<3>(b[h][q]);
+        if (!(vb > thv[r])) {
+          list_append(tl, row, qw + row,
+                      make_key(vb, (c8 + 8u * nt8) | (__float_as_uint(b[h][q]) & 7u)), thr[r]);
+        }
+      }
+    }
+  }
+  return offered;
+}
+
+// After a tile: each of the warp's rows (r0..r0+15 of the warpgroup) whose
+// list lacks room for the next tile's 32 keys is cut, its threshold
+// published and handed to the threads that hold the row.
+template <int kMT>
+__device__ __forceinline__ void cut_full_lists(const TopkLists& tl, int lane, int row_w, int Q,
+                                               int qw, unsigned long long (&thr)[2 * kMT],
+                                               float (&thv)[2 * kMT]) {
+  __syncwarp();  // the counts and appends of the tile are in
+#pragma unroll
+  for (int r = 0; r < 2 * kMT; ++r) {
+    const int row = row_w + 64 * (r >> 1) + 8 * (r & 1);
+    unsigned full = __ballot_sync(0xffffffffu, (lane & 3) == 0 && qw + row < Q &&
+                                                   tl.cnt[row] > kListCap - 32);
+    while (full != 0) {
+      const int src = __ffs(full) - 1;
+      full &= full - 1;
+      const int rr = __shfl_sync(0xffffffffu, row, src);
+      int count = tl.cnt[rr];
+      unsigned long long t = __shfl_sync(0xffffffffu, thr[r], src);
+      float tv = __shfl_sync(0xffffffffu, thv[r], src);
+      list_cut(row_list(tl, qw + rr), count, tl.k, t, tv, lane);
+      if (lane == 0) {
+        tl.cnt[rr] = count;
+        atomicMin(tl.row_thr + qw + rr, t);
+      }
+      if (row == rr) {
+        thr[r] = t;
+        thv[r] = tv;
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// The block's end: each of the warp's rows' lists (16 a query tile of the
+// warpgroup, from r0) cut to k keys, kNone past the keys it holds.
+template <int kMT>
+__device__ __forceinline__ void finish_lists(const TopkLists& tl, int lane, int r0, int Q,
+                                             int qw) {
+  __syncwarp();
+  for (int i = 0; i < 16 * kMT; ++i) {
+    const int rr = r0 + 64 * (i >> 4) + (i & 15);
+    if (qw + rr >= Q) break;
+    int count = tl.cnt[rr];
+    unsigned long long t = kNone;
+    float tv = 0.0f;
+    unsigned long long* lg = row_list(tl, qw + rr);
+    if (count > tl.k) list_cut(lg, count, tl.k, t, tv, lane);
+    for (int j = count + lane; j < tl.k; j += 32) __stcg(lg + j, kNone);
+  }
+}
+
+// The merge: warp w of block b takes query row b * 4 + w, keeps the k
+// smallest of its nsg lists' first k keys (below the row's published
+// threshold, which they hold k keys up to) and writes them ascending: the
+// value from the key's high half, the grouped slot from its column (0 in a
+// duplicate entry, as kTop2 writes it). The lists hold at least k keys
+// between them (k <= the union's columns).
+__global__ void __launch_bounds__(128)
+    window_topk_merge(const unsigned long long* __restrict__ cand,
+                      const unsigned long long* __restrict__ row_thr, int Q, int nsg, int k,
+                      const int* __restrict__ flat, const int* __restrict__ dup, int cap_v,
+                      float* __restrict__ out_v, int* __restrict__ out_i) {
+  __shared__ unsigned long long smem[4 * kListCap];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = static_cast<int>(blockIdx.x) * 4 + warp;
+  if (row >= Q) return;
+  WarpList<kListCap> list;
+  list.init(smem + warp * kListCap, nullptr, k);
+  // the block that published T holds k keys at or below it
+  const unsigned long long t = __ldcg(row_thr + row);
+  if (t != kNone) list.lower(t + 1);
+  const unsigned long long* cr = cand + static_cast<long long>(row) * nsg * kListCap;
+  const int m = nsg * k;
+  for (int base = 0; base < m; base += 32) {
+    const int i = base + lane;
+    const unsigned long long key = i < m ? __ldcg(cr + (i / k) * kListCap + i % k) : kNone;
+    list.reserve(32, lane);
+    list.push(key, key < list.thr, lane);
+  }
+  list.compact(lane);
+  const int nt8 = cap_v / 8;
+  for (int i = lane; i < k; i += 32) {
+    // held: always, as k <= the union's columns (a NaN and slot 0 else)
+    const bool held = i < list.count;
+    const unsigned long long key = held ? list.buf[i] : kNone;
+    const unsigned c8 = static_cast<unsigned>(key);
+    const int col = static_cast<int>(c8 >> 3);
+    const int eu = col / (2 * nt8);
+    const int g = (col - eu * 2 * nt8) % nt8;  // the group in its window
+    out_v[static_cast<long long>(row) * k + i] = order_value(static_cast<unsigned>(key >> 32));
+    int slot = 0;  // a duplicate entry's
+    if (held && __ldg(dup + eu) == 0) {
+      slot = __ldg(flat + eu) * cap_v + 8 * g + static_cast<int>(c8 & 7u);
+    }
+    out_i[static_cast<long long>(row) * k + i] = slot;
   }
 }
 
@@ -1113,9 +1443,12 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
   uint8_t* ring = qs + (kQS ? 0 : kConsumers * kMT * kc * kQTileBytes);
   // [warpgroup][row][kOutTiles] values, lanes; kTop2: [warpgroup][row][kTop2Row]
   uint8_t* staged = ring + stages * kStage;
+  // kTopK: [warpgroup][row] the rows' counts of keys
+  int* counts = reinterpret_cast<int*>(staged + kConsumers * kStagedBytes<kOut, kMT>);
   // D: the codewords' norms (M * Ks f32); G: the column scales (kc * 128
   // f32, zero past D)
-  float* ntab = reinterpret_cast<float*>(staged + kConsumers * kStagedBytes<kOut, kMT>);
+  float* ntab =
+      reinterpret_cast<float*>(reinterpret_cast<uint8_t*>(counts) + kCountBytes<kOut, kMT>);
   // C, J, D: the codebook, when it is staged
   uint16_t* cbs = reinterpret_cast<uint16_t*>(
       reinterpret_cast<uint8_t*>(ntab) + (kWin ? (cs.M * cs.Ks * 4 + 15) / 16 * 16 : 0));
@@ -1158,6 +1491,9 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
   }
   if constexpr (kG) {
     for (int d = t; d < kc * kDim; d += kThreads) ntab[d] = d < D ? __ldg(cs.scales + d) : 0.0f;
+  }
+  if constexpr (kOut == kTopK) {
+    for (int i = t; i < kConsumers * kMT * 64; i += kThreads) counts[i] = 0;
   }
   if constexpr (kDecode) {
     if (cs.cb_smem) {
@@ -1407,6 +1743,17 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
     }
     Acc<T> acc[kMT][64];
     float tot[kMT][64];  // kParts: the sum of the 8-chunk parts
+    // kTopK: the thread's rows' lists (tile_topk's rows r) and their
+    // thresholds, the rows' published ones read a tile ahead
+    const TopkLists tl{cs.cand, kOut == kTopK ? cs.cand + cs.cand_keys - Q : nullptr,
+                       counts + wg * kMT * 64, cs.topk, sg, nsg};
+    unsigned long long thr[2 * kMT], pub[2 * kMT];
+    float thv[2 * kMT];
+#pragma unroll
+    for (int r = 0; r < 2 * kMT; ++r) {
+      thr[r] = pub[r] = kNone;
+      thv[r] = __uint_as_float(0x7fffffffu);
+    }
     int s = 0;
     uint32_t ph = 0;
     for (int tile = tile0; tile < tile1; ++tile) {
@@ -1431,6 +1778,15 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
           if constexpr (kOut != kExact) {
             nv[2 * j] = fminf(nv[2 * j], kPackClamp);
             nv[2 * j + 1] = fminf(nv[2 * j + 1], kPackClamp);
+          }
+        }
+      }
+      if constexpr (kOut == kTopK) {
+        if (((tile - tile0) & (kPubTiles - 1)) == 0) {
+#pragma unroll
+          for (int r = 0; r < 2 * kMT; ++r) {
+            const int qi = qw + row_w + 64 * (r >> 1) + 8 * (r & 1);
+            if (qi < Q) pub[r] = __ldcg(tl.row_thr + qi);  // used after the product
           }
         }
       }
@@ -1500,7 +1856,30 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
       wgmma_wait<0>();
 #pragma unroll
       for (int i = 0; i < kMT; ++i) fence_acc(acc[i]);
-      if constexpr (kOut == kTop2) {
+      if constexpr (kOut == kTopK) {
+        // D selecting: the tile's norms from the last chunk's side bytes
+        // (the stage is released once they are read), the groups' top 2
+        // offered to the rows' lists, full lists cut
+        side_norms(reinterpret_cast<const float*>(side + prev * kSide), lb, nv);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[prev]);
+#pragma unroll
+        for (int r = 0; r < 2 * kMT; ++r) {
+          if (pub[r] < thr[r]) {
+            thr[r] = pub[r];
+            thv[r] = order_value(static_cast<unsigned>(pub[r] >> 32));
+          }
+        }
+        bool offered = false;
+        if (RII_TC_EPILOGUE) {
+          if constexpr (kParts) {
+            offered = tile_topk<kMT>(tot, nv, a2, lane, row_w, tile, Q, qw, cs, tl, thr, thv);
+          } else {
+            offered = tile_topk<kMT>(acc, nv, a2, lane, row_w, tile, Q, qw, cs, tl, thr, thv);
+          }
+        }
+        if (offered) cut_full_lists<kMT>(tl, lane, row_w, Q, qw, thr, thv);
+      } else if constexpr (kOut == kTop2) {
         // B, D, G: the top 2 of each 8-slot group from the last chunk's side
         // bytes (the stage is released after), staged for kTop2Tiles of the
         // warpgroup's tiles (alt: every other tile), then each row's groups
@@ -1573,6 +1952,7 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
         }
       }
     }
+    if constexpr (kOut == kTopK) finish_lists<kMT>(tl, lane, (warp & 3) * 16, Q, qw);
   }
 }
 
@@ -1640,7 +2020,8 @@ int launch(const CUtensorMap& map, const Args& a) {
   const size_t qtiles = static_cast<size_t>(kConsumers) * kMT * kQTileBytes;  // a chunk's
   const size_t stage = kChunkBytes + (kQS ? qtiles : 0);
   const size_t fixed = 2048 + kMaxStages * kSideBytes<kLayout, T> + (kQS ? 0 : kc * qtiles) +
-                       static_cast<size_t>(kConsumers) * kStagedBytes<kOut, kMT>;
+                       static_cast<size_t>(kConsumers) * kStagedBytes<kOut, kMT> +
+                       kCountBytes<kOut, kMT>;
   CodeSrc cs = a.cs;
   // D: the codewords' norms (G: the column scales), in shared memory beside
   // a ring of two stages; then C, J, D: the codebook goes there too if the
@@ -1675,11 +2056,28 @@ int launch(const CUtensorMap& map, const Args& a) {
   const int nt_live = static_cast<int>((a.n_valid + kTile - 1) / kTile);
   const int bm = kConsumers * kMT * 64;
   const int nqb = (a.Q + bm - 1) / bm;
-  const int nsg = std::max(1, std::min(nt_live, sms / nqb));
+  int nsg = std::max(1, std::min(nt_live, sms / nqb));
+  if constexpr (kOut == kTopK) {
+    // a list a query row and slot group: no more groups than cand holds
+    nsg = static_cast<int>(std::min<long long>(
+        nsg, (cs.cand_keys - a.Q) / (static_cast<long long>(a.Q) * kListCap)));
+    if (nsg < 1) return static_cast<int>(cudaErrorInvalidValue);
+    // the rows' published thresholds, cand's last Q keys: none yet
+    if (const cudaError_t e = cudaMemsetAsync(cs.cand + cs.cand_keys - a.Q, 0xff,
+                                              static_cast<size_t>(a.Q) * 8, a.stream)) {
+      return static_cast<int>(e);
+    }
+  }
   kernel<<<static_cast<unsigned>(nqb) * nsg, kThreads, smem, a.stream>>>(
       map, qmap, static_cast<const T*>(a.q), a.alpha, static_cast<const T*>(a.rep),
       static_cast<const float*>(a.norms), static_cast<float*>(a.ov), static_cast<int*>(a.oi), a.Q,
       a.D, a.ldq, kc, stages, nt, nt_live, nqb, nsg, ~0x7F, cs);
+  if constexpr (kOut == kTopK) {
+    if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+    window_topk_merge<<<static_cast<unsigned>((a.Q + 3) / 4), 128, 0, a.stream>>>(
+        cs.cand, cs.cand + cs.cand_keys - a.Q, a.Q, nsg, cs.topk, cs.flat, cs.dup, cs.cap_v,
+        static_cast<float*>(a.ov), static_cast<int*>(a.oi));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1854,6 +2252,47 @@ extern "C" int rii_tc_pq_window_top2(const void* q, int ldq, const void* codes_g
   return M * Ds > kResidentChunks * kDims<uint16_t>
              ? launch<kCodeWin, kTop2, 1, true, uint16_t>(map, a)
              : launch<kCodeWin, kTop2, 1, false, uint16_t>(map, a);
+}
+
+// Kernel D selecting in its epilogue: vals (Q, k) f32 and slots (Q, k)
+// int32, what rii_tc_pq_window_top2's output gives when each row's k
+// smallest are selected from it (ascending, ties to the lower column;
+// k <= kTopKMax and k <= its U * 2 * cap_v / 8 columns). cand is scratch
+// for cand_keys 64-bit keys: kListCap a query row and slot group (the
+// grid's slot groups are cut to fit), then the Q rows' thresholds. A
+// memset and two launches: the scan, the merge.
+extern "C" int rii_tc_pq_window_topk(const void* q, int ldq, const void* codes_g, const void* cw,
+                                     const void* flat, const void* dup, const void* vlen,
+                                     const void* pen, void* cand, long long cand_keys, void* vals,
+                                     void* slots, int Q, int M, int Ks, int Ds, int U, int cap_v,
+                                     int k, void* stream) {
+  const long long slots_u = static_cast<long long>(U) * cap_v;
+  const long long cap = (slots_u + kTile - 1) / kTile * kTile;  // the union's tiles
+  if (bad_codebook(M, Ks, Ds) || U <= 0 || cap_v <= 0 || cap_v % 8 != 0 || k <= 0 ||
+      k > kTopKMax || k > slots_u / 4 || bad_shape<uint16_t>(q, ldq, nullptr, Q, M * Ds, cap)) {
+    return kInvalid;
+  }
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  CodeSrc cs = row_codes(codes_g, cw, M, Ks, Ds);
+  cs.flat = static_cast<const int*>(flat);
+  cs.dup = static_cast<const int*>(dup);
+  cs.vlen = static_cast<const int*>(vlen);
+  cs.pen = static_cast<const float*>(pen);
+  cs.cap_v = cap_v;
+  cs.U = U;
+  cs.ncol = slots_u / 4;
+  cs.cand = static_cast<unsigned long long*>(cand);
+  cs.cand_keys = cand_keys;
+  cs.topk = k;
+  const Args a{q, ldq, nullptr, codes_g, nullptr, vals, slots, Q, M * Ds, cap, cap,
+               static_cast<cudaStream_t>(stream), cs};
+  // one m64 tile a consumer warpgroup, as kTop2's: two (256-row blocks,
+  // each tile decoded half as often at Q=512) spilled 1.1 KB a thread and
+  // took 12 ms where one takes 7 (PERF.md)
+  return M * Ds > kResidentChunks * kDims<uint16_t>
+             ? launch<kCodeWin, kTopK, 1, true, uint16_t>(map, a)
+             : launch<kCodeWin, kTopK, 1, false, uint16_t>(map, a);
 }
 
 // Kernel G: vmin, amin (Q, U * 2 * cap_v / 8), per 8-slot group of the

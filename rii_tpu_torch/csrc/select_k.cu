@@ -44,110 +44,17 @@
 
 #include <cstdint>
 
+#include "select_keys.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned long long kNone = ~0ull;  // above every entry's key
 constexpr int kWarps = 4;                    // warps a block, both passes
 constexpr int kVec = 4;                      // 16-byte loads a lane in flight
 constexpr int kMaxK = 256;
 constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
 
-// A float's bits, mapped so that unsigned order is the sort's order: -0 as
-// +0, every NaN as the largest.
-__device__ __forceinline__ unsigned order_bits(float v) {
-  unsigned u = __float_as_uint(v);
-  if (v != v) return 0xffffffffu;
-  if (u == 0x80000000u) u = 0u;
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-// The float whose order bits are b (NaN for the NaN class).
-__device__ __forceinline__ float order_value(unsigned b) {
-  return __uint_as_float((b & 0x80000000u) ? (b & 0x7fffffffu) : ~b);
-}
-
-__device__ __forceinline__ unsigned long long make_key(float v, long long col) {
-  return (static_cast<unsigned long long>(order_bits(v)) << 32) |
-         static_cast<unsigned long long>(col);
-}
-
-// One warp's list of candidate keys in shared memory (kCap of them) and its
-// threshold `thr`: a key at or above it cannot be among the k smallest, and
-// `thr_v` is its value, above which an entry is rejected at once (NaN, which
-// rejects nothing, until a threshold is known). Once the list has held k
-// keys, its k-th smallest is a threshold; so is any other warp's of the same
-// row, which the warps share through `row_thr` (an atomic minimum in device
-// memory): a warp that published T holds k keys at or below it, so a later
-// key, being distinct, is kept only below it. Every member is uniform
-// across the warp.
-template <int kCap>
-struct WarpList {
-  unsigned long long* buf;
-  unsigned long long* row_thr;  // the row's shared threshold, or null
-  int count;
-  int k;
-  unsigned long long thr;
-  float thr_v;
-
-  __device__ void init(unsigned long long* b, unsigned long long* shared, int kk) {
-    buf = b;
-    row_thr = shared;
-    count = 0;
-    k = kk;
-    thr = kNone;
-    thr_v = __uint_as_float(0x7fffffffu);
-  }
-
-  __device__ __forceinline__ void lower(unsigned long long t) {
-    if (t < thr) {
-      thr = t;
-      thr_v = order_value(static_cast<unsigned>(t >> 32));
-    }
-  }
-
-  // Appends each lane's key where `pass`, in lane order.
-  __device__ __forceinline__ void push(unsigned long long key, bool pass, int lane) {
-    const unsigned b = __ballot_sync(kFull, pass);
-    if (pass) buf[count + __popc(b & ((1u << lane) - 1u))] = key;
-    count += __popc(b);
-  }
-
-  // Sorts the list ascending (bitonic, padded to a power of two with kNone),
-  // keeps its first min(count, k) keys and, once k are held, tightens the
-  // threshold to the k-th.
-  __device__ void compact(int lane) {
-    __syncwarp();
-    int n2 = 2;
-    while (n2 < count) n2 <<= 1;
-    for (int i = count + lane; i < n2; i += 32) buf[i] = kNone;
-    __syncwarp();
-    for (int size = 2; size <= n2; size <<= 1) {
-      for (int stride = size >> 1; stride > 0; stride >>= 1) {
-        for (int t = lane; t < (n2 >> 1); t += 32) {
-          const int i = 2 * t - (t & (stride - 1));
-          const int j = i + stride;
-          const unsigned long long a = buf[i], b = buf[j];
-          if ((a > b) == ((i & size) == 0)) {
-            buf[i] = b;
-            buf[j] = a;
-          }
-        }
-        __syncwarp();
-      }
-    }
-    if (count >= k) {
-      count = k;
-      lower(buf[k - 1]);
-      if (row_thr != nullptr && lane == 0) atomicMin(row_thr, thr);
-    }
-  }
-
-  // Room for `need` more keys: sorts and cuts the list where it lacks it.
-  __device__ __forceinline__ void reserve(int need, int lane) {
-    if (count > kCap - need) compact(lane);
-  }
-};
+// The keys, a warp's list of them (WarpList) and its threshold are
+// select_keys.cuh's.
 
 // Pass 1. Block b takes row b / segs and the b % segs-th of `segs` equal
 // runs of the row's 16-byte-aligned body; the row's first entries before

@@ -12,7 +12,9 @@ codes on the device:
   the same kernel over the row-major codes of the probed windows),
   replaces ``_ivf_pq_window_kernel``: per-8-slot top-2 over the windows,
   rows decoded through the bf16 codebook (the engine's choice when
-  Q >= D).
+  Q >= D). With ``k`` its epilogue also selects each query's k best of
+  them, so the (Q, U*2*cap_v/8) minima never reach device memory
+  (:func:`pq_window_selects` says when the union takes that).
 - **Kernel E**, :func:`ivf_dt_window_tile_minima`
   (``csrc/ivf_pq_window.cu``), replaces ``_ivf_dt_window_kernel``: the
   same top-2 from the bf16 ADC table of
@@ -58,8 +60,12 @@ from rii_tpu_torch.ops.hopper_scan import (
     _tile_outputs,
     _top2_plain,
 )
+from rii_tpu_torch.ops.select import smallest_k_plain
 
 _DT_CHUNK = 8  # queries per table chunk of kernel E
+PQ_WINDOW_TOPK_MAX = 64  # kTopKMax in csrc/replica_tc.cu: D's selecting epilogue
+_LIST_CAP = 128  # kListCap: keys of one query row's list a slot group
+_D_ROWS = 128  # query rows of one of kernel D's blocks
 
 
 def _bf16_codebook(codewords):
@@ -351,9 +357,26 @@ def _check_window_kernel_args(codes_g, flat, dup, vlen, cap_v, pen):
              "pen must be contiguous float32")
 
 
+def pq_window_selects(k, u, cap_v):
+    """Whether the union selects its k best tile minima in kernel D's
+    epilogue (:func:`ivf_pq_window_tile_minima` with ``k``): k within the
+    epilogue's lists, and more tile-minima columns than k among the U
+    entries' U * 2 * cap_v / 8."""
+    return k <= PQ_WINDOW_TOPK_MAX and u * 2 * (cap_v // 8) > k
+
+
+def _smallest_tiles_plain(vmin, amin, k):
+    """The k smallest tile minima of each row and their slots, ties to the
+    lower column: the twin of D's selecting epilogue."""
+    sel, pos = smallest_k_plain(vmin, k)
+    return sel, torch.gather(amin, 1, pos)
+
+
 def ivf_pq_window_tile_minima_plain(queries, codes_g, codewords, flat, dup,
-                                    vlen, cap_v, pen=None):
-    """Plain twin of kernel D (see csrc/ivf_pq_window.cu for the contract)."""
+                                    vlen, cap_v, pen=None, k=None):
+    """Plain twin of kernel D (see csrc/ivf_pq_window.cu for the contract);
+    with ``k``, the k smallest of its output as
+    :func:`ivf_pq_window_tile_minima` returns them."""
     qf = queries.to(torch.bfloat16).float()
     qn = qf.shape[0]
     cw16 = _bf16_codebook(codewords)
@@ -368,11 +391,26 @@ def ivf_pq_window_tile_minima_plain(queries, codes_g, codewords, flat, dup,
         v, a = _top2_plain(scores, fl, dup[s:s + fl.shape[0]] != 0, cap_v)
         vals.append(v)
         args.append(a)
-    return torch.cat(vals, 1), torch.cat(args, 1)
+    vmin, amin = torch.cat(vals, 1), torch.cat(args, 1)
+    if k is None:
+        return vmin, amin
+    return _smallest_tiles_plain(vmin, amin, k)
+
+
+def _list_keys(qn, u, cap_v, device):
+    """Keys of the scratch of D's selecting epilogue: its lists, kListCap a
+    query row and slot group, the slot groups its grid takes (``launch`` in
+    csrc/replica_tc.cu: query blocks nqb of 128 rows, slot groups
+    min(tiles, SMs // nqb); it takes fewer where the scratch holds fewer),
+    then each query row's shared threshold."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = -(-(u * cap_v) // _TILE)
+    nsg = max(1, min(tiles, sms // -(-qn // _D_ROWS)))
+    return qn * nsg * _LIST_CAP + qn
 
 
 def ivf_pq_window_tile_minima(queries, codes_g, codewords, flat, dup, vlen,
-                              cap_v, pen=None):
+                              cap_v, pen=None, k=None):
     """Kernel D: per-8-slot top-2 over the probed code windows, each row
     decoded through the bf16 codebook.
 
@@ -383,7 +421,15 @@ def ivf_pq_window_tile_minima(queries, codes_g, codewords, flat, dup, vlen,
     scores without ||q||^2 and int32 grouped slots. CPU tensors take the
     plain twin; CUDA tensors launch the kernel (the tensor-core scan of
     ``csrc/replica_tc.cu`` over the union's windows, decoded by its
-    producer)."""
+    producer).
+
+    With ``k``: (vals (Q, k'), slots (Q, k')), k' = min(k, U*2*cap_v/8),
+    each row's k' smallest of (vmin, amin) in ascending order, ties to the
+    lower column, the +inf entries with their slots (0 in a duplicate
+    entry): bit for bit what the selection kernel gives over the full
+    output and its columns gathered from amin. The twin selects so; the
+    kernel keeps the selection in its epilogue (k' <= PQ_WINDOW_TOPK_MAX,
+    or ValueError) and a small launch merges its blocks' lists."""
     m, ks, ds = codewords.shape
     d = m * ds
     _require(codes_g.dim() == 2 and codes_g.shape[1] == m,
@@ -392,9 +438,10 @@ def ivf_pq_window_tile_minima(queries, codes_g, codewords, flat, dup, vlen,
              f"queries must be (Q, {d}), got {tuple(queries.shape)}")
     _check_windows(codes_g, flat, dup, vlen, cap_v, pen)
     extra = () if pen is None else (pen,)
+    _require(k is None or k >= 1, lambda: f"k must be >= 1, got {k}")
     if _on_cpu(queries, codes_g, codewords, flat, dup, vlen, *extra):
         return ivf_pq_window_tile_minima_plain(queries, codes_g, codewords,
-                                               flat, dup, vlen, cap_v, pen)
+                                               flat, dup, vlen, cap_v, pen, k)
     _check_window_kernel_args(codes_g, flat, dup, vlen, cap_v, pen)
     _require(ks <= 256, "Ks must be <= 256")
     q16, ldq = _tc_queries(queries)
@@ -402,18 +449,46 @@ def ivf_pq_window_tile_minima(queries, codes_g, codewords, flat, dup, vlen,
     flat, dup, vlen = flat.contiguous(), dup.contiguous(), vlen.contiguous()
     qn, u = q16.shape[0], flat.shape[0]
     ncol = u * 2 * (cap_v // 8)
+    pen_p = ctypes.c_void_p(None) if pen is None else _ptr(pen)
+    if k is not None:
+        return _window_topk(q16, ldq, codes_g, cw16, flat, dup, vlen, pen_p,
+                            cap_v, min(k, ncol))
     vmin = torch.empty((qn, ncol), dtype=torch.float32, device=codes_g.device)
     amin = torch.empty((qn, ncol), dtype=torch.int32, device=codes_g.device)
     fn = _build.load_library("replica_tc").rii_tc_pq_window_top2
     _build.configure(fn, [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8
                          + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    pen_p = ctypes.c_void_p(None) if pen is None else _ptr(pen)
     _build.check(fn(_ptr(q16), ldq, _ptr(codes_g), _ptr(cw16), _ptr(flat),
                     _ptr(dup), _ptr(vlen), pen_p, _ptr(vmin), _ptr(amin), qn,
                     m, ks, ds, u, cap_v, _stream(codes_g.device)),
                  "ivf_pq_window_tile_minima")
     _build.count_launch(ivf_pq_window_tile_minima)
     return vmin, amin
+
+
+def _window_topk(q16, ldq, codes_g, cw16, flat, dup, vlen, pen_p, cap_v, k):
+    """Kernel D with its selecting epilogue (``rii_tc_pq_window_topk``: the
+    scan, then the merge of its blocks' lists): (vals (Q, k) f32, slots
+    (Q, k) int32)."""
+    _require(k <= PQ_WINDOW_TOPK_MAX,
+             lambda: f"k={k}: kernel D selects k <= {PQ_WINDOW_TOPK_MAX}")
+    m, ks, ds = cw16.shape
+    qn, u = q16.shape[0], flat.shape[0]
+    dev = codes_g.device
+    n_keys = _list_keys(qn, u, cap_v, dev)
+    cand = torch.empty(n_keys, dtype=torch.int64, device=dev)
+    vals = torch.empty((qn, k), dtype=torch.float32, device=dev)
+    slots = torch.empty((qn, k), dtype=torch.int32, device=dev)
+    fn = _build.load_library("replica_tc").rii_tc_pq_window_topk
+    _build.configure(fn, [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
+                         + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
+                         + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    _build.check(fn(_ptr(q16), ldq, _ptr(codes_g), _ptr(cw16), _ptr(flat),
+                    _ptr(dup), _ptr(vlen), pen_p, _ptr(cand), n_keys,
+                    _ptr(vals), _ptr(slots), qn, m, ks, ds, u, cap_v, k,
+                    _stream(dev)), "ivf_pq_window_tile_minima")
+    _build.count_launch(ivf_pq_window_tile_minima)
+    return vals, slots
 
 
 ivf_pq_window_tile_minima.launches = 0

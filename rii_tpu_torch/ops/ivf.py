@@ -17,7 +17,9 @@ The union's two large selections, each query's probes from its coarse
 scores and its best slots from a window kernel's tile minima, go through
 the selection kernel (``ops/select.py``; its twin on the CPU), which breaks
 ties toward the lower column as ``lax.top_k`` does; the plain branches and
-the rescores select with ``torch.topk``.
+the rescores select with ``torch.topk``. Kernel D selects its tile minima
+in its own epilogue where its shape allows (``hopper_pq.pq_window_selects``),
+with the same answer, so they never reach device memory.
 
 :func:`ivf_scan_topk` and :func:`ivf_scan_topk_decoded` probe whole buckets
 of the grouped layout (``models.ivf.build_grouped_layout``), one (start,
@@ -34,6 +36,7 @@ from rii_tpu_torch.ops.hopper_i8 import ivf_i8_window_tile_minima
 from rii_tpu_torch.ops.hopper_pq import (
     ivf_dt_window_tile_minima,
     ivf_pq_window_tile_minima,
+    pq_window_selects,
 )
 from rii_tpu_torch.ops.hopper_scan import (
     _finish,
@@ -80,12 +83,15 @@ def _select_tiles(vmin, amin, k):
     return sel, torch.gather(amin, 1, pos), takes_kernel(vmin, k)
 
 
-def _note_selections(*took):
+def _note_selections(*took, fused=False):
     """While spans are recorded: how many of the call's union selections
-    (probe, tile minima) took the selection kernel, as the root's
-    ``select_kernel`` counter."""
+    (probe, tile minima) took the selection kernel or kernel D's selecting
+    epilogue, as the root's ``select_kernel`` counter, and whether the
+    window kernel selected the tile minima itself (``fused``), as its
+    ``tile_fused`` counter."""
     if recording():
         note("select_kernel", sum(map(int, took)))
+        note("tile_fused", int(fused))
 
 
 def _coarse_scores(q_all, centers_dec, centers_norms, exact):
@@ -297,14 +303,23 @@ def ivf_union_scan_topk_pq(queries, codes_g, norms_g, order_g, codewords,
             pen = torch.where(target_mask, 0.0, _INF).to(torch.float32)
         args = (q_all, codes_g, codewords, flat, dup.to(torch.int32),
                 vlen[flat.long()], cap_u)
-        if qn < d:
+        k_sel = topk * overfetch
+        # kernel D selects in its epilogue where its shape allows; the
+        # answer is the selection kernel's over its full output
+        fused = qn >= d and pq_window_selects(k_sel, flat.shape[0], cap_u)
+        if fused:
+            sel, slot_top = ivf_pq_window_tile_minima(*args, pen=pen, k=k_sel)
+        elif qn < d:
             vmin, amin = ivf_dt_window_tile_minima(*args, pen=pen,
                                                    cw_norms=cw_norms)
         else:
             vmin, amin = ivf_pq_window_tile_minima(*args, pen=pen)
         stage("rii.select", q_all.device)
-        sel, slot_top, tile_k = _select_tiles(vmin, amin, topk * overfetch)
-        _note_selections(probe_k, tile_k)
+        if fused:
+            tile_k = q_all.is_cuda
+        else:
+            sel, slot_top, tile_k = _select_tiles(vmin, amin, k_sel)
+        _note_selections(probe_k, tile_k, fused=fused)
         # +inf selections (duplicate windows, padding, excluded slots) point
         # at slots whose codes decode to finite distances: keep them masked
         dist, slots = _rescore_grouped_codes(q_all, slot_top,

@@ -329,6 +329,133 @@ def test_ivf_pq_windows_match_twin(cuda, kernel, qn, ds, cap_v, with_pen, case):
     assert (a_k.cpu().numpy()[:, cols] == 0).all()
 
 
+# Kernel D selecting in its epilogue (the entry's ``k``) against the
+# selection the union made before over D's full output (ops/ivf.py's
+# _select_tiles: the selection kernel and a gather of the slots), bit for
+# bit: (qn, U, cap_v, windows, k, pen, case). Duplicate entries, windows
+# past vlen and the pen stream give +inf candidates; "ties" repeats 17 code
+# rows throughout, so scores tie exactly; "split" takes 4 entries of 32
+# tiles each over a grid of one tile a slot group; "few" has 6 columns for
+# k=64; "d640" D=640 (M=8, Ds=80), whose queries stream through the ring
+# and whose products are summed in parts; "shard" the SIFT1B shard's call
+# (Q=512, U * cap_v = 2^23).
+_TOPK_CASES = [
+    (70, 50, 256, 30, 20, True, ""), (33, 50, 40, 30, 64, False, ""),
+    (130, 51, 24, 30, 1, True, ""), (40, 50, 256, 30, 20, False, "ties"),
+    (40, 50, 256, 30, 33, True, "ties"), (40, 4, 4096, 8, 20, True, "split"),
+    (20, 1, 24, 4, 64, False, "few"), (70, 50, 256, 30, 20, True, "all dup"),
+    (70, 50, 256, 30, 32, False, "vlen 0"), (130, 50, 64, 30, 20, True, "d640"),
+    (512, 2048, 4096, 4096, 20, False, "shard")]
+
+
+def _pq_union(g, cuda, qn, u, cap_v, nwin, with_pen, case, m=8):
+    """Kernel D's inputs: codes, codebook, a sorted union with duplicates,
+    each entry's vlen, the pen stream and queries."""
+    ks, ds = 256, 80 if case == "d640" else 16
+    cw = torch.rand((m, ks, ds), generator=g, device=cuda) * (0.4 / ds)
+    codes_g = torch.randint(0, ks, (nwin * cap_v, m), generator=g, device=cuda,
+                            dtype=torch.uint8)
+    if case == "ties":
+        codes_g = codes_g[torch.arange(nwin * cap_v, device=cuda) % 17].contiguous()
+    flat = torch.sort(torch.randint(0, nwin, (u,), generator=g, device=cuda,
+                                    dtype=torch.int32)).values
+    dup = torch.cat([torch.zeros(1, dtype=torch.int32, device=cuda),
+                     (flat[1:] == flat[:-1]).to(torch.int32)])
+    vl = torch.randint(0, cap_v + 1, (nwin,), generator=g, device=cuda,
+                       dtype=torch.int32)[flat.long()]
+    if case == "all dup":
+        dup = torch.ones_like(dup)
+    elif case == "vlen 0":
+        vl = torch.zeros_like(vl)
+    pen = None
+    if with_pen:
+        pen = torch.where(torch.rand(nwin * cap_v, generator=g, device=cuda) < 0.3,
+                          float("inf"), 0.0).to(torch.float32)
+    q = torch.rand((qn, m * ds), generator=g, device=cuda) * 0.1
+    return q, codes_g, cw, flat, dup, vl, pen
+
+
+@pytest.mark.parametrize("qn,u,cap_v,nwin,k,with_pen,case", _TOPK_CASES)
+def test_pq_window_topk_is_the_selection_of_its_minima(cuda, qn, u, cap_v, nwin, k,
+                                                       with_pen, case):
+    from rii_tpu_torch.ops.ivf import _select_tiles
+    g = torch.Generator(device=cuda).manual_seed(qn * 7 + k)
+    q, codes_g, cw, flat, dup, vl, pen = _pq_union(g, cuda, qn, u, cap_v, nwin,
+                                                   with_pen, case)
+    vmin, amin = HP.ivf_pq_window_tile_minima(q, codes_g, cw, flat, dup, vl, cap_v,
+                                              pen=pen)
+    want_v, want_s, _ = _select_tiles(vmin, amin, k)
+    kk = min(k, vmin.shape[1])
+    del vmin, amin
+    before = HP.ivf_pq_window_tile_minima.launches
+    got_v, got_s = HP.ivf_pq_window_tile_minima(q, codes_g, cw, flat, dup, vl, cap_v,
+                                                pen=pen, k=k)
+    torch.cuda.synchronize()
+    assert HP.ivf_pq_window_tile_minima.launches == before + 1
+    assert got_v.shape == got_s.shape == (qn, kk) and got_s.dtype == torch.int32
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+    assert torch.equal(got_s, want_s)
+    if case == "all dup":
+        assert not torch.isfinite(got_v).any() and not got_s.any()
+    if case == "ties":  # ties among the kept values: resolved by column
+        v = got_v.cpu().numpy()
+        assert (v[:, 1:] == v[:, :-1]).any()
+
+
+def test_pq_window_topk_limits(cuda):
+    """k past the epilogue's lists raises; the shape rule keeps the union off
+    that path."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    args = _pq_union(g, cuda, 40, 50, 256, 30, False, "")
+    q, codes_g, cw, flat, dup, vl, _ = args
+    with pytest.raises(ValueError):
+        HP.ivf_pq_window_tile_minima(q, codes_g, cw, flat, dup, vl, 256,
+                                     k=HP.PQ_WINDOW_TOPK_MAX + 1)
+    assert not HP.pq_window_selects(HP.PQ_WINDOW_TOPK_MAX + 1, 50, 256)
+
+
+def test_pq_union_spy_sees_the_selecting_call(cuda):
+    """The benchmark's spy on ops/ivf.py's name for kernel D (it counts the
+    union's live rows for scan_roofline.pq) sees the call that selects in
+    D's epilogue, and the union's answer equals the one over D's full output
+    and the selection kernel."""
+    from portbench.harness.trace import UnionSpy
+    from rii_tpu_torch.ops import ivf as IV
+    g = torch.Generator(device=cuda).manual_seed(9)
+    m, ks, ds, cap_v, nwin, qn = 8, 256, 16, 256, 64, 128
+    cw = torch.rand((m, ks, ds), generator=g, device=cuda) * (0.4 / ds)
+    codes_g = torch.randint(0, ks, (nwin * cap_v, m), generator=g, device=cuda,
+                            dtype=torch.uint8)
+    vlen = torch.randint(1, cap_v + 1, (nwin,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    live = torch.arange(cap_v, device=cuda)[None, :] < vlen[:, None]
+    dec = cw[torch.arange(m, device=cuda), codes_g.long()].reshape(nwin * cap_v, -1)
+    norms_g = torch.where(live.reshape(-1), (dec * dec).sum(1), float("inf"))
+    order_g = torch.where(live.reshape(-1), torch.arange(nwin * cap_v, device=cuda),
+                          -1).to(torch.int32)
+    centers = torch.rand((nwin, m * ds), generator=g, device=cuda) * 0.1
+    q = torch.rand((qn, m * ds), generator=g, device=cuda) * 0.1
+    args = (q, codes_g, norms_g, order_g, cw, centers, (centers ** 2).sum(1))
+    kw = dict(w=4, topk=10, cap_u=cap_v, nlist_pad=nwin, vlen=vlen, use_kernel=True)
+    spy = UnionSpy()
+    spy.install()
+    try:
+        before = HP.ivf_pq_window_tile_minima.launches
+        d_f, i_f = IV.ivf_union_scan_topk_pq(*args, **kw)
+        torch.cuda.synchronize()
+    finally:
+        spy.remove()
+    assert HP.ivf_pq_window_tile_minima.launches == before + 1
+    assert len(spy.records) == 1 and spy.rows()[0][1] == qn and spy.rows()[0][2] > 0
+    select = IV.pq_window_selects
+    IV.pq_window_selects = lambda *a: False
+    try:
+        d_s, i_s = IV.ivf_union_scan_topk_pq(*args, **kw)
+    finally:
+        IV.pq_window_selects = select
+    assert torch.equal(d_f, d_s) and torch.equal(i_f, i_s)
+
+
 # Kernel E's table: the M / Ds shapes of the pq tier's codecs (8/16 the
 # SIFT1B shape, 32/4 the ops shape) and ragged ones (5/12, 21/3), over one,
 # one chunk of 8, a ragged and several chunks of queries.

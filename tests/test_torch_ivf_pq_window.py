@@ -17,6 +17,7 @@ from rii_tpu.ops import pallas_scan as P
 from rii_tpu_torch.models.ivf import build_virtual_layout, code_norms_np
 from rii_tpu_torch.ops import hopper_pq as HP
 from rii_tpu_torch.ops import ivf as TI
+from rii_tpu_torch.ops.select import smallest_k_plain
 
 from _torch_parity import assert_keys_match, assert_ranked_ids_match
 
@@ -136,6 +137,51 @@ def test_dtable_kernel_twin_is_bit_equal(layout):
     np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
 
 
+def _window_args(lo, with_pen):
+    return ((torch.from_numpy(lo["q"][:72]), _t(lo["codes_g"]), _t(lo["cw"]),
+             _t(lo["flat"]), _t(lo["dup"]), _t(lo["vlen"][lo["flat"]]), CAP_V),
+            dict(pen=_t(lo["pen"]) if with_pen else None))
+
+
+@pytest.mark.parametrize("with_pen", [False, True])
+@pytest.mark.parametrize("k", ["1", "20", "ncol", "ncol+5"])
+def test_window_minima_selected_equal_the_full_minima_selected(layout, k,
+                                                               with_pen):
+    """Kernel D's entry with ``k``: the full minima, each row's k smallest
+    in (value, column) order and their slots gathered, bit for bit, over the
+    fixture's union (duplicate entries, windows past vlen, the pen stream);
+    k' = min(k, columns), the +inf columns included in column order."""
+    args, kw = _window_args(layout, with_pen)
+    vmin, amin = HP.ivf_pq_window_tile_minima(*args, **kw)
+    ncol = vmin.shape[1]
+    kk = {"1": 1, "20": 20, "ncol": ncol, "ncol+5": ncol + 5}[k]
+    sel, pos = smallest_k_plain(vmin, kk)
+    vals, slots = HP.ivf_pq_window_tile_minima(*args, **kw, k=kk)
+    assert vals.shape == slots.shape == (args[0].shape[0], min(kk, ncol))
+    assert vals.dtype == torch.float32 and slots.dtype == torch.int32
+    assert torch.equal(vals.view(torch.int32), sel.view(torch.int32))
+    assert torch.equal(slots, torch.gather(amin, 1, pos))
+    # independently: a stable sort of each row, sliced
+    order = np.argsort(vmin.numpy(), axis=1, kind="stable")[:, :min(kk, ncol)]
+    np.testing.assert_array_equal(vals.numpy(),
+                                  np.take_along_axis(vmin.numpy(), order, 1))
+    np.testing.assert_array_equal(slots.numpy(),
+                                  np.take_along_axis(amin.numpy(), order, 1))
+    if kk >= ncol:  # every column: the duplicates' +inf and slot 0 among them
+        assert np.isinf(vals.numpy()).any() and (slots.numpy() == 0).any()
+
+
+def test_window_selection_shape_rule():
+    """D selects in its epilogue for k within its lists and more columns
+    than k; otherwise the union keeps the full minima and the selection
+    kernel."""
+    assert HP.pq_window_selects(20, 2, 256)  # 128 columns
+    assert HP.pq_window_selects(HP.PQ_WINDOW_TOPK_MAX, 16, 256)
+    assert not HP.pq_window_selects(HP.PQ_WINDOW_TOPK_MAX + 1, 16, 256)
+    assert not HP.pq_window_selects(20, 1, 80)  # 20 columns
+    assert HP.pq_window_selects(19, 1, 80)
+
+
 def _run_union(lo, qn, masked, w=4, topk=10):
     """Both packages' kernel branches in exact mode (exact probes and top-k)."""
     q = lo["q"][:qn]
@@ -160,18 +206,42 @@ def _run_union(lo, qn, masked, w=4, topk=10):
 @pytest.mark.parametrize("qn", [8, 64])  # either side of the Q < D gate
 @pytest.mark.parametrize("masked", [False, True])
 def test_union_kernel_branch_matches_pallas(layout, qn, masked, monkeypatch):
-    """overfetch=1 selects as the JAX package does; both rescore exactly."""
+    """overfetch=1 selects as the JAX package does; both rescore exactly.
+    At Q >= D kernel D selects its tile minima itself (k = topk)."""
     calls = []
     for name in ("ivf_dt_window_tile_minima", "ivf_pq_window_tile_minima"):
         real = getattr(TI, name)
         monkeypatch.setattr(TI, name, lambda *a, _r=real, _n=name, **k:
-                            calls.append(_n) or _r(*a, **k))
+                            calls.append((_n, k.get("k"))) or _r(*a, **k))
     dt, it, dj, ij = _run_union(layout, qn, masked)
-    assert calls == ["ivf_dt_window_tile_minima" if qn < D
-                     else "ivf_pq_window_tile_minima"]
+    assert calls == [("ivf_dt_window_tile_minima", None) if qn < D
+                     else ("ivf_pq_window_tile_minima", 10)]
     assert_ranked_ids_match(it, dt, ij, dj, rtol=1e-5)
     if masked:
         assert layout["mask"][it[it >= 0]].all()
+
+
+@pytest.mark.parametrize("overfetch", [1, 2])
+@pytest.mark.parametrize("masked", [False, True])
+def test_union_selected_in_the_window_kernel_is_unchanged(layout, masked,
+                                                          overfetch,
+                                                          monkeypatch):
+    """The union's answer with kernel D selecting its tile minima equals,
+    bit for bit, the answer over its full minima and the selection kernel
+    (the shape rule forced off)."""
+    lo = layout
+    q = torch.from_numpy(lo["q"][:64])
+    args = [_t(a) for a in (lo["codes_g"], lo["norms_g"], lo["order_g"],
+                            lo["cw"], lo["centers_dec"], lo["centers_norms"])]
+    kw = dict(w=4, topk=10, cap_u=CAP_V, nlist_pad=lo["nlist_v_pad"],
+              vlen=_t(lo["vlen"]), use_kernel=True, overfetch=overfetch,
+              target_mask=_t(lo["tm"]) if masked else None)
+    assert HP.pq_window_selects(10 * overfetch, 8, CAP_V)  # 64 columns
+    d_f, i_f = TI.ivf_union_scan_topk_pq(q, *args, **kw)
+    monkeypatch.setattr(TI, "pq_window_selects", lambda *a: False)
+    d_s, i_s = TI.ivf_union_scan_topk_pq(q, *args, **kw)
+    assert torch.equal(d_f.view(torch.int32), d_s.view(torch.int32))
+    assert torch.equal(i_f, i_s)
 
 
 def test_union_overfetch_never_loses_recall(layout):
@@ -188,6 +258,51 @@ def test_union_overfetch_never_loses_recall(layout):
     assert (d2.numpy() <= d1.numpy() + 1e-6).all()
     for row in i2.numpy():
         assert len(set(row[row >= 0].tolist())) == (row >= 0).sum()
+
+
+def test_union_spy_sees_the_selecting_call(layout):
+    """The benchmark's spy on ops/ivf.py's name for kernel D (the union's
+    live rows for scan_roofline.pq) sees the call that selects in D's
+    epilogue, with the union's queries and live rows."""
+    from portbench.harness.trace import UnionSpy
+    lo = layout
+    args = [_t(a) for a in (lo["codes_g"], lo["norms_g"], lo["order_g"],
+                            lo["cw"], lo["centers_dec"], lo["centers_norms"])]
+    real = TI.ivf_pq_window_tile_minima
+    spy = UnionSpy()
+    spy.install()
+    try:
+        TI.ivf_union_scan_topk_pq(
+            torch.from_numpy(lo["q"][:64]), *args, w=4, topk=10, cap_u=CAP_V,
+            nlist_pad=lo["nlist_v_pad"], vlen=_t(lo["vlen"]), use_kernel=True)
+    finally:
+        spy.remove()
+    assert TI.ivf_pq_window_tile_minima is real
+    ((_, qn, dup, vl),) = spy.records
+    assert qn == 64 and int(vl[dup == 0].sum()) > 0
+    assert spy.rows()[0][1:] == (64, int(vl[dup == 0].sum()))
+
+
+@pytest.mark.parametrize("qn,fused", [(8, 0), (64, 1)])
+def test_union_notes_whether_the_window_kernel_selected(layout, qn, fused):
+    """Under a recording profiler the union's root carries ``tile_fused``
+    (1 where kernel D selected its tile minima itself; kernel E, at Q < D,
+    leaves them to the selection) beside ``select_kernel`` (0 on the CPU,
+    where the twins select)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rii_tpu_torch.utils import profiling as prof
+    lo = layout
+    args = [_t(a) for a in (lo["codes_g"], lo["norms_g"], lo["order_g"],
+                            lo["cw"], lo["centers_dec"], lo["centers_norms"])]
+    with profile(activities=[ProfilerActivity.CPU]):
+        root = prof.begin_call("rii.query_batch")
+        TI.ivf_union_scan_topk_pq(
+            torch.from_numpy(lo["q"][:qn]), *args, w=4, topk=10, cap_u=CAP_V,
+            nlist_pad=lo["nlist_v_pad"], vlen=_t(lo["vlen"]), use_kernel=True)
+        prof.end_call(root)
+    attrs = [r for r in prof.spans() if r.id == root.id][0].attrs
+    assert attrs["tile_fused"] == fused and attrs["select_kernel"] == 0
 
 
 @pytest.mark.parametrize("masked", [False, True])
