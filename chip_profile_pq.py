@@ -119,11 +119,10 @@ def main():
     torch.cuda.synchronize()
     emit("reconfigure", {"s": time.perf_counter() - t, **e.last_reconfigure_stats})
     t = time.perf_counter()
-    dc = e._ensure_cache()
+    lin, win = e._ensure_cache()
     torch.cuda.synchronize()
     emit("cache_build", {"s": time.perf_counter() - t, **e.last_cache_build_stats,
-                         "cap": dc["cap"], "mode": dc["mode"],
-                         "windows": dc["windows"]})
+                         "cap": lin.cap, "mode": lin.tier, "windows": win.tier})
     profile_batches(e, queries)
     emit("max_memory_allocated_gib", torch.cuda.max_memory_allocated() / 2**30)
     return 0

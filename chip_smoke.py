@@ -1060,16 +1060,16 @@ def phase_engine(dev):
     e = Rii(pq).add_configure(x, nlist=nlist)
     stages["add_configure_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    dc = e._ensure_cache()
+    lin, win = e._ensure_cache()
     torch.cuda.synchronize()
     stages["cache_build_s"] = time.perf_counter() - t0
     build_stats = dict(e.last_cache_build_stats)
     log(f"  engine: reconfigure stages {fmt(e.last_reconfigure_stats)}; "
         f"cache build stages {fmt(build_stats)}")
-    log(f"  engine: N={e.N} nlist={e.nlist} cap={dc['cap']} mode={dc['mode']} "
-        f"windows={dc['windows']} nlist_v={dc['nlist_v']} "
+    log(f"  engine: N={e.N} nlist={e.nlist} cap={lin.cap} mode={lin.tier} "
+        f"windows={win.tier} nlist_v={win.nlist_v} "
         f"memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    if dc["mode"] != "bf16" or dc["windows"] != "bf16":
+    if lin.tier != "bf16" or win.tier != "bf16":
         raise AssertionError("the engine did not pick the bf16 replica and windows")
 
     results = {}
@@ -1087,7 +1087,7 @@ def phase_engine(dev):
     def ivf_ids(L):
         """IVF over the 128 ground-truth queries in batches of Q with
         Q*wv = 2048, so each batch's union reaches the window kernel."""
-        wv = e._probe_width_virtual(L, None, dc)
+        wv = e._probe_width_virtual(L, None, win)
         qb = 2048 // wv
         before = H.ivf_window_tile_minima.launches
         e.query_batch(queries[:qb], topk=topk, L=L, method="ivf")  # warm
@@ -1188,7 +1188,7 @@ def phase_checkpoint(dev, ctx):
     from rii_tpu_torch.ops import hopper_scan as H
     from rii_tpu_torch.utils.serialization import load_index, save_index
     e, queries, topk, L = ctx["e"], ctx["queries"], 10, 5000
-    qb = 2048 // e._probe_width_virtual(L, None, e._ensure_cache())
+    qb = 2048 // e._probe_width_virtual(L, None, e._ensure_cache()[1])
 
     def answers(eng):
         return (eng.query_batch(queries[:128], topk=topk, method="linear"),
@@ -1361,8 +1361,8 @@ def phase_opq(dev, ctx):
                              - sum(e.last_reconfigure_stats.values()))
     log(f"  OPQ: reconfigure stages {fmt(e.last_reconfigure_stats)}; calibrated "
         f"threshold {list(np.poly1d(e.threshold).coeffs)}")
-    dc = e._ensure_cache()
-    if dc["mode"] != "bf16" or dc["windows"] != "bf16":
+    lin, win = e._ensure_cache()
+    if lin.tier != "bf16" or win.tier != "bf16":
         raise AssertionError("the OPQ engine did not pick the bf16 replica and windows")
     p = engine_from_arrays(opq.codewords, e.codes, e.coarse_centers, e._assignments(),
                            device=dev)
@@ -1375,7 +1375,7 @@ def phase_opq(dev, ctx):
         assert_same_answers(got, p.query_batch(opq.rotate(queries[:qn]), topk=topk,
                                                method="linear"), f"OPQ rotation linear Q={qn}")
         results[f"linear_q{qn}"] = (recall(got[0][:128], gt, 1), recall(got[0][:128], gt, 10))
-    qb = 2048 // e._probe_width_virtual(L, None, dc)
+    qb = 2048 // e._probe_width_virtual(L, None, win)
     out = []
     t0 = time.perf_counter()
     for s0 in range(0, 128, qb):
@@ -1400,7 +1400,7 @@ def phase_opq(dev, ctx):
             raise AssertionError(f"OPQ {k}: recall@10 {results[k][1]} below phase 5's "
                                  f"{ctx['results'][k][1]} - 0.01")
     log(f"  OPQ stages: {fmt(stages)}")
-    del e, p, dc
+    del e, p, lin, win
     torch.cuda.empty_cache()
     return launches
 
@@ -1930,16 +1930,16 @@ class ShardedPhase:
         e, queries, gt, topk, L, cfg = (self.e, self.queries, self.gt, self.topk,
                                         self.L, self.cfg)
         sr = self.refresh(True)
-        if sr.decoded_t is None or sr.ivf["mode"] != "bf16":
+        if sr.linear[0][0].form != "decoded_t" or sr.tier != "bf16":
             raise AssertionError("sharded: the bf16 tier did not build its kernel route")
         from rii_tpu_torch.ops import ivf as IV
-        from rii_tpu_torch.parallel import distributed as PD
+        from rii_tpu_torch import store as ST
         for qn in (1024, 128):
             got, ref = self.both(f"linear_q{qn}",
                                  lambda: sr.query_batch(queries[:qn], topk=topk),
                                  lambda: e.query_batch(queries[:qn], topk=topk,
                                                        method="linear"))
-            self.held_to_twin(PD, "replica_scan_topk_t",
+            self.held_to_twin(ST, "replica_scan_topk_t",
                               lambda: sr.query_batch(queries[:qn], topk=topk),
                               f"linear Q={qn}")
             if qn < 512:
@@ -1979,7 +1979,7 @@ class ShardedPhase:
             if not np.isin(got[0][got[0] >= 0], tids).all():
                 raise AssertionError(f"sharded subset {method}: ids outside the subset")
         # add on the delta path: in-place scatters, no refresh
-        held, cap0, n0 = list(sr.codes) + sr.decoded_t[0], sr.cap, e.N
+        held, cap0, n0 = list(sr.codes) + [x.replica for x in sr.linear[0]], sr.cap, e.N
         y = np.random.RandomState(11).random((cfg["add"], e.M * e.fine_quantizer.Ds)
                                              ).astype(np.float32)
         t0 = time.perf_counter()
@@ -1987,7 +1987,8 @@ class ShardedPhase:
         self.sync()
         self.figs["delta_add_s"] = time.perf_counter() - t0
         if (sr.cap != cap0 or sr._engine_version != e._version or sr._n_dev != e.N
-                or not all(a is b for a, b in zip(list(sr.codes) + sr.decoded_t[0], held))):
+                or not all(a is b for a, b in zip(
+                    list(sr.codes) + [x.replica for x in sr.linear[0]], held))):
             raise AssertionError("sharded add: the delta path refreshed the shards")
         got = sr.query_batch(y[:128], topk=topk)
         if not (got[0][:, 0] == n0 + np.arange(128)).all():
@@ -2069,16 +2070,16 @@ class ShardedPhase:
         t0 = time.perf_counter()
         sr.reconfigure(nlist=cfg["nlist_d"])
         self.figs[f"reconfigure_mesh_nlist{cfg['nlist_d']}_s"] = time.perf_counter() - t0
-        iv = sr.ivf
+        ws = sr.windows[0]
 
         def wv_of(L_):
-            return e._probe_width_virtual(L_, None, iv)
+            return e._probe_width_virtual(L_, None, ws)
 
         L_d = max([L_ for L_ in cfg["L_d"] if wv_of(L_) <= 16], default=None)
         if L_d is None:
             raise AssertionError(f"sharded: no L of {cfg['L_d']} keeps wv <= 16")
         qs = self.queries[:cfg["q_d"]]
-        self.figs["ivf_pq_d"] = {"nlist": e.nlist, "nlist_v": iv["nlist_v"], "L": L_d,
+        self.figs["ivf_pq_d"] = {"nlist": e.nlist, "nlist_v": ws.nlist_v, "L": L_d,
                                  "wv": wv_of(L_d)}
         from rii_tpu_torch.ops import ivf as IV
 
@@ -2117,10 +2118,10 @@ def phase_engine_k11(dev, ctx):
     e.query_batch(queries[:1], topk=topk, method="linear")
     torch.cuda.synchronize()
     stages["engine_and_exact_cache_s"] = time.perf_counter() - t0
-    dc = e._ensure_cache()
-    log(f"  K11 route: N={e.N} cap={dc['cap']} mode={dc['mode']} windows={dc['windows']} "
-        f"keys={sorted(k for k in dc if k.startswith('decoded'))}")
-    if dc["mode"] != "bf16" or "decoded_flat" not in dc or "decoded_t" in dc:
+    lin, win = e._ensure_cache()
+    log(f"  K11 route: N={e.N} cap={lin.cap} mode={lin.tier} windows={win.tier} "
+        f"form={lin.form}")
+    if lin.tier != "bf16" or lin.form != "decoded_flat":
         raise AssertionError("the exact-mode cache does not hold the row-major replica")
     e.topk_recall = 0.99
 
@@ -2146,7 +2147,7 @@ def phase_engine_k11(dev, ctx):
     if not np.isin(ids, tids).all():
         raise AssertionError("K11 route subset: ids outside the subset")
 
-    wv = e._probe_width_virtual(5000, None, dc)
+    wv = e._probe_width_virtual(5000, None, win)
     qb = 2048 // wv
     before = b.launches
     out = []
@@ -2170,7 +2171,7 @@ def phase_engine_k11(dev, ctx):
         if results[k][1] < 0.99:
             raise AssertionError(f"K11 route {k}: recall@10 {results[k][1]} < 0.99")
     log("  K11 route stages: " + json.dumps({k: round(v, 4) for k, v in stages.items()}))
-    del e, dc
+    del e, lin, win
     torch.cuda.empty_cache()
     return launches
 
@@ -2318,17 +2319,18 @@ def drive_lifecycle(dev, cfg):
     torch.cuda.synchronize()
     stages["reconfigure_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    dc = e._ensure_cache()
+    stores = e._ensure_cache()
+    c_linear, c_windows = stores
     torch.cuda.synchronize()
     stages["cache_build_s"] = time.perf_counter() - t0
     build_stats = dict(e.last_cache_build_stats)
     log(f"  engine {name}: reconfigure stages {fmt(e.last_reconfigure_stats)}; "
         f"cache build stages {fmt(build_stats)}")
-    log(f"  engine {name}: N={e.N} M={m} nlist={e.nlist} cap={dc['cap']} "
-        f"mode={dc['mode']} windows={dc['windows']} nlist_v={dc['nlist_v']} "
+    log(f"  engine {name}: N={e.N} M={m} nlist={e.nlist} cap={c_linear.cap} "
+        f"mode={c_linear.tier} windows={c_windows.tier} nlist_v={c_windows.nlist_v} "
         f"L0={e.L0} memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    if (dc["mode"], dc["windows"]) != cfg["tiers"]:
-        raise AssertionError(f"scan_mode='auto' picked {dc['mode']} / {dc['windows']}, "
+    if (c_linear.tier, c_windows.tier) != cfg["tiers"]:
+        raise AssertionError(f"scan_mode='auto' picked {c_linear.tier} / {c_windows.tier}, "
                              f"not {cfg['tiers']} at this size")
     if cfg.get("budget_keys"):
         mem = e.memory_breakdown()
@@ -2387,7 +2389,7 @@ def drive_lifecycle(dev, cfg):
         ids_w, _, stages[f"ivf_exact_walk_q{qn}_s"] = ivf_pass(qn, "exact")
         e.topk_recall = 0.99
         walk[qn] = (recall(ids_w, gt, 1), recall(ids_w, gt, 10))
-        log(f"  IVF Q={qn} L={ivf_L} wv={e._probe_width_virtual(ivf_L, None, dc)}: recall@1 "
+        log(f"  IVF Q={qn} L={ivf_L} wv={e._probe_width_virtual(ivf_L, None, c_windows)}: recall@1 "
             f"{results[f'ivf_q{qn}'][0]:.4f} @10 {results[f'ivf_q{qn}'][1]:.4f}; "
             f"exact walk @1 {walk[qn][0]:.4f} @10 {walk[qn][1]:.4f}; "
             f"{stages[f'ivf_q{qn}_s']:.3f} s for 128 queries")
@@ -2406,12 +2408,13 @@ def drive_lifecycle(dev, cfg):
 
     if cfg.get("restore"):
         check_restore(dev, e, queries, ivf_L, build_stats)
-    n_dev = dc["n_dev"]
+    n_dev = c_linear.n_dev
     t0 = time.perf_counter()
     e.add_codes(new_codes)
     torch.cuda.synchronize()
     stages[f"add_{n_add // 1000}k_s"] = time.perf_counter() - t0
-    if e._dc is not dc or dc["n_dev"] != n_dev + n_add or dc["version"] != e._version:
+    if (e._stores is not stores or c_linear.n_dev != n_dev + n_add
+            or c_linear.version != e._version):
         raise AssertionError(f"add(+{n_add}) did not keep the cache")
     new_q = cw[sub, new_codes[:8].astype(np.int64)].reshape(8, d).astype(np.float32)
     for method in ("ivf", "linear"):
@@ -2421,7 +2424,7 @@ def drive_lifecycle(dev, cfg):
                                  f"at rank 0 ({ids[:, 0]})")
     ids, _, stages["ivf_after_add_s"] = ivf_pass(ivf_qs[-1], "after add")
     results["ivf_after_add"] = (recall(ids, gt, 1), recall(ids, gt, 10))
-    if e._dc is not dc:
+    if e._stores is not stores:
         raise AssertionError("a query after the add rebuilt the cache")
 
     launches = {k: f.launches for k, f in kern.items()}
@@ -2443,7 +2446,7 @@ def drive_lifecycle(dev, cfg):
         raise AssertionError("IVF recall@1 after the add < 0.99")
     stages["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
     log(f"  {name} stages: " + json.dumps({k: round(v, 4) for k, v in stages.items()}))
-    del e, dc
+    del e, stores, c_linear, c_windows
     torch.cuda.empty_cache()
     return launches
 

@@ -14,7 +14,8 @@ N=4,000,000, nlist=2000, ``reserve(N + 50k)``, L = L0; 2M: N=2,000,000,
 nlist=1000, ``reserve(N)``, L = 5000 and 10000), with the package imported
 from ``--root`` (default: the checkout that holds this file; a checkout of
 an earlier commit, ``git archive <commit> | tar -x -C DIR``, compares the
-two on one card, one process each). It times ``query_batch`` (topk=10) on
+two on one card, one process each; a commit without
+``rii_tpu_torch/store.py`` is timed by its own copy of this script). It times ``query_batch`` (topk=10) on
 the host clock with a device synchronize on each side: the median of
 ``reps`` batches after three warm ones. The int8 bands run method "auto"
 at Q=8 and 64; the 2M band method "ivf" at phase 5's batch, Q = 2048 // wv
@@ -59,14 +60,14 @@ def run(root, reps=9, m=32, ks=256, d=128, bands=tuple(BANDS)):
         for s0 in range(0, cfg["n"], 1 << 22):
             e.add_codes(codes[s0:s0 + (1 << 22)])
         e.reconfigure(nlist=cfg["nlist"])
-        dc = e._ensure_cache()
+        lin, win = e._ensure_cache()
         if "L0s" in cfg:
             batches = [(qn, dict(method="auto", L=cfg["L0s"] * e.L0)) for qn in (8, 64)]
         else:
-            if dc["mode"] != "bf16" or dc["windows"] != "bf16":
+            if lin.tier != "bf16" or win.tier != "bf16":
                 raise SystemExit(f"ivf_bands: the {band} band's tiers are "
-                                 f"{dc['mode']}, {dc['windows']}, not bf16, bf16")
-            batches = [(min(nq, 2048 // e._probe_width_virtual(L, None, dc)),
+                                 f"{lin.tier}, {win.tier}, not bf16, bf16")
+            batches = [(min(nq, 2048 // e._probe_width_virtual(L, None, win)),
                         dict(method="ivf", L=L)) for L in cfg["Ls"]]
         for qn, kw in batches:
             qs = queries[:qn]
@@ -82,13 +83,13 @@ def run(root, reps=9, m=32, ks=256, d=128, bands=tuple(BANDS)):
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t) * 1e3)
             rec = {"band": band, "Q": qn, "L": kw["L"], "method": kw["method"],
-                   "tiers": [dc["mode"], dc["windows"]],
+                   "tiers": [lin.tier, win.tier],
                    "wall_ms": float(np.median(walls)), "walls_ms": walls,
                    "b_launches": H.ivf_window_tile_minima.launches - b0,
                    "root": str(root), "device": torch.cuda.get_device_name(dev)}
             out.append(rec)
             print(json.dumps(rec), flush=True)
-        del e, dc
+        del e, lin, win
         torch.cuda.empty_cache()
     return out
 

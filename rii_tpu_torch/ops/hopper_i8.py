@@ -94,18 +94,31 @@ def quantize_replica_i8(codes, codewords, block=_QUANT_BLOCK):
     quantizes. Every row counts, padding rows (code 0) included, as in JAX.
 
     Returns (q (n, D) int8, col_scales (D,) f32)."""
-    n = codes.shape[0]
+    col_scales = column_scales_i8(codes, codewords, block)
+    return quantize_codes_i8(codes, codewords, col_scales, block), col_scales
+
+
+def column_scales_i8(codes, codewords, block=_QUANT_BLOCK):
+    """The first pass of :func:`quantize_replica_i8`: each column's max |x|
+    over the bf16 decode of every row, over 127. Returns (D,) f32."""
     d = codewords.shape[0] * codewords.shape[2]
     amax = torch.zeros(d, dtype=torch.float32, device=codes.device)
-    for s in range(0, n, block):
+    for s in range(0, codes.shape[0], block):
         dec = onehot_decode(codes[s:s + block], codewords, torch.bfloat16)
         amax = torch.maximum(amax, dec.float().abs().amax(0))
-    col_scales = amax.clamp(min=_EPS) / 127.0
+    return amax.clamp(min=_EPS) / 127.0
+
+
+def quantize_codes_i8(codes, codewords, col_scales, block=_QUANT_BLOCK):
+    """The bf16 decode of (n, M) codes quantized with the given column
+    scales, ``block`` rows at a time. Returns (n, D) int8."""
+    n = codes.shape[0]
+    d = codewords.shape[0] * codewords.shape[2]
     out = torch.empty((n, d), dtype=torch.int8, device=codes.device)
     for s in range(0, n, block):
         dec = onehot_decode(codes[s:s + block], codewords, torch.bfloat16)
         out[s:s + block] = quantize_rows_i8(dec, col_scales)
-    return out, col_scales
+    return out
 
 
 def quantize_queries_i8(queries, col_scales):

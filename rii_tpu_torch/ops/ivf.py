@@ -8,6 +8,8 @@ batch. Each query's candidates are therefore the union of every bucket the
 batch probed, a superset of its own probes, and duplicate entries are
 masked so returned ids are unique.
 
+One body (``_union_topk``) serves the three window tiers; the public
+``ivf_union_scan_topk``, ``_pq`` and ``_i8`` are its entries by tier.
 Two branches for the bf16 and pq window tiers, as in the JAX module: the
 window kernels (kernel B over bf16 windows, ``hopper_scan``; kernels D and
 E over uint8 code windows, ``hopper_pq``) followed by an exact rescore, and
@@ -138,22 +140,23 @@ def _count_union_rows(vlen, flat, dup):
 
 
 def _rescore_slots(q_all, slot_top, valid, order_g, norms_g, codes, codewords,
-                   rows_fn, topk, codes_grouped=False):
+                   rows, topk, codes_grouped=False):
     """Exact re-rank of candidate grouped slots (Q, k).
 
     With ``codes`` the rows are decoded exactly from the uint8 codes, read
     through ``order_g`` (original order) or by slot (``codes_grouped``);
-    otherwise ``rows_fn(safe_slots)`` gives them. Negative ids are clamped
-    before any gather and masked by ``valid`` afterwards."""
+    otherwise the window ``rows`` themselves are read, against the bf16
+    queries. Negative ids are clamped before any gather and masked by
+    ``valid`` afterwards."""
     qn, k = slot_top.shape
     safe = slot_top.clamp(min=0).long()
     if codes is None:
-        rows, q = rows_fn(safe), q_all.to(torch.bfloat16).float()
+        cand, q = rows[safe].float(), q_all.to(torch.bfloat16).float()
     else:
         ids0 = safe if codes_grouped else order_g[safe].clamp(min=0).long()
-        rows = onehot_decode(codes[ids0.reshape(-1)], codewords).reshape(qn, k, -1)
+        cand = onehot_decode(codes[ids0.reshape(-1)], codewords).reshape(qn, k, -1)
         q = q_all
-    cross = torch.einsum("qkd,qd->qk", rows, q)
+    cross = torch.einsum("qkd,qd->qk", cand, q)
     qsq = (q_all * q_all).sum(-1)
     exact = norms_g[safe] - 2.0 * cross + qsq[:, None]
     exact = torch.where(valid, exact, torch.full_like(exact, _INF))
@@ -165,6 +168,110 @@ def _rescore_slots(q_all, slot_top, valid, order_g, norms_g, codes, codewords,
 def _ids_of(order_g, slots, dists, topk):
     ids = order_g[slots.clamp(min=0)].long()
     return _finish(dists, ids, topk)
+
+
+def _window_tiles(tier, q_all, rows, flat, dup, vlen, cap_u, pen, k, codewords,
+                  col_scales, cw_norms):
+    """The tier's window kernel over the union: (vmin, amin, False), each
+    query's tile minima, or (sel, slots, True) where kernel D selected the
+    ``k`` best itself. The kernels are looked up by name at each call."""
+    if tier == "bf16":
+        return (*ivf_window_tile_minima(q_all, rows, flat, dup, cap_u, pen=pen),
+                False)
+    live = vlen[flat.long()]
+    if tier == "int8":
+        return (*ivf_i8_window_tile_minima(q_all, rows, col_scales, flat, dup,
+                                           live, cap_u, pen=pen), False)
+    args = (q_all, rows, codewords, flat, dup, live, cap_u)
+    if q_all.shape[0] < q_all.shape[1]:
+        return (*ivf_dt_window_tile_minima(*args, pen=pen, cw_norms=cw_norms),
+                False)
+    # kernel D selects in its epilogue where its shape allows; the answer
+    # is the selection kernel's over its full output
+    if pq_window_selects(k, flat.shape[0], cap_u):
+        return (*ivf_pq_window_tile_minima(*args, pen=pen, k=k), True)
+    return (*ivf_pq_window_tile_minima(*args, pen=pen), False)
+
+
+def _union_topk(tier, queries, rows, norms_g, order_g, centers_dec,
+                centers_norms, w, topk, cap_u, nlist_pad, *, use_kernel,
+                target_mask=None, recall_target=None, probe_recall="inherit",
+                probes=None, vlen=None, codes=None, codewords=None,
+                codes_grouped=False, col_scales=None, cw_norms=None,
+                overfetch=2):
+    """The union IVF scan of every window tier ("bf16", "int8", "pq"),
+    ``rows`` the tier's grouped rows; arguments and returns as the three
+    public entries. Without ``codes`` the kernel branch re-ranks from the
+    rows and the plain branch keeps its scores; the plain branch decodes pq
+    rows in float32 in exact mode (no rescore then), else in bf16."""
+    q_all = queries.float()
+    qn = q_all.shape[0]
+    stage("rii.probe", q_all.device)
+    flat, dup, probe_k = _union(q_all, centers_dec, centers_norms, w,
+                                nlist_pad, recall_target, probe_recall, probes)
+    stage("rii.scan")
+    _count_union_rows(vlen, flat, dup)
+    if target_mask is not None:
+        norms_g = torch.where(target_mask, norms_g, torch.full_like(norms_g, _INF))
+    if tier == "pq":
+        k_sel = topk * overfetch if use_kernel else topk
+    else:
+        k_sel = topk if codes is None else max(topk * overfetch, topk + 8)
+
+    if use_kernel:
+        pen = None
+        if target_mask is not None:
+            pen = torch.where(target_mask, 0.0, _INF).to(torch.float32)
+        sel, slot_top, fused = _window_tiles(
+            tier, q_all, rows, flat, dup.to(torch.int32), vlen, cap_u, pen,
+            k_sel, codewords, col_scales, cw_norms)
+        stage("rii.select", q_all.device)
+        if fused:
+            tile_k = q_all.is_cuda
+        else:
+            sel, slot_top, tile_k = _select_tiles(sel, slot_top, k_sel)
+        _note_selections(probe_k, tile_k, fused=fused)
+        # +inf selections (duplicate windows, padding, excluded slots) point
+        # at slots whose rows score finite: keep them masked
+        dist, slots = _rescore_slots(q_all, slot_top, torch.isfinite(sel),
+                                     order_g, norms_g, codes, codewords, rows,
+                                     topk, codes_grouped)
+        return _ids_of(order_g, slots, dist, topk)
+
+    # plain branch: whole windows gathered in chunks, one product per chunk;
+    # the chunk bounds the (uc*cap_u, Q) float32 score transient to 64 MiB
+    exact = tier == "pq" and recall_target is None
+    q_sel = q_all if exact else q_all.to(torch.bfloat16).float()
+    u = flat.shape[0]
+    uc = max(1, min(u, (1 << 24) // max(1, cap_u * qn)))
+    width = rows.shape[1]
+    rows3 = rows.view(-1, cap_u, width)
+    norms2 = norms_g.view(-1, cap_u)
+    off = torch.arange(cap_u, device=q_all.device)
+    vals, slots = [], []
+    for s in range(0, u, uc):
+        fl = flat[s:s + uc].long()
+        nrm = torch.where(dup[s:s + uc, None], _INF, norms2[fl])
+        chunk = rows3[fl].reshape(-1, width)
+        if tier == "pq":
+            chunk = onehot_decode(chunk, codewords, torch.float32 if exact
+                                  else torch.bfloat16)
+        sc = (nrm.reshape(-1, 1) - 2.0 * (chunk.float() @ q_sel.T)).T
+        v, p = _smallest(sc, min(k_sel, sc.shape[1]))
+        vals.append(v)
+        slots.append((fl[:, None] * cap_u + off).reshape(-1)[p])
+    stage("rii.select", q_all.device)
+    _note_selections(probe_k)
+    vals, slots = torch.cat(vals, 1), torch.cat(slots, 1)
+    v, p = _smallest(vals, min(k_sel, vals.shape[1]))
+    slot_top = torch.gather(slots, 1, p)
+    if codes is None or exact:
+        qsq = (q_all * q_all).sum(-1)
+        return _ids_of(order_g, slot_top, v + qsq[:, None], topk)
+    dist, slots = _rescore_slots(q_all, slot_top, torch.isfinite(v), order_g,
+                                 norms_g, codes, codewords, rows, topk,
+                                 codes_grouped)
+    return _ids_of(order_g, slots, dist, topk)
 
 
 def ivf_union_scan_topk(queries, decoded_g, norms_g, order_g, centers_dec,
@@ -189,81 +296,12 @@ def ivf_union_scan_topk(queries, decoded_g, norms_g, order_g, centers_dec,
 
     Returns (dists (Q, topk) f32 ascending, ids (Q, topk) int64, -1 padded).
     """
-    q_all = queries.float()
-    qn, d = q_all.shape
-    stage("rii.probe", q_all.device)
-    flat, dup, probe_k = _union(q_all, centers_dec, centers_norms, w,
-                                nlist_pad, recall_target, probe_recall, probes)
-    stage("rii.scan")
-    if target_mask is not None:
-        norms_g = torch.where(target_mask, norms_g, torch.full_like(norms_g, _INF))
-    k_sel = topk if codes is None else max(topk * overfetch, topk + 8)
-
-    def rows_fn(safe):
-        return decoded_g[safe].float()
-
-    if use_kernel:
-        pen = None
-        if target_mask is not None:
-            pen = torch.where(target_mask, 0.0, _INF).to(torch.float32)
-        vmin, amin = ivf_window_tile_minima(q_all, decoded_g, flat,
-                                            dup.to(torch.int32), cap_u, pen=pen)
-        stage("rii.select", q_all.device)
-        neg_sel, slot_top, tile_k = _select_tiles(vmin, amin, k_sel)
-        _note_selections(probe_k, tile_k)
-        # +inf-scored candidates (duplicate windows, padding, excluded slots)
-        # point at slots whose norms may be finite: keep them masked
-        dist, slots = _rescore_slots(q_all, slot_top, torch.isfinite(neg_sel),
-                                     order_g, norms_g, codes, codewords,
-                                     rows_fn, topk, codes_grouped)
-        return _ids_of(order_g, slots, dist, topk)
-
-    # plain branch: whole windows gathered in chunks, one product per chunk;
-    # the chunk bounds the (uc*cap_u, Q) float32 score transient to 64 MiB
-    u = flat.shape[0]
-    uc = max(1, min(u, (1 << 24) // max(1, cap_u * qn)))
-    q16 = q_all.to(torch.bfloat16).float()
-    dec3 = decoded_g.view(-1, cap_u, d)
-    norms2 = norms_g.view(-1, cap_u)
-    off = torch.arange(cap_u, device=q_all.device)
-    vals, slots = [], []
-    for s in range(0, u, uc):
-        fl = flat[s:s + uc].long()
-        nrm = torch.where(dup[s:s + uc, None], _INF, norms2[fl])
-        cross = dec3[fl].reshape(-1, d).float() @ q16.T  # (uc*cap_u, Q)
-        sc = (nrm.reshape(-1, 1) - 2.0 * cross).T  # (Q, uc*cap_u)
-        v, p = _smallest(sc, min(k_sel, sc.shape[1]))
-        vals.append(v)
-        slots.append((fl[:, None] * cap_u + off).reshape(-1)[p])
-    stage("rii.select", q_all.device)
-    _note_selections(probe_k)
-    vals, slots = torch.cat(vals, 1), torch.cat(slots, 1)
-    v, p = _smallest(vals, min(k_sel, vals.shape[1]))
-    slot_top = torch.gather(slots, 1, p)
-    if codes is not None:
-        dist, sl = _rescore_slots(q_all, slot_top, torch.isfinite(v), order_g,
-                                  norms_g, codes, codewords, rows_fn, topk,
-                                  codes_grouped)
-        return _ids_of(order_g, sl, dist, topk)
-    qsq = (q_all * q_all).sum(-1)
-    return _ids_of(order_g, slot_top, v + qsq[:, None], topk)
-
-
-def _rescore_grouped_codes(q_all, slot_top, valid, codes_g, norms_g,
-                           codewords, k):
-    """Exact float32 ADC re-rank of candidate grouped slots (Q, k_sel),
-    decoded from the grouped codes; invalid candidates stay +inf. Returns
-    (dists (Q, k), slots (Q, k))."""
-    qn, k_sel = slot_top.shape
-    safe = slot_top.clamp(min=0).long()
-    dec = onehot_decode(codes_g[safe.reshape(-1)], codewords).reshape(
-        qn, k_sel, -1)
-    qsq = (q_all * q_all).sum(-1)
-    exact = norms_g[safe] - 2.0 * torch.einsum("qkd,qd->qk", dec, q_all) \
-        + qsq[:, None]
-    exact = torch.where(valid, exact, torch.full_like(exact, _INF))
-    d, pos = _smallest(exact, min(k, k_sel))
-    return d, torch.gather(slot_top, 1, pos)
+    return _union_topk(
+        "bf16", queries, decoded_g, norms_g, order_g, centers_dec,
+        centers_norms, w, topk, cap_u, nlist_pad, use_kernel=use_kernel,
+        target_mask=target_mask, recall_target=recall_target,
+        probe_recall=probe_recall, probes=probes, codes=codes,
+        codewords=codewords, codes_grouped=codes_grouped, overfetch=overfetch)
 
 
 def ivf_union_scan_topk_pq(queries, codes_g, norms_g, order_g, codewords,
@@ -287,74 +325,13 @@ def ivf_union_scan_topk_pq(queries, codes_g, norms_g, order_g, codewords,
     mode (``recall_target=None``), else in bf16 with an exact float32
     rescore of the selected slots. ``probes`` as in
     :func:`ivf_union_scan_topk`."""
-    q_all = queries.float()
-    qn, d = q_all.shape
-    m = codes_g.shape[1]
-    stage("rii.probe", q_all.device)
-    flat, dup, probe_k = _union(q_all, centers_dec, centers_norms, w,
-                                nlist_pad, recall_target, probe_recall, probes)
-    stage("rii.scan")
-    _count_union_rows(vlen, flat, dup)
-    if target_mask is not None:
-        norms_g = torch.where(target_mask, norms_g, torch.full_like(norms_g, _INF))
-    if use_kernel:
-        pen = None
-        if target_mask is not None:
-            pen = torch.where(target_mask, 0.0, _INF).to(torch.float32)
-        args = (q_all, codes_g, codewords, flat, dup.to(torch.int32),
-                vlen[flat.long()], cap_u)
-        k_sel = topk * overfetch
-        # kernel D selects in its epilogue where its shape allows; the
-        # answer is the selection kernel's over its full output
-        fused = qn >= d and pq_window_selects(k_sel, flat.shape[0], cap_u)
-        if fused:
-            sel, slot_top = ivf_pq_window_tile_minima(*args, pen=pen, k=k_sel)
-        elif qn < d:
-            vmin, amin = ivf_dt_window_tile_minima(*args, pen=pen,
-                                                   cw_norms=cw_norms)
-        else:
-            vmin, amin = ivf_pq_window_tile_minima(*args, pen=pen)
-        stage("rii.select", q_all.device)
-        if fused:
-            tile_k = q_all.is_cuda
-        else:
-            sel, slot_top, tile_k = _select_tiles(vmin, amin, k_sel)
-        _note_selections(probe_k, tile_k, fused=fused)
-        # +inf selections (duplicate windows, padding, excluded slots) point
-        # at slots whose codes decode to finite distances: keep them masked
-        dist, slots = _rescore_grouped_codes(q_all, slot_top,
-                                             torch.isfinite(sel), codes_g,
-                                             norms_g, codewords, topk)
-        return _ids_of(order_g, slots, dist, topk)
-
-    exact_sel = recall_target is None
-    q_sel = q_all if exact_sel else q_all.to(torch.bfloat16).float()
-    u = flat.shape[0]
-    uc = max(1, min(u, (1 << 24) // max(1, cap_u * qn)))
-    codes3 = codes_g.view(-1, cap_u, m)
-    norms2 = norms_g.view(-1, cap_u)
-    off = torch.arange(cap_u, device=q_all.device)
-    vals, slots = [], []
-    for s in range(0, u, uc):
-        fl = flat[s:s + uc].long()
-        nrm = torch.where(dup[s:s + uc, None], _INF, norms2[fl])
-        dtype = torch.float32 if exact_sel else torch.bfloat16
-        dec = onehot_decode(codes3[fl].reshape(-1, m), codewords, dtype).float()
-        sc = (nrm.reshape(-1, 1) - 2.0 * (dec @ q_sel.T)).T
-        v, p = _smallest(sc, min(topk, sc.shape[1]))
-        vals.append(v)
-        slots.append((fl[:, None] * cap_u + off).reshape(-1)[p])
-    stage("rii.select", q_all.device)
-    _note_selections(probe_k)
-    vals, slots = torch.cat(vals, 1), torch.cat(slots, 1)
-    v, p = _smallest(vals, min(topk, vals.shape[1]))
-    slot_top = torch.gather(slots, 1, p)
-    if exact_sel:
-        qsq = (q_all * q_all).sum(-1)
-        return _ids_of(order_g, slot_top, v + qsq[:, None], topk)
-    dist, slots = _rescore_grouped_codes(q_all, slot_top, torch.isfinite(v),
-                                         codes_g, norms_g, codewords, topk)
-    return _ids_of(order_g, slots, dist, topk)
+    return _union_topk(
+        "pq", queries, codes_g, norms_g, order_g, centers_dec, centers_norms,
+        w, topk, cap_u, nlist_pad, use_kernel=use_kernel,
+        target_mask=target_mask, recall_target=recall_target,
+        probe_recall=probe_recall, probes=probes, vlen=vlen, codes=codes_g,
+        codewords=codewords, codes_grouped=True, cw_norms=cw_norms,
+        overfetch=overfetch)
 
 
 def ivf_union_scan_topk_i8(queries, decoded_g_i8, col_scales, norms_g,
@@ -379,30 +356,13 @@ def ivf_union_scan_topk_i8(queries, decoded_g_i8, col_scales, norms_g,
 
     Returns (dists (Q, topk) f32 ascending, ids (Q, topk) int64, -1 padded).
     """
-    q_all = queries.float()
-    stage("rii.probe", q_all.device)
-    flat, dup, probe_k = _union(q_all, centers_dec, centers_norms, w,
-                                nlist_pad, recall_target, probe_recall, probes)
-    stage("rii.scan")
-    _count_union_rows(vlen, flat, dup)
-    pen = None
-    if target_mask is not None:
-        norms_g = torch.where(target_mask, norms_g, torch.full_like(norms_g, _INF))
-        pen = torch.where(target_mask, 0.0, _INF).to(torch.float32)
-    vmin, amin = ivf_i8_window_tile_minima(q_all, decoded_g_i8, col_scales,
-                                           flat, dup.to(torch.int32),
-                                           vlen[flat.long()], cap_u, pen=pen)
-    stage("rii.select", q_all.device)
-    # int8 selection reorders near-boundary candidates: overfetch before
-    # the exact rescore, as the JAX module does
-    sel, slot_top, tile_k = _select_tiles(vmin, amin, max(2 * topk, topk + 8))
-    _note_selections(probe_k, tile_k)
-    # +inf selections (duplicate windows, padding, excluded slots) point at
-    # slots whose codes decode to finite distances: keep them masked
-    dist, slots = _rescore_slots(q_all, slot_top, torch.isfinite(sel),
-                                 order_g, norms_g, codes, codewords, None,
-                                 topk, codes_grouped)
-    return _ids_of(order_g, slots, dist, topk)
+    return _union_topk(
+        "int8", queries, decoded_g_i8, norms_g, order_g, centers_dec,
+        centers_norms, w, topk, cap_u, nlist_pad, use_kernel=True,
+        target_mask=target_mask, recall_target=recall_target,
+        probe_recall=probe_recall, probes=probes, vlen=vlen, codes=codes,
+        codewords=codewords, codes_grouped=codes_grouped,
+        col_scales=col_scales)
 
 
 def _bucket_windows(cscores, bucket_start, w, cap_max):

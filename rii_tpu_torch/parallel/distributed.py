@@ -15,7 +15,9 @@ Parity with the single-device engine:
   membership by ``searchsorted``.
 - the three window tiers of ``rii_tpu``'s sharded engine: bf16 windows
   (``use_decoded=True``), int8 windows with a codes-based linear scan
-  (``"i8"``) and uint8 code windows (``False``), the tier for big N.
+  (``"i8"``) and uint8 code windows (``False``), the tier for big N. Each
+  shard's windows are a ``store.WindowStore`` over its share of the
+  layout, built, grown and scanned as the single-device engine's are.
 - ``add`` / ``merge`` place only the new rows in the shards (O(batch)
   scatters into headroom reserved at :meth:`ShardedRii.refresh`);
   ``reconfigure`` runs the distributed build (``parallel.build``),
@@ -42,28 +44,14 @@ import torch
 import torch.distributed as dist
 
 from rii_tpu_torch._device import resolve_device
-from rii_tpu_torch.models.ivf import (
-    append_placement,
-    build_virtual_layout,
-    code_norms_np,
-)
+from rii_tpu_torch.models.ivf import build_virtual_layout, code_norms_np
 from rii_tpu_torch.models.opq import OPQ
-from rii_tpu_torch.ops.decode import (
-    build_decoded_cache,
-    codeword_norms,
-    onehot_decode,
-)
-from rii_tpu_torch.ops.hopper_i8 import quantize_rows_i8
-from rii_tpu_torch.ops.hopper_scan import replica_scan_topk_t
+from rii_tpu_torch.ops.decode import build_decoded_cache
 from rii_tpu_torch.ops.ivf import (
     _coarse_scores,
     _probe_topk,
     _searchsorted_member,
-    ivf_union_scan_topk,
-    ivf_union_scan_topk_i8,
-    ivf_union_scan_topk_pq,
 )
-from rii_tpu_torch.ops.scan import linear_scan_topk, linear_scan_topk_decoded
 from rii_tpu_torch.parallel.mesh import (
     CHIP_AXIS,
     gather,
@@ -75,27 +63,16 @@ from rii_tpu_torch.parallel.mesh import (
 )
 from rii_tpu_torch.parallel.sharded import merge_rows
 from rii_tpu_torch.rii import Rii, _pad_queries, require_dtype, resolve_rescore
+from rii_tpu_torch.store import (
+    LinearStore,
+    WindowStore,
+    _pow2_at_least,
+    union_covers_half,
+    virtual_centers,
+)
 
-_PAD_SENTINEL = 1e15  # bf16 value of padding rows in the IVF windows
-_QUANT_BLOCK = 1 << 18  # grouped rows decoded at a time for the int8 windows
-
-
-def _pow2(n, lo=1):
-    v = lo
-    while v < n:
-        v *= 2
-    return v
-
-
-def _set_rows(t, idx, rows):
-    """In-place row scatter ``t[idx] = rows`` (idx int64 on t's device);
-    every write of the delta path goes through here or :func:`_set_cols`."""
-    t.index_copy_(0, idx, rows)
-
-
-def _set_cols(t, idx, cols):
-    """In-place column scatter ``t[:, idx] = cols``."""
-    t.index_copy_(1, idx, cols)
+# the public spelling of each window tier (``use_decoded``)
+_TIER_OF = {None: None, True: "bf16", "i8": "int8", False: "pq"}
 
 
 def init_distributed(init_method=None, world_size=None, rank=None,
@@ -152,7 +129,7 @@ class ShardedRii:
         self.axes = self.mesh.axis_names
         self.ndev = self.mesh.size
         self.overlap_chunks = max(1, int(overlap_chunks))
-        self._use_decoded_opt = use_decoded
+        self._tier_opt = _TIER_OF[use_decoded]
         self.growth_headroom = max(0.0, float(growth_headroom))
         self.refresh()
 
@@ -176,16 +153,16 @@ class ShardedRii:
         # moved by exactly its own append since this snapshot
         self._engine_version = engine._version
         # drop the old shards first, so that both never fill a card at once
-        self.codes = self.norms = self.decoded = self.decoded_t = self.ivf = None
+        self.codes = self.norms = self.linear = self.windows = None
 
         codes = engine._consolidated_codes()
         cw = np.asarray(engine.codewords, dtype=np.float32)
         norms = code_norms_np(cw, codes)
         n = len(codes)
-        use_dec_opt = self._use_decoded_opt in (None, True)
         # on the kernel route with a replica, shards in 16384-row granules
         # (the chunks of kernel A's scan)
-        block = 16384 if (self._use_kernels() and use_dec_opt) else 1024
+        block = 16384 if (self._use_kernels()
+                          and self._tier_opt in (None, "bf16")) else 1024
         gh = self.growth_headroom
         if engine._cap_reserve > n > 0:
             gh = max(gh, engine._cap_reserve / n - 1.0)
@@ -204,120 +181,76 @@ class ShardedRii:
         self.codes, self.norms = shard_database(mesh, codes_pad, norms_pad)
         self.codewords = put_sharded(mesh, cw, sharded=False)
 
-        use_decoded = self._use_decoded_opt
-        if use_decoded is None:
-            use_decoded = engine._use_decoded_cache(cap)
-        if use_decoded == "i8":
-            use_decoded = False
-            win_mode = "i8"
-        else:
-            win_mode = "bf16" if use_decoded else "pq"
-        use_t = bool(use_decoded) and self._use_kernels()
+        # the windows' tier; the pq and int8 tiers scan the codes linearly
+        self.tier = self._tier_opt or (
+            "bf16" if engine._resolve_scan_mode(cap) == "bf16" else "pq")
+        form = None
+        if self.tier == "bf16":
+            form = "decoded_t" if self._use_kernels() else "decoded_flat"
         # the linear scan's chunks: the largest count up to overlap_chunks
         # whose chunks keep the granule
-        gran = 16384 if use_t else min(self.block, 1024)
+        gran = 16384 if form == "decoded_t" else min(self.block, 1024)
         self.nchunks = 1
         for c in range(self.overlap_chunks, 0, -1):
             if shard_cap % (c * gran) == 0:
                 self.nchunks = c
                 break
         ck = shard_cap // self.nchunks
-        if use_decoded:
-            reps = []
-            for j, dev in enumerate(mesh.devices):
-                with on_device(dev):
-                    dec = build_decoded_cache(self.codes[j], self.codewords[j])
-                    # kernel A reads a contiguous (D, ck) replica: each chunk
-                    # its own transposed tensor, made once here
-                    reps.append([dec[lo:lo + ck].T.contiguous()
-                                 for lo in range(0, shard_cap, ck)] if use_t else dec)
-                    del dec
-            if use_t:
-                self.decoded_t = reps
-            else:
-                self.decoded = reps
+        blk = min(self.block, ck)
+        # each shard's linear scan as a store a chunk over views of its
+        # rows; kernel A reads a contiguous (D, ck) replica, each chunk its
+        # own transposed tensor made once here
+        self.linear = []
+        for j, dev in enumerate(mesh.devices):
+            with on_device(dev):
+                dec = None if form is None else build_decoded_cache(
+                    self.codes[j], self.codewords[j])
+                chunks = []
+                for lo in range(0, shard_cap, ck):
+                    rep = None if dec is None else dec[lo:lo + ck]
+                    if form == "decoded_t":
+                        rep = rep.T.contiguous()
+                    chunks.append(LinearStore(
+                        ck, self.codewords[j], self.codes[j][lo:lo + ck],
+                        self.norms[j][lo:lo + ck], tier=self.tier if form
+                        else "pq", form=form, replica=rep, block=blk,
+                        block_dec=blk))
+                self.linear.append(chunks)
+                del dec
 
         if engine.nlist > 0:
-            self.ivf = self._build_windows(engine, codes, norms, cw, gh,
-                                           win_mode)
+            self.windows = self._build_windows(engine, codes, norms, cw, gh)
         return self
 
-    def _build_windows(self, engine, codes, norms, cw, gh, win_mode):
+    def _build_windows(self, engine, codes, norms, cw, gh):
         """The balanced virtual-bucket layout split over the shards: shard s
         owns windows [s * nv_l, (s + 1) * nv_l) with their rows and coarse
-        centers (decoded on the host: the engine's single-device cache is
-        never built)."""
+        centers, as its own window store (decoded on the host: the engine's
+        single-device cache is never built)."""
         mesh = self.mesh
         # the same 12.5% per-bucket headroom as the single-device cache
         # (extended to a reserve()), so adds land at each bucket's tail
         ul = build_virtual_layout(codes, norms, engine._assignments(),
                                   engine.nlist, pad_to=8 * self.ndev,
                                   headroom=gh)
-        nlist = engine.nlist
-        nlist_pad = _pow2(nlist, 8)
-        dec = cw[np.arange(engine.M)[None, :], engine._centers.astype(np.int64)]
-        centers_dec = np.zeros((nlist_pad, cw.shape[0] * cw.shape[2]), np.float32)
-        centers_dec[:nlist] = dec.reshape(nlist, -1)
-        cn = np.full(nlist_pad, np.inf, np.float32)
-        cn[:nlist] = (centers_dec[:nlist] ** 2).sum(axis=1)
-        vreal = ul["vreal"]
-        vr = np.clip(vreal, 0, nlist_pad - 1)
-        cnv = np.where(vreal >= 0, cn[vr], np.inf).astype(np.float32)
-        vstart = ul["vstart"]
-        codes_g = put_sharded(mesh, ul["codes_grouped"])
-        iv = {
-            "mode": win_mode,
-            "cap_v": ul["cap_v"],
-            "nlist_v": ul["nlist_v"],
-            "nlist_v_pad": ul["nlist_v_pad"],
-            "nv_l": ul["nlist_v_pad"] // self.ndev,
-            "order_g": put_sharded(mesh, ul["order"]),  # global ids, -1 pad
-            "norms_g": put_sharded(mesh, ul["norms_grouped"]),
-            "centers_dec_v": put_sharded(mesh, centers_dec[vr]),
-            "centers_norms_v": put_sharded(mesh, cnv),
-            "codes_g": codes_g,
-            # host mirrors for the O(batch) placement of added rows
-            "v_vstart": vstart[:nlist].astype(np.int64),
-            "v_counts": ul["counts"].copy(),
-            "v_capacity": ((vstart[1:] - vstart[:-1]) * ul["cap_v"]).astype(np.int64),
-        }
-        if win_mode == "bf16":
-            # padding rows get the large sentinel kernel B needs (it derives
-            # the norms from the rows); the grouped codes stay for the exact
-            # rescore
-            iv["decoded_g"] = []
-            for j, dev in enumerate(mesh.devices):
-                with on_device(dev):
-                    dg = build_decoded_cache(codes_g[j], self.codewords[j])
-                    dg[iv["order_g"][j] < 0] = _PAD_SENTINEL
-                iv["decoded_g"].append(dg)
-        elif win_mode == "i8":
+        centers_v = virtual_centers(cw, engine._centers, ul["vreal"])
+        nv_l = ul["nlist_v_pad"] // self.ndev
+        scales = None
+        if self.tier == "int8":
             # column scales from the codewords (every decoded value is a
             # codebook entry, so each column's max |codeword| bounds its
             # rows): no collective is needed to agree on them
             col = (np.maximum(np.abs(cw).max(axis=1).reshape(-1), 1e-30)
                    / 127.0).astype(np.float32)
-            iv["i8_scales"] = put_sharded(mesh, col, sharded=False)
-            iv["decoded_g_i8"] = []
-            for j, dev in enumerate(mesh.devices):
-                cg = codes_g[j]
-                out = torch.empty((cg.shape[0], centers_dec.shape[1]),
-                                  dtype=torch.int8, device=dev)
-                with on_device(dev):
-                    for s in range(0, cg.shape[0], _QUANT_BLOCK):
-                        out[s:s + _QUANT_BLOCK] = quantize_rows_i8(
-                            onehot_decode(cg[s:s + _QUANT_BLOCK],
-                                          self.codewords[j], torch.bfloat16),
-                            iv["i8_scales"][j])
-                iv["decoded_g_i8"].append(out)
-        else:
-            # the constant term of kernel E's per-batch ADC table
-            iv["cw_norms"] = [codeword_norms(c) for c in self.codewords]
-        if win_mode != "bf16":
-            # each window's member count: the int8 and code windows' kernels
-            # mask padding by it
-            iv["vlen_g"] = put_sharded(mesh, ul["vlen"])
-        return iv
+            scales = put_sharded(mesh, col, sharded=False)
+        windows = []
+        for j, (s, dev) in enumerate(zip(mesh.local, mesh.devices)):
+            col_j = None if scales is None else scales[j]
+            with on_device(dev):
+                windows.append(WindowStore.build(
+                    ul, centers_v, self.tier, self.codewords[j], device=dev,
+                    win0=s * nv_l, n_win=nv_l, scales_i8=lambda *_, t=col_j: t))
+        return windows
 
     def _use_kernels(self):
         """The kernel routes: shards on CUDA (or the engine's
@@ -396,16 +329,13 @@ class ShardedRii:
             return False
         if n0 + k > self.cap:
             return False
-        iv = self.ivf
         update_ivf = bool((assign >= 0).any())
         place = None
         if update_ivf:
-            if iv is None:
+            if self.windows is None:
                 return False
             # placement and the capacity check come before any write
-            place = append_placement(assign, iv["v_counts"], iv["v_vstart"],
-                                     iv["cap_v"], iv["v_capacity"],
-                                     want_vlen="vlen_g" in iv)
+            place = self.windows[0].placement(assign)
             if place is None:
                 return False
         cw = np.asarray(self.engine.codewords, dtype=np.float32)
@@ -417,62 +347,20 @@ class ShardedRii:
                 base = s * shard_cap
                 lo, hi = max(n0, base), min(n0 + k, base + shard_cap)
                 if lo < hi:
-                    self._place_linear(j, dev, codes[lo - n0:hi - n0],
+                    self._place_linear(j, codes[lo - n0:hi - n0],
                                        norms_new[lo - n0:hi - n0], lo - base, ck)
                 if update_ivf:
-                    self._place_windows(j, s, dev, codes, norms_new, n0, place)
-        if update_ivf:
-            iv["v_counts"] = place["new_counts"]
+                    self.windows[j].place(place, n0, codes, norms_new)
         self._n_dev = n0 + k
         return True
 
-    def _place_linear(self, j, dev, codes, norms, off, ck):
-        """Rows [off, off + len) of local shard j."""
-        rows = torch.arange(off, off + codes.shape[0], device=dev)
-        c_new = torch.tensor(codes, device=dev)
-        _set_rows(self.codes[j], rows, c_new)
-        _set_rows(self.norms[j], rows, torch.tensor(norms, device=dev))
-        if self.decoded is None and self.decoded_t is None:
-            return
-        dec = onehot_decode(c_new, self.codewords[j], torch.bfloat16)
-        if self.decoded is not None:
-            _set_rows(self.decoded[j], rows, dec)
-            return
-        for c, chunk in enumerate(self.decoded_t[j]):
+    def _place_linear(self, j, codes, norms, off, ck):
+        """Rows [off, off + len) of local shard j, chunk by chunk."""
+        for c, lin in enumerate(self.linear[j]):
             a, b = max(off, c * ck), min(off + codes.shape[0], (c + 1) * ck)
             if a < b:
-                cols = torch.arange(a - c * ck, b - c * ck, device=dev)
-                _set_cols(chunk, cols, dec[a - off:b - off].T)
-
-    def _place_windows(self, j, s, dev, codes, norms, n0, place):
-        """The batch's grouped slots that local shard j (global s) owns."""
-        iv = self.ivf
-        rows_l = iv["nv_l"] * iv["cap_v"]
-        slots = place["slots"]
-        sel = np.nonzero(slots // rows_l == s)[0]
-        if sel.size:
-            perm = place["perm"][sel]
-            idx = torch.tensor(slots[sel] - s * rows_l, device=dev)
-            c_new = torch.tensor(codes[perm], device=dev)
-            _set_rows(iv["order_g"][j], idx,
-                      torch.tensor((n0 + perm).astype(np.int32), device=dev))
-            _set_rows(iv["norms_g"][j], idx, torch.tensor(norms[perm], device=dev))
-            _set_rows(iv["codes_g"][j], idx, c_new)
-            if "decoded_g" in iv:
-                _set_rows(iv["decoded_g"][j], idx,
-                          onehot_decode(c_new, self.codewords[j], torch.bfloat16))
-            elif "decoded_g_i8" in iv:
-                # the existing codeword-derived scales bound the new rows
-                _set_rows(iv["decoded_g_i8"][j], idx, quantize_rows_i8(
-                    onehot_decode(c_new, self.codewords[j], torch.bfloat16),
-                    iv["i8_scales"][j]))
-        if "vlen_g" in iv:
-            wins = place["wins"].astype(np.int64)
-            wsel = np.nonzero(wins // iv["nv_l"] == s)[0]
-            if wsel.size:
-                _set_rows(iv["vlen_g"][j],
-                          torch.tensor(wins[wsel] - s * iv["nv_l"], device=dev),
-                          torch.tensor(place["vls"][wsel], device=dev))
+                lin.scatter(a - c * ck, codes[a - off:b - off],
+                            norms[a - off:b - off])
 
     def reconfigure(self, nlist=None, iter=5):
         """Distributed reconfigure (``parallel.build.reconfigure_on_mesh``):
@@ -504,7 +392,8 @@ class ShardedRii:
         assert tids.ndim == 1
         tids = np.sort(tids) if sort_target_ids else tids
         s = len(tids)
-        tp = np.full(_pow2(max(16, s)), np.iinfo(np.int64).max, dtype=np.int64)
+        tp = np.full(_pow2_at_least(max(16, s)), np.iinfo(np.int64).max,
+                     dtype=np.int64)
         tp[:s] = tids
         return tp, s
 
@@ -541,19 +430,17 @@ class ShardedRii:
         union-volume guard, from the sharded layout (the engine's
         single-device cache is never built)."""
         e = self.engine
-        if self.ivf is None or e.threshold is None:
+        if self.windows is None or e.threshold is None:
             return True  # linear is the only path
         s = None if target_ids is None else len(target_ids)
         L_eff = L if L is not None else e._multiple_of_L0_covering_topk(topk)
         if (e.N if s is None else s) <= e.threshold(L_eff):
             return True
-        iv = self.ivf
-        qn = np.atleast_2d(queries).shape[0]
+        ws = self.windows[0]
         # rii_tpu's sharded guard reads the budget before its power-of-two
         # rounding
-        wv = e._probe_budget_virtual(L_eff, s, iv)
-        rows = min(qn * wv, iv["nlist_v"]) * iv["cap_v"]
-        return 2 * rows >= self.cap
+        return union_covers_half(ws, e._probe_budget_virtual(L_eff, s, ws),
+                                 np.atleast_2d(queries).shape[0], self.cap)
 
     def query_batch(self, queries, topk=1, target_ids=None,
                     sort_target_ids=True, L=None, method="linear"):
@@ -585,39 +472,22 @@ class ShardedRii:
         rescore = resolve_rescore(self.exact_rescore, qp.shape[0])
         shard_cap = self.cap // self.ndev
         ck = shard_cap // self.nchunks
-        blk = min(self.block, ck)
         qs, tts = self._per_device(qp), self._per_device(tids)
         parts = []
         for j, (s, dev) in enumerate(zip(self.mesh.local, self.mesh.devices)):
-            cw = self.codewords[j]
             with on_device(dev):
-                for c in range(self.nchunks):
-                    lo = c * ck
-                    norms_c = self.norms[j][lo:lo + ck]
+                for c, lin in enumerate(self.linear[j]):
+                    base = s * shard_cap + c * ck
+                    member = None
                     if tids is not None:
-                        gid = torch.arange(s * shard_cap + lo,
-                                           s * shard_cap + lo + ck, device=dev)
-                        member = _searchsorted_member(tts[j], nt, gid)
-                        norms_c = torch.where(member, norms_c, float("inf"))
-                    # per-shard exact rescore: chunk-local ids index the
+                        member = _searchsorted_member(
+                            tts[j], nt, torch.arange(base, base + ck, device=dev))
+                    # per-chunk exact rescore: chunk-local ids index the
                     # chunk's code rows, and the exact distances are
                     # comparable across shards in the merge
-                    rs_codes = self.codes[j][lo:lo + ck] if rescore else None
-                    rs_cw = cw if rescore else None
-                    if self.decoded_t is not None:
-                        d_c, i_c = replica_scan_topk_t(
-                            qs[j], self.decoded_t[j][c], norms_c[None, :],
-                            topk, codes=rs_codes, codewords=rs_cw)
-                    elif self.decoded is not None:
-                        d_c, i_c = linear_scan_topk_decoded(
-                            qs[j], self.decoded[j][lo:lo + ck], norms_c, topk,
-                            codes=rs_codes, codewords=rs_cw, block=blk)
-                    else:
-                        d_c, i_c = linear_scan_topk(
-                            qs[j], self.codes[j][lo:lo + ck], norms_c, cw,
-                            topk, block=blk)
-                    g_c = torch.where(i_c >= 0, i_c + s * shard_cap + lo, -1)
-                    parts.append((s, d_c, g_c))
+                    d_c, i_c = lin.scan_topk(qs[j], topk, mask=member,
+                                             rescore=rescore)
+                    parts.append((s, d_c, torch.where(i_c >= 0, i_c + base, -1)))
         d, i = self._merge(parts, topk)
         return (i[:qn].cpu().numpy().astype(np.int64),
                 d[:qn].cpu().numpy().astype(np.float64))
@@ -631,7 +501,7 @@ class ShardedRii:
         the candidates are those of the single-device engine's probes even
         when every hot window lies on one shard. ``target_ids`` is a global
         id subset, applied on each shard by membership."""
-        assert self.ivf is not None, "IVF requires a reconfigured engine"
+        assert self.windows is not None, "IVF requires a reconfigured engine"
         # shared side: concurrent with other queries, exclusive against the
         # delta path's in-place scatters (re-entrant under query_batch)
         with self.engine._state_lock.read():
@@ -670,16 +540,16 @@ class ShardedRii:
     def _query_ivf_batch_impl(self, queries, topk, L, target_ids,
                               sort_target_ids):
         e = self.engine
-        iv = self.ivf
+        ws0 = self.windows[0]
         if L is None:
             L = e._multiple_of_L0_covering_topk(topk=topk)
         wv = e._probe_width_virtual(
-            L, None if target_ids is None else len(target_ids), iv)
+            L, None if target_ids is None else len(target_ids), ws0)
         qn = np.atleast_2d(np.asarray(queries)).shape[0]
         # the single-device engine's fallback: a union covering most of the
         # database is read faster by the linear scan, a candidate superset
-        union_slots = min(max(8, _pow2(qn)) * wv, iv["nlist_v"]) * iv["cap_v"]
-        if wv >= iv["nlist_v"] or 2 * union_slots >= self.cap:
+        if wv >= ws0.nlist_v or union_covers_half(
+                ws0, wv, max(8, _pow2_at_least(qn)), self.cap):
             return self.query_batch(queries, topk=topk, target_ids=target_ids,
                                     sort_target_ids=sort_target_ids,
                                     method="linear")
@@ -687,11 +557,9 @@ class ShardedRii:
         tids, nt = self._prep_targets(target_ids, sort_target_ids)
         qp, qn = _pad_queries(queries, lo=8)
         rt = self.topk_recall
-        nv_l = iv["nv_l"]
-        mode = iv["mode"]
+        nv_l = ws0.n_win
         use_kernel = self._use_kernels()
-        rescore = mode == "bf16" and resolve_rescore(self.exact_rescore,
-                                                      qp.shape[0])
+        rescore = resolve_rescore(self.exact_rescore, qp.shape[0])
         mesh = self.mesh
         qs, tts = self._per_device(qp), self._per_device(tids)
         # float32 coarse scores in exact mode: bf16 rounding can reorder
@@ -699,43 +567,24 @@ class ShardedRii:
         cs = []
         for j, dev in enumerate(mesh.devices):
             with on_device(dev):
-                cs.append(_coarse_scores(qs[j], iv["centers_dec_v"][j],
-                                         iv["centers_norms_v"][j], rt is None))
+                ws = self.windows[j]
+                cs.append(_coarse_scores(qs[j], ws.centers_dec_v,
+                                         ws.centers_norms_v, rt is None))
         gscore = torch.cat(gather(mesh, cs), 1)  # (Q, ndev * nv_l)
         flat_l, dup_l = self._global_probes(gscore, min(wv, self.ndev * nv_l),
                                             nv_l)
-        w = min(wv, nv_l)
         parts = []
         for j, (s_idx, dev) in enumerate(zip(mesh.local, mesh.devices)):
+            ws = self.windows[j]
             with on_device(dev):
                 probes = (flat_l[j].to(dev, torch.int32), dup_l[j].to(dev))
                 tm = None
                 if tids is not None:
-                    tm = _searchsorted_member(tts[j], nt, iv["order_g"][j].long())
-                common = dict(w=w, topk=topk, cap_u=iv["cap_v"], nlist_pad=nv_l,
-                              target_mask=tm, recall_target=rt, probes=probes)
-                if mode == "bf16":
-                    d_l, i_l = ivf_union_scan_topk(
-                        qs[j], iv["decoded_g"][j], iv["norms_g"][j],
-                        iv["order_g"][j], iv["centers_dec_v"][j],
-                        iv["centers_norms_v"][j], use_kernel=use_kernel,
-                        codes=iv["codes_g"][j] if rescore else None,
-                        codewords=self.codewords[j] if rescore else None,
-                        codes_grouped=True, **common)
-                elif mode == "i8":
-                    d_l, i_l = ivf_union_scan_topk_i8(
-                        qs[j], iv["decoded_g_i8"][j], iv["i8_scales"][j],
-                        iv["norms_g"][j], iv["order_g"][j], iv["codes_g"][j],
-                        self.codewords[j], iv["centers_dec_v"][j],
-                        iv["centers_norms_v"][j], iv["vlen_g"][j],
-                        codes_grouped=True, **common)
-                else:
-                    d_l, i_l = ivf_union_scan_topk_pq(
-                        qs[j], iv["codes_g"][j], iv["norms_g"][j],
-                        iv["order_g"][j], self.codewords[j],
-                        iv["centers_dec_v"][j], iv["centers_norms_v"][j],
-                        vlen=iv["vlen_g"][j], use_kernel=use_kernel,
-                        cw_norms=iv["cw_norms"][j], **common)
+                    tm = _searchsorted_member(tts[j], nt, ws.order_g.long())
+                d_l, i_l = ws.scan_topk(
+                    qs[j], min(wv, nv_l), topk, target_mask=tm,
+                    recall_target=rt, probes=probes, rescore=rescore,
+                    kernels=use_kernel)
             parts.append((s_idx, d_l, i_l))
         d, i = self._merge(parts, topk)
         return (i[:qn].cpu().numpy().astype(np.int64),

@@ -2,8 +2,9 @@
 
 This layer owns policy, as in the JAX package: codec management, default
 nlist and L, the linear-versus-IVF choice, argument validation and posting
-list bookkeeping. Mechanism lives in ``rii_tpu_torch.ops`` and works on a
-cache of padded tensors on ``device``.
+list bookkeeping. The device cache is two stores (``rii_tpu_torch.store``:
+the linear tier and the IVF windows), whose mechanism is
+``rii_tpu_torch.ops``.
 
 Canonical state is host-side numpy (uint8 codes, int32 assignments, uint8
 coarse centers); the device tensors are a derived cache, rebuilt lazily when
@@ -36,7 +37,6 @@ import torch
 
 from rii_tpu_torch._device import resolve_device
 from rii_tpu_torch.models.ivf import (
-    append_placement,
     build_virtual_layout,
     code_norms_np,
     posting_lists_from_assignments,
@@ -49,39 +49,22 @@ from rii_tpu_torch.models.pqkmeans import (
     pqkmeans_predict_device,
     predict_upload,
 )
-from rii_tpu_torch.ops.decode import (
-    build_decoded_cache,
-    codeword_norms,
-    onehot_decode,
-)
-from rii_tpu_torch.ops.hopper_i8 import (
-    quantize_replica_i8,
-    quantize_rows_i8,
-    replica_i8_scan_topk_t,
-)
-from rii_tpu_torch.ops.hopper_pq import pq_scan_topk_t, prepare_pq_scan_inputs_t
-from rii_tpu_torch.ops.hopper_scan import (
-    _TN_MIN_Q,
-    prepare_replica_t,
-    replica_scan_topk,
-    replica_scan_topk_t,
-)
-from rii_tpu_torch.ops.ivf import (
-    ivf_union_scan_topk,
-    ivf_union_scan_topk_i8,
-    ivf_union_scan_topk_pq,
-)
-from rii_tpu_torch.ops.scan import (
-    linear_scan_topk,
-    linear_scan_topk_decoded,
-    subset_scan_topk,
-    subset_scan_topk_decoded,
+from rii_tpu_torch.ops.hopper_i8 import column_scales_i8
+from rii_tpu_torch.ops.hopper_scan import _TN_MIN_Q
+from rii_tpu_torch.store import (
+    LinearStore,
+    WindowStore,
+    _pow2_at_least,
+    resolve_tier,
+    union_covers_half,
+    virtual_centers,
+    window_tier,
 )
 from rii_tpu_torch.utils.profiling import begin_call, end_call, note, stage
 
 _RECONFIGURE_SAMPLE_SEED = 123  # mirrors std::default_random_engine(123)
 _PQKMEANS_SEED = 0  # mirrors mt19937(0) in the reference's PQk-means
-_PAD_SENTINEL = 1e15  # bf16 value of padding rows in the IVF windows
+_B_MIN_UNION = 2048  # windows from which the bf16 union takes kernel B
 
 
 def require_dtype(arr, dtype, name):
@@ -93,13 +76,6 @@ def require_dtype(arr, dtype, name):
             f"{name} must be {np.dtype(dtype).name} (got {arr.dtype.name}); "
             f"cast explicitly with .astype(np.{np.dtype(dtype).name})")
     return arr
-
-
-def _pow2_at_least(n, lo=1):
-    v = max(1, lo)
-    while v < n:
-        v *= 2
-    return v
 
 
 def _pad_queries(queries, lo=1):
@@ -232,7 +208,7 @@ class Rii:
         self._centers = None  # (nlist, M) uint8
         self._version = 0
         self._codes_cache = None  # consolidated (N, M) uint8
-        self._dc = None  # device cache dict
+        self._stores = None  # device cache: (LinearStore, WindowStore|None)
         # one-shot adoption state of a v2 checkpoint, consumed by the next
         # cache build (see the module docstring)
         self._norms_cache = None  # (N,) float32 ||decode||^2
@@ -498,7 +474,7 @@ class Rii:
                 pass
             finally:
                 if not ok:
-                    self._dc = None
+                    self._stores = None
             version = self._version
         if self._verbose:
             print(f"{codes.shape[0]} new vectors are added. Total: {self._n}")
@@ -508,72 +484,31 @@ class Rii:
         """Scatter k new rows into the live device cache (the reference's
         O(new) AddCodes, src/rii.h:158-193). Returns False when there is no
         cache or no room; the caller then drops the cache."""
-        dc = self._dc
-        k = codes.shape[0]
-        if dc is None:
+        if self._stores is None:
             return False
+        lin, win = self._stores
+        k = codes.shape[0]
         if k == 0:  # the cache is already right
-            dc["version"] = self._version
+            lin.version = self._version
             return True
-        if n0 + k > dc["cap"]:
+        if n0 + k > lin.cap:
             return False
         update_ivf = bool((assign >= 0).any())
-        if update_ivf and "v_counts" not in dc:
-            return False
         place = None
         if update_ivf:
+            if win is None:
+                return False
             # placement and the capacity check come before any write
-            place = append_placement(assign, dc["v_counts"], dc["v_vstart"],
-                                     dc["cap_v"], dc["v_capacity"],
-                                     want_vlen="vlen_g" in dc)
+            place = win.placement(assign)
             if place is None:
                 return False
-
-        cw = np.asarray(self.codewords, dtype=np.float32)
-        norms_new = code_norms_np(cw, codes)
-        idx = torch.arange(n0, n0 + k, device=self.device)
-        codes_d = self._tensor(codes)
-        norms_d = self._tensor(norms_new)
-        # each write below is one in-place scatter; norms_rep (the replica's
-        # norms) is a view of norms_flat
-        dc["codes_flat"][idx] = codes_d
-        dc["norms_flat"][idx] = norms_d
-        dec_new = None
-        if any(key in dc for key in ("decoded_t", "decoded_flat", "decoded_g",
-                                     "decoded_i8", "decoded_g_i8")):
-            dec_new = onehot_decode(codes_d, dc["codewords"], torch.bfloat16)
-        if "decoded_t" in dc:
-            dc["decoded_t"][:, idx] = dec_new.T
-        if "decoded_flat" in dc:
-            dc["decoded_flat"][idx] = dec_new
-        if "decoded_i8" in dc:
-            # requantized with the existing column scales (clipped), as in
-            # the JAX package: the exact rescore absorbs the lost precision
-            # of rows beyond the old column maxima until the next rebuild
-            dc["decoded_i8"][idx] = quantize_rows_i8(dec_new, dc["i8_scales"])
-        if "codes_t" in dc:
-            dc["codes_t"][:, idx] = codes_d.T
-
+        norms = code_norms_np(np.asarray(self.codewords, dtype=np.float32),
+                              codes)
+        lin.scatter(n0, codes, norms)
         if update_ivf:
-            perm = self._tensor(place["perm"])
-            slots = self._tensor(place["slots"])
-            dc["order_g"][slots] = self._tensor(
-                (n0 + place["perm"]).astype(np.int32))
-            dc["norms_g"][slots] = norms_d[perm]
-            if "decoded_g" in dc:
-                dc["decoded_g"][slots] = dec_new[perm]
-            if "decoded_g_i8" in dc:
-                dc["decoded_g_i8"][slots] = quantize_rows_i8(
-                    dec_new[perm], dc["i8_scales_g"])
-            if "codes_g" in dc:
-                dc["codes_g"][slots] = codes_d[perm]
-            if "vlen_g" in dc:
-                wins = self._tensor(place["wins"].astype(np.int64))
-                dc["vlen_g"][wins] = self._tensor(place["vls"])
-            dc["v_counts"] = place["new_counts"]
-
-        dc["n_dev"] = n0 + k
-        dc["version"] = self._version
+            win.place(place, n0, codes, norms)
+        lin.n_dev = n0 + k
+        lin.version = self._version
         return True
 
     # ------------------------------------------------------------------ #
@@ -640,7 +575,7 @@ class Rii:
         if method == "auto":
             method = "linear" if self._use_linear(
                 len_target_ids, L, qn=queries.shape[0]) else "ivf"
-        note("tier", self._ensure_cache()["mode"])
+        note("tier", self._ensure_cache()[0].tier)
         if method == "linear":
             ids, dists = self._query_linear_batch(queries, topk, tids)
         else:
@@ -673,161 +608,63 @@ class Rii:
                 else require_dtype(target_ids, np.int64, "target_ids"), L)
         return ids[0].astype(np.int64), dists[0].astype(np.float64)
 
-    def _subset_mask(self, dc, tids):
-        mask = torch.zeros(dc["cap"], dtype=torch.bool, device=self.device)
-        mask[torch.tensor(np.clip(tids, 0, dc["cap"] - 1),
-                          device=self.device)] = True
-        return mask
-
     def _query_linear_batch(self, queries, topk, tids):
         stage("rii.prepare")
-        dc = self._ensure_cache()
+        lin = self._ensure_cache()[0]
         stage("rii.upload")
         qp, qn = _pad_queries(queries)
         qd = torch.tensor(qp, device=self.device)
-        rs = resolve_rescore(self.exact_rescore, qd.shape[0])
-        rs_codes = dc["codes_flat"] if rs else None
-        rs_cw = dc["codewords"] if rs else None
-        norms = dc["norms_flat"]
-        if tids is not None and len(tids) <= 4096:
-            s = len(tids)
-            tids_pad = np.zeros(_pow2_at_least(s, 16), dtype=np.int64)
-            tids_pad[:s] = tids
-            tt = torch.tensor(tids_pad, device=self.device)
-            note("route", "linear_subset_gather")
-            stage("rii.scan")
-            if "decoded_flat" in dc:
-                d, i = subset_scan_topk_decoded(
-                    qd, dc["decoded_flat"], norms, tt, s, topk,
-                    codes=rs_codes, codewords=rs_cw)
-            else:
-                d, i = subset_scan_topk(qd, dc["codes_flat"], norms,
-                                        dc["codewords"], tt, s, topk)
-        else:
-            # mid/large subsets: a masked full scan (+inf norms exclude)
-            mask = None if tids is None else self._subset_mask(dc, tids)
-            note("route", "linear" if mask is None else "linear_masked")
-            stage("rii.scan")
-            if "decoded_i8" in dc:
-                # the int8 tier: kernel F, always rescored exactly
-                if mask is not None:
-                    norms = torch.where(mask, norms, float("inf"))
-                d, i = replica_i8_scan_topk_t(
-                    qd, dc["decoded_i8"], dc["i8_scales"], norms[None, :],
-                    dc["codes_flat"], dc["codewords"], topk,
-                    n_valid=dc["n_dev"])
-            elif "decoded_t" in dc:
-                if mask is not None:
-                    norms = torch.where(mask, norms, float("inf"))
-                d, i = replica_scan_topk_t(qd, dc["decoded_t"], norms[None, :],
-                                           topk, codes=rs_codes,
-                                           codewords=rs_cw)
-            elif "decoded_flat" in dc and self._use_kernels():
-                # a cache built in exact mode keeps the row-major replica;
-                # once topk_recall is set again the kernel route scans it
-                # with kernel H, as the JAX engine does with its row-major
-                # Pallas kernel (the mask folds into the norms)
-                if mask is not None:
-                    norms = torch.where(mask, norms, float("inf"))
-                d, i = replica_scan_topk(
-                    qd, dc["decoded_flat"], norms[:, None], topk,
-                    codes=rs_codes, codewords=rs_cw,
-                    blk=min(8192, dc["cap"]), recall_target=self.topk_recall)
-            elif "decoded_flat" in dc:
-                d, i = linear_scan_topk_decoded(
-                    qd, dc["decoded_flat"], norms, topk, codes=rs_codes,
-                    codewords=rs_cw, mask=mask, block=dc["block_dec"])
-            elif "codes_t" in dc:
-                # the pq tier: kernel C, selection only, as in JAX
-                if mask is not None:
-                    norms = torch.where(mask, norms, float("inf"))
-                d, i = pq_scan_topk_t(qd, dc["codes_t"], norms,
-                                      dc["codewords"], topk,
-                                      n_valid=dc["n_dev"])
-            else:
-                d, i = linear_scan_topk(qd, dc["codes_flat"], norms,
-                                        dc["codewords"], topk, mask=mask,
-                                        block=dc["block"])
+        d, i = lin.scan_topk(
+            qd, topk, tids=tids,
+            rescore=resolve_rescore(self.exact_rescore, qd.shape[0]),
+            recall_target=self.topk_recall, kernels=self._use_kernels())
         stage("rii.download")
         return i[:qn].cpu().numpy(), d[:qn].cpu().numpy()
 
-    def _probe_budget_virtual(self, L, s, dc):
+    def _probe_budget_virtual(self, L, s, win):
         """The reference's candidate budget in virtual buckets: L rows of
         ``s`` (N by default), plus its +3 whole lists as +3 * (windows per
-        list). ``dc`` is a layout with ``nlist_v`` (the device cache, or a
-        sharded view's windows)."""
+        list). ``win`` is a window store (the engine's, or a shard's)."""
         denom = self._n if s is None else s
-        slack = 3 * max(1, -(-dc["nlist_v"] // max(1, self.nlist)))
-        return int(np.round(float(L) * dc["nlist_v"] / max(1, denom))) + slack
+        slack = 3 * max(1, -(-win.nlist_v // max(1, self.nlist)))
+        return int(np.round(float(L) * win.nlist_v / max(1, denom))) + slack
 
-    def _probe_width_virtual(self, L, s, dc):
+    def _probe_width_virtual(self, L, s, win):
         """Probe width in virtual buckets: the budget rounded up to a power
-        of two, at most ``dc["nlist_v_pad"]``."""
-        wv = self._probe_budget_virtual(L, s, dc)
-        return min(dc["nlist_v_pad"], _pow2_at_least(max(1, wv)))
+        of two, at most ``win.nlist_v_pad``."""
+        wv = self._probe_budget_virtual(L, s, win)
+        return min(win.nlist_v_pad, _pow2_at_least(max(1, wv)))
 
     def _query_ivf_batch(self, queries, topk, tids, L, force_full=False):
         stage("rii.prepare")
-        dc = self._ensure_cache()
+        lin, win = self._ensure_cache()
         use_kernels = self._use_kernels()
-        stage("rii.upload")
-        qp, qn = _pad_queries(queries, lo=8 if use_kernels else 1)
-        qd = torch.tensor(qp, device=self.device)
-        stage("rii.prepare")
+        lo = 8 if use_kernels else 1
         s = None if tids is None else len(tids)
-        rt = self.topk_recall
-        wv = dc["nlist_v_pad"] if force_full else self._probe_width_virtual(
-            L, s, dc)
-        probe_full = wv >= dc["nlist_v"]
-        union_slots = min(qd.shape[0] * wv, dc["nlist_v"]) * dc["cap_v"]
-        if probe_full or 2 * union_slots >= dc["cap"]:
+        wv = win.nlist_v_pad if force_full else self._probe_width_virtual(
+            L, s, win)
+        probe_full = wv >= win.nlist_v
+        if probe_full or union_covers_half(
+                win, wv, _pow2_at_least(queries.shape[0], lo), lin.cap):
             # the union covers most of the database: the contiguous linear
             # scan reads every row faster than the windows would
             ids, dists = self._query_linear_batch(queries, topk, tids)
             note("route", "ivf_to_linear")
             return ids, dists
         stage("rii.upload")
+        qp, qn = _pad_queries(queries, lo=lo)
+        qd = torch.tensor(qp, device=self.device)
         tm = None
         if tids is not None:
-            tm = self._subset_mask(dc, tids)[
-                dc["order_g"].clamp(0, dc["cap"] - 1).long()]
-        if dc["windows"] == "bf16":
-            # the window kernel pays off on big unions only (the JAX
-            # package's measured crossover, kept as is)
-            u_est = min(qd.shape[0] * wv, dc["nlist_v_pad"])
-            rs = resolve_rescore(self.exact_rescore, qd.shape[0])
-            d, i = ivf_union_scan_topk(
-                qd, dc["decoded_g"], dc["norms_g"], dc["order_g"],
-                dc["centers_dec_v"], dc["centers_norms_v"], w=wv, topk=topk,
-                cap_u=dc["cap_v"], nlist_pad=dc["nlist_v_pad"],
-                target_mask=tm, recall_target=rt,
-                use_kernel=use_kernels and u_est >= 2048,
-                probe_recall=self.probe_recall,
-                codes=dc["codes_flat"] if rs else None,
-                codewords=dc["codewords"] if rs else None)
-        elif dc["windows"] == "int8":
-            # int8 windows: kernel G (whatever the mode, as in JAX), exact
-            # rescore from the codes through order_g
-            d, i = ivf_union_scan_topk_i8(
-                qd, dc["decoded_g_i8"], dc["i8_scales_g"], dc["norms_g"],
-                dc["order_g"], dc["codes_flat"], dc["codewords"],
-                dc["centers_dec_v"], dc["centers_norms_v"], dc["vlen_g"],
-                w=wv, topk=topk, cap_u=dc["cap_v"],
-                nlist_pad=dc["nlist_v_pad"], target_mask=tm,
-                recall_target=rt, probe_recall=self.probe_recall)
-        else:
-            # uint8 code windows: kernels D/E on the card when the cache was
-            # built on the kernel route (as rii_tpu gates on "pallas_cw"),
-            # else the plain union scan; exact rescore
-            d, i = ivf_union_scan_topk_pq(
-                qd, dc["codes_g"], dc["norms_g"], dc["order_g"],
-                dc["codewords"], dc["centers_dec_v"], dc["centers_norms_v"],
-                w=wv, topk=topk, cap_u=dc["cap_v"],
-                nlist_pad=dc["nlist_v_pad"], target_mask=tm,
-                recall_target=rt, probe_recall=self.probe_recall,
-                vlen=dc["vlen_g"],
-                use_kernel=use_kernels and dc["pq_kernel_route"],
-                cw_norms=dc["cw_norms"])
+            tm = lin.subset_mask(tids)[win.order_g.clamp(0, lin.cap - 1).long()]
+        # the bf16 window kernel pays off on big unions only (the JAX
+        # package's measured crossover, kept as is); the int8 windows take
+        # kernel G whatever the mode, as in JAX
+        d, i = win.scan_topk(
+            qd, wv, topk, target_mask=tm, recall_target=self.topk_recall,
+            probe_recall=self.probe_recall,
+            rescore=resolve_rescore(self.exact_rescore, qd.shape[0]),
+            kernels=use_kernels, min_union=_B_MIN_UNION)
         stage("rii.download")
         d = d[:qn].cpu().numpy()
         i = i[:qn].cpu().numpy()
@@ -852,14 +689,11 @@ class Rii:
     def _use_linear(self, len_target_ids, L, qn=1):
         if len_target_ids <= self.threshold(L):
             return True
-        # an IVF batch reads min(Q*wv, nlist_v)*cap_v window rows, the linear
-        # scan all cap rows once: prefer linear where the IVF path would
-        # switch to it anyway (2 * rows >= cap)
-        dc = self._ensure_cache()
+        # prefer linear where the IVF path would switch to it anyway
+        lin, win = self._ensure_cache()
         s = None if len_target_ids >= self._n else len_target_ids
-        wv = self._probe_width_virtual(L, s, dc)
-        rows = min(qn * wv, dc["nlist_v"]) * dc["cap_v"]
-        return 2 * rows >= dc["cap"]
+        return union_covers_half(win, self._probe_width_virtual(L, s, win),
+                                 qn, lin.cap)
 
     def _resolve_update_posting_lists_flag(self, flag):
         assert flag in ("auto", True, False)
@@ -884,12 +718,13 @@ class Rii:
         replica's norms are a view of ``norms_flat``)."""
         out = {"host_codes": self._n * self.M,
                "host_assignments": self._n * 4}
-        dc = self._ensure_cache() if self._n else {}
+        tensors = {}
+        for store in self._ensure_cache() if self._n else ():
+            if store is not None:
+                tensors.update(store.tensors())
         seen = set()
         dev = 0
-        for k, v in dc.items():
-            if not isinstance(v, torch.Tensor):
-                continue
+        for k, v in tensors.items():
             out[f"device:{k}"] = v.numel() * v.element_size()
             storage = v.untyped_storage()
             if storage.data_ptr() not in seen:
@@ -932,14 +767,14 @@ class Rii:
         self._consolidated_codes()
         self._assignments()
         state = self.__dict__.copy()
-        state["_dc"] = None
+        state["_stores"] = None
         state.pop("_cache_lock", None)
         state.pop("_state_lock", None)
         return state
 
     def __setstate__(self, state):
         self.__dict__.update(state)
-        self._dc = None
+        self._stores = None
         self._cache_lock = threading.Lock()
         self._state_lock = _RWLock()
 
@@ -949,7 +784,7 @@ class Rii:
 
     def _bump(self):
         self._version += 1
-        self._dc = None
+        self._stores = None
 
     def _sync(self):
         """Wait for the card, so that a stage's seconds are the device's
@@ -974,32 +809,13 @@ class Rii:
             return False
         return self.force_kernel_routing or self.device.type == "cuda"
 
-    def _use_decoded_cache(self, cap):
-        """Whether a cache of capacity ``cap`` holds the bf16 replica."""
-        return self._resolve_scan_mode(cap) == "bf16"
-
     def _resolve_scan_mode(self, cap):
-        """scan_mode ('auto'|'pq'|'bf16'|'int8') -> the concrete tier."""
-        mode = self.scan_mode
-        if mode == "pq":
-            return "pq"
-        d = self.M * self.fine_quantizer.Ds
-        fits_bf16 = cap * d * 2 <= self.decoded_cache_budget
-        fits_i8 = cap * d <= self.decoded_cache_budget
-        if mode == "bf16":
-            return "bf16" if fits_bf16 else "pq"
-        if mode == "int8" and not (fits_i8 and self._use_kernels()):
-            return "bf16" if fits_bf16 else "pq"
-        if mode == "int8":
-            return "int8"
-        # auto: the replica pays off on the card only
-        if self.device.type != "cuda":
-            return "pq"
-        if fits_bf16:
-            return "bf16"
-        if fits_i8 and self._use_kernels():
-            return "int8"
-        return "pq"
+        """scan_mode ('auto'|'pq'|'bf16'|'int8') -> the concrete tier
+        (``store.resolve_tier``)."""
+        return resolve_tier(self.scan_mode, cap,
+                            self.M * self.fine_quantizer.Ds,
+                            self.decoded_cache_budget, self._use_kernels(),
+                            self.device.type == "cuda")
 
     def _consolidated_codes(self):
         if self._codes_cache is None:
@@ -1020,13 +836,15 @@ class Rii:
         return self._assign_chunks[0]
 
     def _ensure_cache(self):
-        dc = self._dc
-        if dc is not None and dc["version"] == self._version:
-            return dc
+        """The device cache, built where there is none or it is stale:
+        (LinearStore, WindowStore or None where there are no centers)."""
+        st = self._stores
+        if st is not None and st[0].version == self._version:
+            return st
         with self._cache_lock:
-            dc = self._dc
-            if dc is not None and dc["version"] == self._version:
-                return dc
+            st = self._stores
+            if st is not None and st[0].version == self._version:
+                return st
             return self._build_cache()
 
     def _tensor(self, arr):
@@ -1049,62 +867,29 @@ class Rii:
         codes_flat[: self._n] = codes
         norms_flat = np.full(cap, np.inf, dtype=np.float32)
         norms_flat[: self._n] = norms
-        dc = {
-            "version": self._version,
-            "cap": cap,
-            "n_dev": self._n,
-            "block": min(8192, cap),  # pq tier: bounds the decode transient
-            "block_dec": min(262144, cap),
-            "codewords": self._tensor(cw),
-            "codes_flat": self._tensor(codes_flat),
-            "norms_flat": self._tensor(norms_flat),
-        }
+        lin = LinearStore(cap, self._tensor(cw), self._tensor(codes_flat),
+                          self._tensor(norms_flat), version=self._version,
+                          n_dev=self._n)
         self._sync()
         stats["flat_h2d_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        resolved = self._resolve_scan_mode(cap)
-        dc["mode"] = resolved
-        if resolved == "int8":
-            # the int8 replica (cap, D), row-major for kernel F; its norms
-            # are norms_flat itself (the tier needs the kernels)
-            dc["decoded_i8"], dc["i8_scales"] = quantize_replica_i8(
-                dc["codes_flat"], dc["codewords"])
-        elif resolved == "bf16":
-            decoded = build_decoded_cache(dc["codes_flat"], dc["codewords"])
-            if self._use_kernels():
-                # transposed replica (D, cap) for kernel A
-                dc["decoded_t"], dc["norms_rep"] = prepare_replica_t(
-                    decoded, dc["norms_flat"])
-                del decoded
-            else:
-                dc["decoded_flat"] = decoded
-        elif self._use_kernels():
-            # the pq tier: codes transposed (M, cap) for kernel C; its norms
-            # are norms_flat itself
-            dc["codes_t"], _ = prepare_pq_scan_inputs_t(dc["codes_flat"],
-                                                        dc["norms_flat"])
+        lin.build_replica(self._resolve_scan_mode(cap), self._use_kernels())
         self._sync()
         stats["replica_s"] = time.perf_counter() - t0
+        win = None
         if self._centers is not None:
-            self._build_windows(dc, codes, norms, cw, resolved, stats)
+            win = self._build_windows(lin, codes, norms, cw, stats)
         self.last_cache_build_stats = stats
-        self._dc = dc
-        return dc
+        self._stores = (lin, win)
+        return self._stores
 
-    def _build_windows(self, dc, codes, norms, cw, resolved, stats):
-        """The balanced virtual-bucket layout of the union IVF scan, with
-        bf16 windows when the replica and windows fit the budget together,
-        else int8 windows where they fit and their kernel runs, else uint8
-        code windows. A saved layout (``_layout_v``) of the same n, nlist
-        and headroom takes the place of ``build_virtual_layout``."""
+    def _build_windows(self, lin, codes, norms, cw, stats):
+        """The window store over the balanced virtual-bucket layout, its
+        tier by ``store.window_tier``. A saved layout (``_layout_v``) of the
+        same n, nlist and headroom takes the place of
+        ``build_virtual_layout``."""
         t0 = time.perf_counter()
         nlist = self.nlist
-        nlist_pad = _pow2_at_least(nlist, 8)
-        dec = cw[np.arange(self.M)[None, :], self._centers.astype(np.int64)]
-        centers_dec = np.zeros((nlist_pad, self.M * cw.shape[2]), np.float32)
-        centers_dec[:nlist] = dec.reshape(nlist, -1)
-        centers_norms = np.full(nlist_pad, np.inf, dtype=np.float32)
-        centers_norms[:nlist] = (centers_dec[:nlist] ** 2).sum(axis=1)
         # 12.5% per-bucket headroom, as in the JAX package, so both build
         # the same layout; reserve() scales it to cover the reserved growth
         h = 0.125
@@ -1138,71 +923,19 @@ class Rii:
         stats["adopted_layout"] = adopt
         stats["layout_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        vreal = ul["vreal"]
-        vstart = ul["vstart"]
-        vr = np.clip(vreal, 0, nlist_pad - 1)
-        dc.update({
-            "nlist_pad": nlist_pad,
-            "cap_v": ul["cap_v"],
-            "nlist_v": ul["nlist_v"],
-            "nlist_v_pad": ul["nlist_v_pad"],
-            "order_g": self._tensor(ul["order"]),
-            "norms_g": self._tensor(ul["norms_grouped"]),
-            "centers_dec_v": self._tensor(centers_dec[vr]),
-            "centers_norms_v": self._tensor(np.where(
-                vreal >= 0, centers_norms[vr], np.inf).astype(np.float32)),
-            # host mirrors for the O(batch) placement of added rows
-            "v_vstart": vstart[:nlist].astype(np.int64),
-            "v_counts": ul["counts"].copy(),
-            "v_capacity": ((vstart[1:] - vstart[:-1])
-                           * ul["cap_v"]).astype(np.int64),
-        })
-        d_dim = self.M * cw.shape[2]
-        # gate the combined footprint of the replica and the windows (the
-        # JAX package's accounting: the replica's bytes plus 32 a row)
-        if "decoded_flat" in dc or "decoded_t" in dc:
-            flat_bytes = dc["cap"] * (d_dim * 2 + 8 * 4)
-        elif "decoded_i8" in dc:
-            flat_bytes = dc["cap"] * (d_dim + 8 * 4)
-        else:
-            flat_bytes = 0
-        budget = self.decoded_cache_budget
-        win_bf16 = (resolved == "bf16"
-                    and flat_bytes + ul["total"] * d_dim * 2 <= budget)
-        win_i8 = (not win_bf16 and self._use_kernels()
-                  and resolved in ("bf16", "int8")
-                  and flat_bytes + ul["total"] * d_dim <= budget)
-        if win_bf16:
-            dec_g = build_decoded_cache(self._tensor(ul["codes_grouped"]),
-                                        dc["codewords"])
-            # padding rows get a large sentinel so the window kernel's
-            # in-kernel norms put them behind every real row (in place)
-            dec_g[dc["order_g"] < 0] = _PAD_SENTINEL
-            dc["decoded_g"] = dec_g
-            dc["windows"] = "bf16"
-        elif win_i8:
-            # the grouped decode quantized with its own column scales (over
-            # every slot, padding included, as in JAX); the rescore reads
-            # codes_flat through order_g, so no grouped codes are kept.
-            # Padding is masked by each window's member count (vlen).
-            dc["decoded_g_i8"], dc["i8_scales_g"] = quantize_replica_i8(
-                self._tensor(ul["codes_grouped"]), dc["codewords"])
-            dc["vlen_g"] = self._tensor(ul["vlen"])
-            dc["windows"] = "int8"
-        else:
-            # uint8 code windows; padding is masked by each window's member
-            # count (vlen), as the window kernels read no norms
-            dc["codes_g"] = self._tensor(ul["codes_grouped"])
-            dc["vlen_g"] = self._tensor(ul["vlen"])
-            dc["windows"] = "pq"
-            # whether this build is on the kernel route: a later change of
-            # topk_recall keeps the cache, and IVF takes kernels D/E only
-            # when it was (rii_tpu's "pallas_cw"); add() keeps the key
-            dc["pq_kernel_route"] = self._use_kernels()
-            # the constant term of kernel E's per-batch ADC table
-            dc["cw_norms"] = codeword_norms(dc["codewords"])
+        kernels = self._use_kernels()
+        tier = window_tier(lin.tier, lin.cap, ul["total"], self.M * cw.shape[2],
+                           self.decoded_cache_budget, kernels)
+        # the int8 windows' column scales from their own rows, as in JAX;
+        # the pq windows remember whether the build was on the kernel route
+        # (a later change of topk_recall keeps the cache)
+        win = WindowStore.build(
+            ul, virtual_centers(cw, self._centers, ul["vreal"]), tier,
+            lin.codewords, device=self.device, codes_flat=lin.codes_flat,
+            scales_i8=column_scales_i8, kernel_route=kernels)
         self._sync()
         stats["windows_s"] = time.perf_counter() - t0
+        return win
 
 
 def estimate_best_threshold_function(e, queries):

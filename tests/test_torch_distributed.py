@@ -50,6 +50,12 @@ def _engine(n=3000, d=32, codec_cls=rii_tpu.PQ, topk_recall=None):
     return je, port_engine(je, topk_recall=topk_recall), X
 
 
+def _replicas(sr):
+    """Each linear chunk's bf16 replica (none on the code tiers)."""
+    return [lin.replica for ls in sr.linear for lin in ls
+            if lin.replica is not None]
+
+
 def _sets_equal(a, b):
     for ra, rb in zip(a, b):
         assert set(ra.tolist()) == set(rb.tolist())
@@ -80,7 +86,7 @@ def test_sharded_rii_opq():
 def test_sharded_rii_decoded_replica():
     je, te, X = _engine()
     s = ShardedRii(te, mesh=_mesh(), use_decoded=True)
-    assert s.decoded is not None and s.decoded_t is None
+    assert all(lin.form == "decoded_flat" for ls in s.linear for lin in ls)
     ids_s, d_s = s.query_batch(X[:8], topk=5)
     ids_e, d_e = te.query_batch(X[:8], topk=5, method="linear")
     assert_ranked_ids_match(ids_s, d_s, ids_e, d_e, rtol=RTOL)
@@ -159,9 +165,10 @@ def test_sharded_subset_ivf_full_coverage_matches_subset_linear(big_engine):
 def test_sharded_pq_mode_ivf_matches_linear_at_full_coverage(big_engine):
     je, te, X, tids = big_engine
     sr = ShardedRii(te, mesh=_mesh(), use_decoded=False)
-    assert sr.ivf is not None and sr.ivf["mode"] == "pq"
-    assert "codes_g" in sr.ivf and "decoded_g" not in sr.ivf  # memory-lean
-    assert sr.decoded is None and sr.decoded_t is None
+    assert sr.windows is not None and sr.tier == "pq"
+    held = sr.windows[0].tensors()
+    assert "codes_g" in held and "decoded_g" not in held  # memory-lean
+    assert _replicas(sr) == []
     ids_l, d_l = sr.query_batch(X[:8], topk=10)
     ids_i, d_i = sr.query_ivf_batch(X[:8], topk=10, L=te.N)
     _sets_equal(ids_l, ids_i)
@@ -236,16 +243,16 @@ def test_sharded_rii_never_builds_single_device_cache():
     """Neither the construction nor any query (method "auto" included)
     builds the engine's single-device cache."""
     je, te, X = _engine()
-    te._dc = None
+    te._stores = None
     s = ShardedRii(te, mesh=_mesh())
-    assert te._dc is None, "refresh() built the single-device cache"
+    assert te._stores is None, "refresh() built the single-device cache"
     s.query_batch(X[:4], topk=3)
     s.query_batch(X[:4], topk=3, method="auto")
     s.query_ivf_batch(X[:4], topk=3)
     tids = np.arange(0, 1000, dtype=np.int64)
     s.query_batch(X[:4], topk=3, target_ids=tids, method="auto")
     s.add(X[:16])
-    assert te._dc is None, "a sharded path built the single-device cache"
+    assert te._stores is None, "a sharded path built the single-device cache"
 
 
 def test_sharded_auto_with_unreconfigured_engine_falls_back_linear():
@@ -253,7 +260,7 @@ def test_sharded_auto_with_unreconfigured_engine_falls_back_linear():
     e2 = Rii(PQ(M=4, Ks=32, device="cpu").fit(X[:512], iter=3))
     e2.add(X, update_posting_lists=False)  # never reconfigured: no threshold
     s = ShardedRii(e2, mesh=_mesh())
-    assert s.ivf is None
+    assert s.windows is None
     ids, _ = s.query_batch(X[:4], topk=3, method="auto")
     assert ids.shape == (4, 3)
     assert (ids[:, 0] >= 0).all()
@@ -310,7 +317,7 @@ def test_sharded_reconfigure_bit_identical_to_single_device(recon_data, ndev):
     sr.reconfigure(nlist=40, iter=4)
     np.testing.assert_array_equal(e.coarse_centers, single.coarse_centers)
     assert e.posting_lists == single.posting_lists
-    assert sr.ivf is not None and e.threshold is not None
+    assert sr.windows is not None and e.threshold is not None
     assert set(e.last_reconfigure_stats) >= {"fit_s", "predict_s"}
 
 
@@ -404,11 +411,12 @@ def test_sharded_ivf_deterministic_coverage_adversarial_concentration(tier):
     je, q = _adversarial()
     te = port_engine(je, scan_mode="bf16", topk_recall=None)
     sr = ShardedRii(te, mesh=_mesh(), use_decoded=tier)
-    iv = sr.ivf
+    ws = sr.windows[0]
     wv = 8  # pow2(round(100 * nlist_v / N) + slack) at this shape
-    assert 2 * min(8 * wv, iv["nlist_v"]) * iv["cap_v"] < sr.cap  # no fallback
-    hot = torch.nonzero(torch.cat(iv["centers_norms_v"]) < 1).flatten()
-    assert len({int(v) // iv["nv_l"] for v in hot}) <= 2  # hot shards
+    assert 2 * min(8 * wv, ws.nlist_v) * ws.cap_v < sr.cap  # no fallback
+    hot = torch.nonzero(torch.cat([w.centers_norms_v for w in sr.windows])
+                        < 1).flatten()
+    assert len({int(v) // ws.n_win for v in hot}) <= 2  # hot shards
     ids_lin, d_lin = sr.query_batch(q, topk=10)
     ids_ivf, d_ivf = sr.query_ivf_batch(q, topk=10, L=100)
     assert_ranked_ids_match(ids_ivf, d_ivf, ids_lin, d_lin, rtol=RTOL)
@@ -479,11 +487,12 @@ def test_sharded_i8_window_mode_matches_linear_at_full_coverage():
     je.add_configure(X, nlist=48, iter=3)
     te = port_engine(je, scan_mode="pq", topk_recall=None)
     sr = ShardedRii(te, mesh=_mesh(), use_decoded="i8")
-    assert sr.ivf["mode"] == "i8" and sr.decoded is None
-    assert "decoded_g_i8" in sr.ivf and "codes_g" in sr.ivf
+    assert sr.tier == "int8" and _replicas(sr) == []
+    held = sr.windows[0].tensors()
+    assert "decoded_g_i8" in held and "codes_g" in held
     jsr = jpar.ShardedRii(je, use_decoded="i8")
     np.testing.assert_array_equal(
-        torch.cat(sr.ivf["decoded_g_i8"]).numpy(),
+        torch.cat([w.rows for w in sr.windows]).numpy(),
         np.asarray(jsr.ivf["decoded_g_i8"]))
     ids_l, d_l = sr.query_batch(X[:8], topk=10)
     ids_i, d_i = sr.query_ivf_batch(X[:8], topk=10, L=n)
@@ -558,11 +567,11 @@ def test_kernel_routes_through_twins(tier, monkeypatch):
     e.topk_recall = None
     exact = ShardedRii(e, mesh=_mesh(), use_decoded=tier)
     e.topk_recall = 0.99
-    assert (fast.decoded_t is not None) == (tier is True)
-    assert exact.decoded_t is None
+    assert (fast.linear[0][0].form == "decoded_t") == (tier is True)
+    assert exact.linear[0][0].form != "decoded_t"
     assert fast.cap % (8 * (16384 if tier is True else 1024)) == 0
-    iv = fast.ivf
-    assert 2 * 64 * iv["cap_v"] < fast.cap and iv["nlist_v"] > 64
+    ws = fast.windows[0]
+    assert 2 * 64 * ws.cap_v < fast.cap and ws.nlist_v > 64
     for method in ("linear", "ivf"):
         calls.clear()
         ids_f, d_f = fast.query_batch(q, topk=10, L=100, method=method)
@@ -609,8 +618,8 @@ def test_sharded_delta_add_no_rebuild_matches_full_refresh(tier):
     sr = ShardedRii(e, mesh=_mesh(), use_decoded=tier)
     q = np.ascontiguousarray(X[100:108])
     sr.query_batch(q, topk=5)
-    held = [t for t in (sr.codes + sr.norms + sr.ivf["order_g"]
-                        + sr.ivf["codes_g"] + (sr.decoded or []))]
+    held = (sr.codes + sr.norms + [w.order_g for w in sr.windows]
+            + [w.codes_g for w in sr.windows] + _replicas(sr))
     ptrs = [t.data_ptr() for t in held]
     n0, cap0 = e.N, sr.cap
 
@@ -618,8 +627,8 @@ def test_sharded_delta_add_no_rebuild_matches_full_refresh(tier):
 
     assert sr._n_dev == n0 + 256 and sr.cap == cap0
     assert sr._engine_version == e._version
-    now = (sr.codes + sr.norms + sr.ivf["order_g"] + sr.ivf["codes_g"]
-           + (sr.decoded or []))
+    now = (sr.codes + sr.norms + [w.order_g for w in sr.windows]
+           + [w.codes_g for w in sr.windows] + _replicas(sr))
     assert all(a is b for a, b in zip(now, held)), "the shards were rebuilt"
     assert [t.data_ptr() for t in now] == ptrs
     ref = ShardedRii(e, mesh=_mesh(), use_decoded=tier)
@@ -635,15 +644,18 @@ def test_sharded_delta_add_no_rebuild_matches_full_refresh(tier):
         np.testing.assert_array_equal(ids_a, ids_b)
         np.testing.assert_allclose(d_a, d_b, rtol=1e-6)
     for key in ("v_counts", "v_vstart", "v_capacity"):
-        np.testing.assert_array_equal(sr.ivf[key], ref.ivf[key])
+        np.testing.assert_array_equal(getattr(sr.windows[0], key),
+                                      getattr(ref.windows[0], key))
     # every scattered tensor equals the rebuilt one
     for key in ("order_g", "norms_g", "codes_g", "decoded_g", "decoded_g_i8",
                 "vlen_g"):
-        if key in ref.ivf:
-            assert torch.equal(torch.cat(sr.ivf[key]), torch.cat(ref.ivf[key])), key
+        held = [w.tensors().get(key) for w in ref.windows]
+        if held[0] is not None:
+            assert torch.equal(torch.cat([w.tensors()[key] for w in sr.windows]),
+                               torch.cat(held)), key
     for a, b in ((sr.codes, ref.codes), (sr.norms, ref.norms),
-                 (sr.decoded, ref.decoded)):
-        if b is not None:
+                 (_replicas(sr), _replicas(ref))):
+        if b:
             assert torch.equal(torch.cat(a), torch.cat(b))
     qn = np.ascontiguousarray(X[2048:2052])
     ids_n, _ = sr.query_ivf_batch(qn, topk=1, L=e.N)
@@ -660,8 +672,8 @@ def test_sharded_delta_add_without_update_invisible_to_ivf():
     ids_l, _ = sr.query_batch(qn, topk=1)
     assert (ids_l[:, 0] >= 2048).all()  # linear sees the new rows
     # the windows hold only the original members
-    assert int(sr.ivf["v_counts"].sum()) == 2048
-    assert int(torch.cat(sr.ivf["order_g"]).max()) < 2048
+    assert int(sr.windows[0].v_counts.sum()) == 2048
+    assert int(torch.cat([w.order_g for w in sr.windows]).max()) < 2048
 
 
 def test_sharded_delta_add_overflow_falls_back_to_refresh():

@@ -87,8 +87,8 @@ def test_exact_mode_matches(setup, method, subset):
 @pytest.mark.parametrize("subset", [None, 1000, 5000])
 def test_fast_mode_kernel_routes_match(setup, method, subset):
     je, te = setup["engines"]["fast"]
-    dc = te._ensure_cache()
-    assert "decoded_t" in dc and dc["windows"] == "bf16"
+    lin, win = te._ensure_cache()
+    assert lin.form == "decoded_t" and win.tier == "bf16"
     tids = None if subset is None else _subset(setup, subset)
     ij, dj = je.query_batch(setup["Q"], topk=10, method=method, target_ids=tids)
     it, dt = te.query_batch(setup["Q"], topk=10, method=method, target_ids=tids)
@@ -165,7 +165,7 @@ def test_add_after_configure_rebuilds_cache(setup):
     te.add_configure(X[:4000], nlist=NLIST, iter=3)
     te.query_batch(setup["Q"], topk=5)
     te.add(X[4000:])
-    assert te.N == N and te._dc is None
+    assert te.N == N and te._stores is None
     je = rii_tpu.Rii(setup["jpq"])
     je.topk_recall = None
     je.add_configure(X[:4000], nlist=NLIST, iter=3)
@@ -189,7 +189,7 @@ def test_unported_tiers_raise(setup, scan_mode, kernel):
     te.force_kernel_routing = True
     je.add_configure(setup["X"], nlist=NLIST, iter=3)
     te.add_configure(setup["X"], nlist=NLIST, iter=3)
-    assert "decoded_i8" in te._ensure_cache()
+    assert te._ensure_cache()[0].form == "decoded_i8"
     ij, dj = je.query_batch(setup["Q"], topk=5, method="linear")
     it, dt = te.query_batch(setup["Q"], topk=5, method="linear")
     assert_ranked_ids_match(it, dt, ij, dj, rtol=RESCORE_RTOL)
@@ -209,8 +209,8 @@ def test_ivf_falls_back_to_linear_before_the_window_tier_matters(setup):
     te.force_kernel_routing = True
     je.add_configure(X, nlist=NLIST, iter=3)
     te.add_configure(X, nlist=NLIST, iter=3)
-    dc = te._ensure_cache()
-    assert "decoded_t" in dc and dc["windows"] == "int8"
+    lin, win = te._ensure_cache()
+    assert lin.form == "decoded_t" and win.tier == "int8"
     ij, dj = je.query_batch(X[:256], topk=10, method="ivf")
     it, dt = te.query_batch(X[:256], topk=10, method="ivf")
     np.testing.assert_allclose(dt, dj, rtol=FAST_RTOL, atol=FAST_RTOL)
@@ -251,8 +251,8 @@ def test_int8_windows_raise_where_ivf_reads_them(setup, pq_setup, monkeypatch):
     te.force_kernel_routing = True
     je.add_configure(pq_setup["X"], nlist=PQ_NLIST, iter=3)
     te.add_configure(pq_setup["X"], nlist=PQ_NLIST, iter=3)
-    dc = te._ensure_cache()
-    assert "decoded_t" in dc and dc["windows"] == "int8"
+    lin, win = te._ensure_cache()
+    assert lin.form == "decoded_t" and win.tier == "int8"
     assert "decoded_g_i8" in je._ensure_cache()
     calls = []
     real = TI.ivf_i8_window_tile_minima
@@ -275,8 +275,8 @@ def test_pq_tier_kernel_routes_match(pq_setup, monkeypatch, method, subset,
     linear scan selects only (bf16-class distances), IVF rescores."""
     import rii_tpu_torch.ops.ivf as TI
     je, te = pq_setup["je"], pq_setup["te"]
-    dc = te._ensure_cache()
-    assert dc["mode"] == "pq" and "codes_t" in dc and dc["windows"] == "pq"
+    lin, win = te._ensure_cache()
+    assert lin.tier == "pq" and lin.form == "codes_t" and win.tier == "pq"
     calls = []
     real = TI.ivf_dt_window_tile_minima
     monkeypatch.setattr(TI, "ivf_dt_window_tile_minima",
@@ -321,14 +321,14 @@ def test_int8_tier_kernel_routes_match(i8_setup, monkeypatch, method, subset,
     exact-ADC distances."""
     import rii_tpu_torch.ops.hopper_i8 as HI
     import rii_tpu_torch.ops.ivf as TI
-    import rii_tpu_torch.rii as TR
+    import rii_tpu_torch.store as TS
     je, te = i8_setup["je"], i8_setup["te"]
-    dc = te._ensure_cache()
-    assert dc["mode"] == "int8" and "decoded_i8" in dc
-    assert dc["windows"] == "int8" and "codes_g" not in dc
+    lin, win = te._ensure_cache()
+    assert lin.tier == "int8" and lin.form == "decoded_i8"
+    assert win.tier == "int8" and win.codes_g is None
     calls = []
     for mod, name in ((TI, "ivf_i8_window_tile_minima"),
-                      (TR, "replica_i8_scan_topk_t")):
+                      (TS, "replica_i8_scan_topk_t")):
         real = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name, **k:
                             calls.append(_n) or _r(*a, **k))
@@ -353,13 +353,14 @@ def test_int8_windows_hold_what_jax_holds(i8_setup):
     port's replica row-major, the transpose of JAX's decoded_i8_t); the
     windows keep their own scales and member counts, and no grouped codes
     (the rescore reads codes_flat through order_g)."""
-    jdc, dc = i8_setup["je"]._ensure_cache(), i8_setup["te"]._ensure_cache()
-    assert "codes_g" not in jdc and "codes_g" not in dc
+    jdc, (lin, win) = i8_setup["je"]._ensure_cache(), i8_setup["te"]._ensure_cache()
+    assert "codes_g" not in jdc and win.codes_g is None
+    held = {**lin.tensors(), **win.tensors()}
     for key in ("i8_scales", "i8_scales_g", "decoded_g_i8", "vlen_g",
                 "order_g"):
-        np.testing.assert_array_equal(dc[key].numpy(), np.asarray(jdc[key]),
+        np.testing.assert_array_equal(held[key].numpy(), np.asarray(jdc[key]),
                                       err_msg=key)
-    np.testing.assert_array_equal(dc["decoded_i8"].numpy(),
+    np.testing.assert_array_equal(lin.replica.numpy(),
                                   np.asarray(jdc["decoded_i8_t"]).T)
 
 
@@ -377,14 +378,14 @@ def test_int8_window_budget_counts_the_int8_replica(setup):
     te.force_kernel_routing = True
     je.add_configure(setup["X"], nlist=NLIST, iter=3)
     te.add_configure(setup["X"], nlist=NLIST, iter=3)
-    jdc, dc = je._ensure_cache(), te._ensure_cache()
-    total = dc["nlist_v_pad"] * dc["cap_v"]
-    assert dc["cap"] * D <= budget < dc["cap"] * (D + 32) + total * D
+    jdc, (lin, win) = je._ensure_cache(), te._ensure_cache()
+    total = win.nlist_v_pad * win.cap_v
+    assert lin.cap * D <= budget < lin.cap * (D + 32) + total * D
     assert total * D <= budget  # what the old gate would have admitted
-    assert dc["mode"] == "int8" and "decoded_i8_t" in jdc
-    assert dc["windows"] == ("int8" if "decoded_g_i8" in jdc else "pq") == "pq"
+    assert lin.tier == "int8" and "decoded_i8_t" in jdc
+    assert win.tier == ("int8" if "decoded_g_i8" in jdc else "pq") == "pq"
     mem = te.memory_breakdown()
-    assert mem["device:decoded_i8"] == dc["cap"] * D <= budget
+    assert mem["device:decoded_i8"] == lin.cap * D <= budget
 
 
 @pytest.mark.parametrize("band,scan_mode,budget,replica,windows", [
@@ -421,7 +422,7 @@ def test_memory_breakdown_within_budget_at_int8_bands(setup, pq_setup, band,
     if windows != "codes_g":
         held += mt[f"device:{windows}"]
     assert held <= budget, band
-    tensors = [v for v in te._dc.values() if isinstance(v, torch.Tensor)]
+    tensors = [v for st in te._stores for v in st.tensors().values()]
     assert mt["device_total"] <= sum(v.numel() * v.element_size() for v in tensors)
     assert mt["device_total"] >= held
 
@@ -464,7 +465,7 @@ def test_wide_rowmajor_cache_takes_kernel_h(monkeypatch):
     same arrays: one candidate a 128-slot tile, rescored in exact ADC."""
     import jax.numpy as jnp
     from rii_tpu.ops import pallas_scan as P
-    from rii_tpu_torch import rii as port_rii
+    from rii_tpu_torch import store as port_store
 
     rng = np.random.RandomState(4)
     cw = rng.random((8, 16, 65)).astype(np.float32)
@@ -479,20 +480,20 @@ def test_wide_rowmajor_cache_takes_kernel_h(monkeypatch):
     e.add_codes(codes)
     e.reconfigure(nlist=4, iter=2)
     e.query_batch(q, topk=5, method="linear")
-    dc = e._ensure_cache()
-    assert "decoded_flat" in dc
+    lin = e._ensure_cache()[0]
+    assert lin.form == "decoded_flat"
     calls = []
-    real = port_rii.replica_scan_topk
-    monkeypatch.setattr(port_rii, "replica_scan_topk",
+    real = port_store.replica_scan_topk
+    monkeypatch.setattr(port_store, "replica_scan_topk",
                         lambda *a, **kw: calls.append(1) or real(*a, **kw))
     e.topk_recall = 0.99
     ids, dists = e.query_batch(q, topk=5, method="linear")
     assert calls == [1]
     d_j, i_j = P.replica_scan_topk(
-        jnp.asarray(q), jnp.asarray(dc["decoded_flat"].float().numpy()).astype(jnp.bfloat16),
-        jnp.asarray(dc["norms_flat"].numpy()[:, None]), topk=5,
-        blk=min(8192, dc["cap"]), interpret=True, recall_target=None,
-        packed=True, codes=jnp.asarray(dc["codes_flat"].numpy()),
-        codewords=jnp.asarray(dc["codewords"].float().numpy()))
+        jnp.asarray(q), jnp.asarray(lin.replica.float().numpy()).astype(jnp.bfloat16),
+        jnp.asarray(lin.norms_flat.numpy()[:, None]), topk=5,
+        blk=min(8192, lin.cap), interpret=True, recall_target=None,
+        packed=True, codes=jnp.asarray(lin.codes_flat.numpy()),
+        codewords=jnp.asarray(lin.codewords.float().numpy()))
     assert_ranked_ids_match(ids, dists, np.asarray(i_j), np.asarray(d_j),
                             rtol=RESCORE_RTOL)

@@ -35,7 +35,7 @@ import pytest
 import rii_tpu
 from rii_tpu.ops import pallas_scan as P
 from rii_tpu_torch import PQ, Rii
-from rii_tpu_torch import rii as port_rii
+from rii_tpu_torch import store as port_store
 
 from _torch_parity import assert_ranked_ids_match
 
@@ -85,25 +85,25 @@ def _oracle(je, q, tids=None, rescore=True):
 def h_calls(monkeypatch):
     """Counts the engine's calls of the port's replica_scan_topk."""
     calls = []
-    real = port_rii.replica_scan_topk
+    real = port_store.replica_scan_topk
 
     def counted(*args, **kw):
         calls.append(args[0].shape[0])
         return real(*args, **kw)
 
-    monkeypatch.setattr(port_rii, "replica_scan_topk", counted)
+    monkeypatch.setattr(port_store, "replica_scan_topk", counted)
     return calls
 
 
 def test_exact_first_query_keeps_the_rowmajor_replica():
     je, te, _, _ = _engines(2000)
-    for e in (je, te):
-        dc = e._ensure_cache()
-        assert dc["mode"] == "bf16" and "decoded_flat" in dc
-        assert "decoded_t" not in dc
+    jdc, lin = je._ensure_cache(), te._ensure_cache()[0]
+    assert jdc["mode"] == "bf16" and "decoded_flat" in jdc
+    assert "decoded_t" not in jdc
+    assert lin.tier == "bf16" and lin.form == "decoded_flat"
     np.testing.assert_array_equal(
-        np.asarray(je._ensure_cache()["decoded_flat"].astype(jnp.float32)),
-        te._ensure_cache()["decoded_flat"].float().numpy())
+        np.asarray(jdc["decoded_flat"].astype(jnp.float32)),
+        lin.replica.float().numpy())
 
 
 @pytest.mark.parametrize("qn,rtol", [(16, RESCORE_RTOL), (512, SELECT_RTOL)],
@@ -157,18 +157,18 @@ def test_pq_windows_take_kernels_d_e_only_on_a_kernel_route_cache(
     answers in the bf16 class with rii_tpu's nearest neighbours."""
     import rii_tpu_torch.ops.hopper_pq as HP
     je, te, q = _pq_engines(exact_build)
-    dc = te._ensure_cache()
-    assert dc["mode"] == "pq" and dc["windows"] == "pq"
-    assert dc["pq_kernel_route"] is not exact_build
+    lin, win = te._ensure_cache()
+    assert lin.tier == "pq" and win.tier == "pq"
+    assert win.kernel_route is not exact_build
     assert ("pallas_cw" in je._ensure_cache()) is not exact_build
     routes = []
-    real = port_rii.ivf_union_scan_topk_pq
+    real = port_store._union_topk
 
     def counted(*args, **kw):
         routes.append(kw["use_kernel"])
         return real(*args, **kw)
 
-    monkeypatch.setattr(port_rii, "ivf_union_scan_topk_pq", counted)
+    monkeypatch.setattr(port_store, "_union_topk", counted)
     launches = (HP.ivf_dt_window_tile_minima.launches,
                 HP.ivf_pq_window_tile_minima.launches)
     ij, dj = je.query_batch(q, topk=TOPK, L=100, method="ivf")

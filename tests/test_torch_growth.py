@@ -19,8 +19,10 @@ import torch
 
 import rii_tpu
 from rii_tpu_torch import PQ, Rii
+from rii_tpu_torch import store as store_mod
 from rii_tpu_torch.ops.decode import onehot_decode
 from rii_tpu_torch.ops.hopper_i8 import quantize_rows_i8
+from rii_tpu_torch.parallel import ShardedRii, make_mesh
 
 D = 32
 FAST_RTOL = 3e-2
@@ -66,33 +68,34 @@ def test_incremental_add_keeps_cache_and_matches_rebuild(cw, tier):
     X1, X2 = _data(21, 3000, 200)
     e = _engine(cw, tier)
     e.add_configure(X1, nlist=40)
-    dc = e._ensure_cache()
-    assert TIERS[tier] in dc
+    st = e._ensure_cache()
+    lin, win = st
+    assert lin.form == TIERS[tier]
     e.add(X2)  # auto -> update_posting_lists=True
-    assert e._dc is dc and dc["version"] == e._version
-    assert dc["n_dev"] == 3200
+    assert e._stores is st and lin.version == e._version
+    assert lin.n_dev == 3200
 
     r = _engine(cw, tier)
     r.add_configure(X1, nlist=40)
     r.add(X2)
-    assert r._dc is None  # no cache yet: the first query builds it whole
+    assert r._stores is None  # no cache yet: the first query builds it whole
     qs = np.ascontiguousarray(np.concatenate([X1[:4], X2[:4]]))
     ids_e, d_e = e.query_batch(qs, topk=10, method="linear")
     ids_r, d_r = r.query_batch(qs, topk=10, method="linear")
     np.testing.assert_array_equal(ids_e, ids_r)
     np.testing.assert_array_equal(d_e, d_r)
-    rc = r._ensure_cache()
-    for key in ("codes_flat", "norms_flat", TIERS[tier]):
-        assert torch.equal(e._dc[key], rc[key]), key
+    rc = r._ensure_cache()[0].tensors()
+    for key, t in lin.tensors().items():
+        if key != "codewords":
+            assert torch.equal(t, rc[key]), key
     # the windows hold every id once (the rebuild lays them out anew)
-    og = e._dc["order_g"]
+    og = win.order_g
     assert sorted(og[og >= 0].tolist()) == list(range(3200))
-    if "decoded_g_i8" in e._dc:  # each id's window row: its quantized decode
+    if win.tier == "int8":  # each id's window row: its quantized decode
         live = og[og >= 0].long()
-        dec = onehot_decode(e._dc["codes_flat"][live], e._dc["codewords"],
-                            torch.bfloat16)
-        assert torch.equal(e._dc["decoded_g_i8"][og >= 0],
-                           quantize_rows_i8(dec, e._dc["i8_scales_g"]))
+        dec = onehot_decode(lin.codes_flat[live], lin.codewords, torch.bfloat16)
+        assert torch.equal(win.rows[og >= 0],
+                           quantize_rows_i8(dec, win.i8_scales_g))
     assert sum(len(p) for p in e.posting_lists) == 3200
 
     je = _jax_engine(cw, tier)
@@ -105,6 +108,41 @@ def test_incremental_add_keeps_cache_and_matches_rebuild(cw, tier):
 
 
 @pytest.mark.parametrize("tier", list(TIERS))
+def test_sharded_incremental_add_matches_rebuild(cw, tier):
+    """ShardedRii's add() scatters into its live shards (the linear chunks'
+    and each shard's window store's tensors, in place) and then holds what
+    a fresh refresh() of the same engine holds, and answers as it does."""
+    X1, X2 = _data(21, 3000, 200)
+    use_decoded = {"bf16": True, "int8": "i8", "pq": False}[tier]
+    e = _engine(cw, tier)
+    e.add_configure(X1, nlist=40)
+    sr = ShardedRii(e, mesh=make_mesh(4, device="cpu"), use_decoded=use_decoded)
+    assert sr.tier == tier and all(w.tier == tier for w in sr.windows)
+    stores = [*sr.windows, *(lin for ls in sr.linear for lin in ls)]
+    sr.add(X2)  # auto -> update_posting_lists=True
+    assert sr._n_dev == 3200 and sr._engine_version == e._version
+    now = [*sr.windows, *(lin for ls in sr.linear for lin in ls)]
+    assert all(a is b for a, b in zip(now, stores))  # no refresh
+
+    ref = ShardedRii(e, mesh=make_mesh(4, device="cpu"), use_decoded=use_decoded)
+    for a, b in zip(sr.windows + [x for ls in sr.linear for x in ls],
+                    ref.windows + [x for ls in ref.linear for x in ls]):
+        ta, tb = a.tensors(), b.tensors()
+        assert ta.keys() == tb.keys()
+        for key in ta:
+            assert torch.equal(ta[key], tb[key]), key
+    for key in ("v_counts", "v_vstart", "v_capacity"):
+        np.testing.assert_array_equal(getattr(sr.windows[0], key),
+                                      getattr(ref.windows[0], key))
+    qs = np.ascontiguousarray(np.concatenate([X1[:4], X2[:4]]))
+    for method in ("linear", "ivf"):
+        ids_a, d_a = sr.query_batch(qs, topk=10, L=400, method=method)
+        ids_b, d_b = ref.query_batch(qs, topk=10, L=400, method=method)
+        np.testing.assert_array_equal(ids_a, ids_b)
+        np.testing.assert_array_equal(d_a, d_b)
+
+
+@pytest.mark.parametrize("tier", list(TIERS))
 def test_incremental_add_finds_new_ids_through_ivf(cw, tier):
     """The new rows join their posting lists: an IVF batch that stays off
     the linear scan finds them (exact mode: Q is not padded, so a one-query
@@ -112,12 +150,12 @@ def test_incremental_add_finds_new_ids_through_ivf(cw, tier):
     X1, X2 = _data(22, 3000, 200)
     e = _engine(cw, tier, exact=tier != "int8")
     e.add_configure(X1, nlist=40)
-    dc = e._ensure_cache()
+    win = e._ensure_cache()[1]
     if tier == "int8":  # the add scatters into the int8 windows
-        assert dc["windows"] == "int8"
+        assert win.tier == "int8"
     e.topk_recall = None
     e.add(X2)
-    assert e._dc is not None
+    assert e._stores is not None
     dec = e.fine_quantizer.decode(e.codes[3000:3008])  # at distance 0
     hits = [3000 + i in e.query(dec[i], topk=5, L=100, method="ivf")[0]
             for i in range(8)]
@@ -131,10 +169,10 @@ def test_incremental_add_overflow_falls_back_to_rebuild(cw, tier):
     e.add_configure(X1, nlist=30)
     e._ensure_cache()
     e.add(X2)
-    assert e._dc is None
+    assert e._stores is None
     ids, _ = e.query(X2[11], topk=3, method="linear")
     assert 2011 in ids
-    assert e._ensure_cache()["n_dev"] == 5000
+    assert e._ensure_cache()[0].n_dev == 5000
 
 
 @pytest.mark.parametrize("tier", list(TIERS))
@@ -145,7 +183,7 @@ def test_add_without_update_is_invisible_to_ivf_until_reconfigure(cw, tier):
     e._ensure_cache()
     e.topk_recall = None
     e.add(X2, update_posting_lists=False)
-    assert e._dc is not None  # a linear-only scatter keeps the cache
+    assert e._stores is not None  # a linear-only scatter keeps the cache
     assert 3005 in e.query(X2[5], topk=3, method="linear")[0]
     assert sum(len(p) for p in e.posting_lists) == 3000
     assert 3005 not in e.query(X2[5], topk=3, L=100, method="ivf")[0]
@@ -160,11 +198,11 @@ def test_empty_add_keeps_cache(cw, tier):
     e = _engine(cw, tier)
     e.add_configure(X, nlist=30)
     e.query_batch(X[:2], topk=3)
-    dc = e._dc
+    st = e._stores
     e.add(np.zeros((0, D), np.float32))
-    assert e._dc is dc and dc["version"] == e._version
+    assert e._stores is st and st[0].version == e._version
     ids, _ = e.query_batch(X[:2], topk=3)
-    assert e._dc is dc
+    assert e._stores is st
     assert ids[0, 0] == 0 and ids[1, 0] == 1
 
 
@@ -175,13 +213,13 @@ def test_reserve_keeps_cache_beyond_pow2(cw, tier):
     e0.add_configure(X1, nlist=32)
     e0._ensure_cache()
     e0.add(X2)
-    assert e0._dc is None
+    assert e0._stores is None
 
     e = _engine(cw, tier).reserve(2048 + 1024)
     e.add_configure(X1, nlist=32)
-    assert e._ensure_cache()["cap"] >= 2048 + 1024
+    assert e._ensure_cache()[0].cap >= 2048 + 1024
     e.add(X2)
-    assert e._dc is not None and e._dc["n_dev"] == 2648
+    assert e._stores is not None and e._stores[0].n_dev == 2648
     q = np.ascontiguousarray(X2[:8])
     ids_a, d_a = e.query_batch(q, topk=5, method="linear")
     ids_b, d_b = e0.query_batch(q, topk=5, method="linear")
@@ -196,43 +234,37 @@ def test_reserve_scales_window_headroom(cw, tier):
     e.add_configure(X1, nlist=32)
     e._ensure_cache()
     e.add(X2, update_posting_lists=True)
-    assert e._dc is not None
-    assert int(e._dc["v_counts"].sum()) == 2900
+    assert e._stores is not None
+    win = e._stores[1]
+    assert int(win.v_counts.sum()) == 2900
     if tier != "bf16":  # the pq and int8 windows' member counts follow
-        vl = e._dc["vlen_g"].numpy()
-        assert vl.sum() == 2900 and (vl <= e._dc["cap_v"]).all()
+        vl = win.vlen_g.numpy()
+        assert vl.sum() == 2900 and (vl <= win.cap_v).all()
 
 
 @pytest.mark.parametrize("tier", list(TIERS))
 def test_failed_scatter_drops_cache(cw, tier, monkeypatch):
-    """A scatter failing part way drops the cache (never half-written) and
-    the add itself stands."""
+    """A scatter failing part way drops both stores (never half-written)
+    and the add itself stands."""
     X1, X2 = _data(37, 3000, 100)
     e = _engine(cw, tier)
     e.add_configure(X1, nlist=40)
     e._ensure_cache()
-    real_apply = e._apply_add_to_cache
-    real_set = torch.Tensor.__setitem__
+    real_set = store_mod._set_rows
     calls = [0]
 
-    def flaky(arr, idx, rows):
+    def flaky(t, idx, rows):
         calls[0] += 1
         if calls[0] == 2:  # fail after the first scatter landed
             raise RuntimeError("out of memory (injected)")
-        return real_set(arr, idx, rows)
+        return real_set(t, idx, rows)
 
-    def apply_flaky(*args):
-        # every cache write of the add is an index assignment
-        monkeypatch.setattr(torch.Tensor, "__setitem__", flaky)
-        try:
-            return real_apply(*args)
-        finally:
-            monkeypatch.setattr(torch.Tensor, "__setitem__", real_set)
-
-    monkeypatch.setattr(e, "_apply_add_to_cache", apply_flaky)
+    # every row write of the add goes through store._set_rows
+    monkeypatch.setattr(store_mod, "_set_rows", flaky)
     e.add(X2)
+    monkeypatch.setattr(store_mod, "_set_rows", real_set)
     assert calls[0] == 2
-    assert e._dc is None and e.N == 3100
+    assert e._stores is None and e.N == 3100
     assert 3005 in e.query(X2[5], topk=3, method="linear")[0]
 
 
@@ -243,7 +275,7 @@ def test_clear_then_rebuild(cw, tier):
     e.add_configure(X1, nlist=20)
     e.query_batch(X1[:2], topk=3)
     e.clear()
-    assert e.N == 0 and e.nlist == 0 and e.threshold is None and e._dc is None
+    assert e.N == 0 and e.nlist == 0 and e.threshold is None and e._stores is None
     assert e.codewords is not None
     with pytest.raises(RuntimeError):
         e.add(X2, update_posting_lists=True)
@@ -267,7 +299,7 @@ def test_merge(cw, tier):
     e1._ensure_cache()
     e2.add(X2)
     e1.merge(e2)
-    assert e1.N == 3250 and e1._dc is not None  # merged in O(batch)
+    assert e1.N == 3250 and e1._stores is not None  # merged in O(batch)
     np.testing.assert_array_equal(e1.codes[3000:], e2.codes)
     j1 = _jax_engine(cw, tier)
     j2 = rii_tpu.Rii(rii_tpu.PQ.from_codewords(cw))

@@ -61,8 +61,8 @@ def setup():
     e.scan_mode = "int8"
     e.force_kernel_routing = True
     e.add_configure(base.numpy(), nlist=NLIST, iter=3)
-    dc = e._ensure_cache()
-    assert dc["mode"] == "int8" and "decoded_i8" in dc
+    lin = e._ensure_cache()[0]
+    assert lin.tier == "int8" and lin.form == "decoded_i8"
     return e, queries
 
 

@@ -99,8 +99,7 @@ same(lin, ref.query_batch(q, topk=5))
 # the single-device engine's distances, not its ids among the ties
 np.testing.assert_allclose(lin[1], e.query_batch(q, topk=5, method="linear")[1],
                            rtol=1e-5)
-iv = sr.ivf
-assert 2 * 64 * iv["cap_v"] < sr.cap  # IVF below scans windows
+assert 2 * 64 * sr.windows[0].cap_v < sr.cap  # IVF below scans windows
 same(sr.query_ivf_batch(q, topk=5, L=100), ref.query_ivf_batch(q, topk=5, L=100))
 sub = sr.query_batch(q, topk=5, target_ids=tids)
 same(sub, ref.query_batch(q, topk=5, target_ids=tids))
@@ -110,12 +109,12 @@ same(sr.query_ivf_batch(q, topk=5, L=100, target_ids=tids),
 
 # O(batch) delta add across processes: each process places the rows its
 # shards own, in place; the new rows are found
-held = [c.data_ptr() for c in sr.codes + sr.ivf["codes_g"]]
+held = [c.data_ptr() for c in sr.codes + [w.codes_g for w in sr.windows]]
 # new rows away from the old ones, so that the nearest row of each is new
 X2 = (4 + rng.random((128, 32))).astype(np.float32)
 sr.add(X2, update_posting_lists=True)
 assert sr._n_dev == n + 128 and sr._engine_version == e._version
-assert [c.data_ptr() for c in sr.codes + sr.ivf["codes_g"]] == held, "rebuilt"
+assert [c.data_ptr() for c in sr.codes + [w.codes_g for w in sr.windows]] == held, "rebuilt"
 ids_n, _ = sr.query_batch(X2[:4], topk=1)
 assert (ids_n[:, 0] >= n).all()
 fresh = single(e)

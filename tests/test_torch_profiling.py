@@ -177,16 +177,16 @@ def test_union_rows_counts_the_unions_live_rows(span_engine):
                                              L=e.L0))
     root = [s for s in out if s.parent is None][0]
     assert root.attrs["route"] == "ivf"
-    dc = e._ensure_cache()
-    assert dc["windows"] == "pq" and not dc["pq_kernel_route"]
-    wv = e._probe_width_virtual(e.L0, None, dc)
+    win = e._ensure_cache()[1]
+    assert win.tier == "pq" and not win.kernel_route
+    wv = e._probe_width_virtual(e.L0, None, win)
     qt = torch.tensor(q)
-    scores = dc["centers_norms_v"][None, :] - 2.0 * (
+    scores = win.centers_norms_v[None, :] - 2.0 * (
         qt.to(torch.bfloat16).float()
-        @ dc["centers_dec_v"].to(torch.bfloat16).float().T)
+        @ win.centers_dec_v.to(torch.bfloat16).float().T)
     probes = torch.sort(scores, dim=1, stable=True).indices[:, :wv]
     windows = torch.unique(probes)
-    assert root.attrs["union_rows"] == int(dc["vlen_g"][windows].sum())
+    assert root.attrs["union_rows"] == int(win.vlen_g[windows].sum())
     assert 0 < root.attrs["union_rows"] < e.N
 
 

@@ -176,7 +176,7 @@ def kernel_route_engine():
     e.force_kernel_routing = True
     e.add_configure(X, nlist=200, iter=2)
     e.query_batch(X[:1], topk=3)  # the cache
-    assert e._ensure_cache()["pq_kernel_route"]
+    assert e._ensure_cache()[1].kernel_route
     return e, X
 
 

@@ -84,9 +84,8 @@ def test_save_load_unbuilt(tmp_path):
     assert e2.N == 1000
 
 
-def _cache_arrays(dc):
-    return {k: v.float().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-            for k, v in dc.items()
+def _cache_arrays(stores):
+    return {k: v.float().numpy() for st in stores for k, v in st.tensors().items()
             if k in ("order_g", "norms_g", "vlen_g", "codes_g", "codes_flat",
                      "norms_flat", "centers_norms_v", "decoded_g", "decoded_g_i8",
                      "i8_scales_g")}
@@ -105,7 +104,7 @@ def test_v2_layout_adoption_identical_cache(tmp_path, windows):
     q = X[:8]
     ids1, d1 = e1.query_batch(q, topk=5, method="ivf", L=400)
     assert e1.last_cache_build_stats["adopted_layout"] is False
-    assert e1._ensure_cache()["windows"] == windows
+    assert e1._ensure_cache()[1].tier == windows
     save_index(e1, str(tmp_path / "idx"))
     e2 = load_index(str(tmp_path / "idx"), device="cpu")
     e2.force_kernel_routing = e1.force_kernel_routing
@@ -117,15 +116,17 @@ def test_v2_layout_adoption_identical_cache(tmp_path, windows):
     assert e2.last_cache_build_stats["adopted_layout"] is True
     np.testing.assert_array_equal(ids1, ids2)
     np.testing.assert_array_equal(d1, d2)
-    dc1, dc2 = e1._ensure_cache(), e2._ensure_cache()
-    a1, a2 = _cache_arrays(dc1), _cache_arrays(dc2)
+    st1, st2 = e1._ensure_cache(), e2._ensure_cache()
+    a1, a2 = _cache_arrays(st1), _cache_arrays(st2)
     assert sorted(a1) == sorted(a2) and "order_g" in a1
     for key in a1:
         np.testing.assert_array_equal(a1[key], a2[key])
-    for key in ("cap_v", "nlist_v", "nlist_v_pad", "cap", "windows"):
-        assert dc1[key] == dc2[key], key
-    np.testing.assert_array_equal(dc1["v_counts"], dc2["v_counts"])
-    np.testing.assert_array_equal(dc1["v_capacity"], dc2["v_capacity"])
+    (lin1, win1), (lin2, win2) = st1, st2
+    assert lin1.cap == lin2.cap
+    for key in ("cap_v", "nlist_v", "nlist_v_pad", "tier"):
+        assert getattr(win1, key) == getattr(win2, key), key
+    np.testing.assert_array_equal(win1.v_counts, win2.v_counts)
+    np.testing.assert_array_equal(win1.v_capacity, win2.v_capacity)
 
 
 def test_v2_adoption_invalidated_by_mutation(tmp_path):
@@ -245,9 +246,9 @@ def test_port_directory_loads_in_rii_tpu(tmp_path, pair, method):
     ij, dj = je.query_batch(q, topk=10, method=method, L=400)
     np.testing.assert_array_equal(i2, ij)
     np.testing.assert_array_equal(d2, dj)
-    dcj, dct = j2._ensure_cache(), te._ensure_cache()
+    dcj, win = j2._ensure_cache(), te._ensure_cache()[1]
     np.testing.assert_array_equal(np.asarray(dcj["order_g"]),
-                                  dct["order_g"].numpy())
+                                  win.order_g.numpy())
     it, dt = te.query_batch(q, topk=10, method=method, L=400)
     assert_ranked_ids_match(it, dt, i2, d2, EXACT_RTOL)
 
@@ -313,7 +314,7 @@ def test_pickle_round_trip():
     e1.add(X[:100])  # a second chunk: the pickle consolidates
     ids1, d1 = e1.query_batch(X[:8], topk=5)
     e2 = pickle.loads(pickle.dumps(e1))
-    assert e2._dc is None and e2.device == e1.device
+    assert e2._stores is None and e2.device == e1.device
     assert e2.fine_quantizer == e1.fine_quantizer
     assert e2.fine_quantizer.device == e1.fine_quantizer.device
     ids2, d2 = e2.query_batch(X[:8], topk=5)

@@ -303,7 +303,7 @@ def test_concurrent_cold_cache_builds_once():
     X = np.random.RandomState(3).random((3000, 32)).astype(np.float32)
     e = Rii(PQ(M=4, Ks=32, device="cpu").fit(X[:1000], iter=2))
     e.add_configure(X, nlist=40, iter=2)
-    assert e._dc is None  # nothing has queried it yet
+    assert e._stores is None  # nothing has queried it yet
     calls = []
     orig = Rii._build_cache
 

@@ -159,7 +159,7 @@ def test_rii_results_consistent_with_sharded_scan():
     e.add_configure(vecs=x, nlist=16)
     q = x[:4]
     ids_e, dists_e = e.query_batch(q, topk=5, method="linear")
-    cap = e._ensure_cache()["cap"]
+    cap = e._ensure_cache()[0].cap
     codes_pad = np.zeros((cap, codes.shape[1]), np.uint8)
     codes_pad[:len(codes)] = e.codes
     norms_pad = np.full(cap, np.inf, np.float32)
@@ -175,7 +175,7 @@ def test_sharded_ivf_matches_linear_at_full_coverage():
     jnp, rii_tpu, jpar = _jax()
     je, te, x, rng = _ivf_pair(11)
     sr = ShardedRii(te, mesh=_mesh(), use_decoded=True)
-    assert sr.ivf is not None and sr.ivf["mode"] == "bf16"
+    assert sr.windows is not None and sr.tier == "bf16"
     jsr = jpar.ShardedRii(je, use_decoded=True)
     q = x[rng.choice(4096, 8, replace=False)]
     ids_l, d_l = sr.query_batch(q, topk=10)
@@ -219,7 +219,7 @@ def test_sharded_rescore_distances_are_exact_adc():
     e.scan_mode = "bf16"
     e.add_configure(vecs=x, nlist=16)
     sr = ShardedRii(e, mesh=_mesh(), use_decoded=True)
-    assert sr.decoded is not None
+    assert sr.linear[0][0].form == "decoded_flat"
     q = x[:6]
     ids, dists = sr.query_batch(q, topk=5)
     for i in range(len(q)):
@@ -242,7 +242,7 @@ def test_four_shard_cuda_mesh_matches_cuda_engine():
     e.scan_mode = "bf16"
     e.add_configure(x, nlist=64)
     sr = ShardedRii(e, mesh=make_mesh(4, device="cuda"), use_decoded=True)
-    assert sr.decoded_t is not None and sr.ivf["mode"] == "bf16"
+    assert sr.linear[0][0].form == "decoded_t" and sr.tier == "bf16"
     q = (x[:32] + rng.normal(0, 0.01, (32, 128))).astype(np.float32)
     ids_s, d_s = sr.query_batch(q, topk=10)
     ids_e, d_e = e.query_batch(q, topk=10, method="linear")

@@ -16,8 +16,8 @@ import threading
 import numpy as np
 import pytest
 
-import rii_tpu_torch.parallel.distributed as dist_mod
 import rii_tpu_torch.rii as rii_mod
+import rii_tpu_torch.store as store_mod
 from rii_tpu_torch import PQ, QueryServer, Rii
 from rii_tpu_torch.parallel import ShardedRii, make_mesh
 
@@ -81,7 +81,7 @@ def test_queries_race_incremental_adds(base):
         _join_all(readers)
     assert not errors, errors
     assert e.N == N + 2000
-    assert e._dc is not None and e._dc["version"] == e._version  # scattered
+    assert e._stores is not None and e._stores[0].version == e._version  # scattered
 
     ref = Rii(pq)
     ref.add(X[:N], update_posting_lists=False)
@@ -215,7 +215,8 @@ def test_external_reconfigure_then_sharded_add_self_heals():
     e2.add(X2, update_posting_lists=True)
     sr2 = ShardedRii(e2, mesh=_mesh())
     for key in ("v_counts", "v_vstart"):
-        np.testing.assert_array_equal(sr.ivf[key], sr2.ivf[key])
+        np.testing.assert_array_equal(getattr(sr.windows[0], key),
+                                      getattr(sr2.windows[0], key))
     q = X2[:8]
     for kw in ({}, {"method": "ivf", "L": e.N}):
         ids_a, d_a = sr.query_batch(q, topk=10, **kw)
@@ -393,7 +394,7 @@ def test_sharded_failed_scatter_rebuilds(monkeypatch):
     e.add_configure(X1, nlist=32, iter=3)
     sr = ShardedRii(e, mesh=_mesh())
     codes0 = list(sr.codes)
-    real = dist_mod._set_rows
+    real = store_mod._set_rows
     calls = [0]
 
     def flaky(t, idx, rows):
@@ -402,9 +403,9 @@ def test_sharded_failed_scatter_rebuilds(monkeypatch):
             raise RuntimeError("CUDA out of memory (injected)")
         return real(t, idx, rows)
 
-    monkeypatch.setattr(dist_mod, "_set_rows", flaky)
+    monkeypatch.setattr(store_mod, "_set_rows", flaky)
     sr.add(X2)
-    monkeypatch.setattr(dist_mod, "_set_rows", real)
+    monkeypatch.setattr(store_mod, "_set_rows", real)
     assert calls[0] >= 2
     assert sr._n_dev == e.N == 2176
     assert sr._engine_version == e._version
@@ -474,7 +475,7 @@ def deep_engine():
 def test_deep1b_config_sharded_linear_and_ivf(deep_engine):
     e, X = deep_engine
     sr = ShardedRii(e, mesh=_mesh(), use_decoded=True)
-    assert sr.ivf is not None and sr.decoded is not None
+    assert sr.windows is not None and sr.tier == "bf16"
     qs = X[:8]
     ids_l, d_l = sr.query_batch(qs, topk=10)
     assert (ids_l[:, 0] == np.arange(8)).all()  # self-hit at rank 1

@@ -7,13 +7,21 @@ then ``last_reconfigure_stats`` and ``last_cache_build_stats`` hold
 rii_tpu's keys, and a loaded layout is adopted only by a first cache build
 that no mutation preceded."""
 
+import functools
+
 import numpy as np
 import pytest
 
 import rii_tpu
+import rii_tpu.parallel as jpar
+import rii_tpu.rii as jax_rii
 from rii_tpu_torch import OPQ, PQ, Rii
+from rii_tpu_torch.parallel import ShardedRii, make_mesh
 from rii_tpu_torch.rii import estimate_best_threshold_function
+from rii_tpu_torch.store import WindowStore
 from rii_tpu_torch.utils.serialization import load_index, save_index
+
+from _torch_parity import port_engine
 
 
 def _engine(n=600, d=32):
@@ -93,6 +101,75 @@ def test_auto_policy_batch_aware_union_cost_model():
     L = e.L0
     assert not e._use_linear(N, L, qn=1)
     assert e._use_linear(N, L, qn=4096)
+
+
+class _Took(Exception):
+    """Raised where a query's route is decided: its argument names it."""
+
+
+def _raise(route):
+    def took(*args, **kw):
+        raise _Took(route)
+    return took
+
+
+def _route(run, engine, linear_entry):
+    """"linear" where ``run()`` reaches ``engine``'s linear entry, "ivf"
+    where it reaches the window scan (both abort the query)."""
+    setattr(engine, linear_entry, _raise("linear"))
+    try:
+        run()
+    except _Took as took:
+        return str(took)
+    finally:
+        delattr(engine, linear_entry)
+    raise AssertionError("the query took neither route")
+
+
+@functools.lru_cache(maxsize=None)
+def _route_engines():
+    """rii_tpu's engine and sharded engine (eight CPU shards), the port's
+    over the same arrays: N=16000, nlist=400, each cache built."""
+    X = np.random.RandomState(9).random((16000, 32)).astype(np.float32)
+    je = rii_tpu.Rii(rii_tpu.PQ(M=4, Ks=32).fit(X[:1000], iter=3))
+    je.add_configure(X, nlist=400, iter=3)
+    te = port_engine(je)
+    te.threshold = je.threshold
+    for e in (je, te):
+        e._ensure_cache()
+    jsr = jpar.ShardedRii(je, use_decoded=False)
+    tsr = ShardedRii(te, mesh=make_mesh(8, device="cpu"), use_decoded=False)
+    return je, te, jsr, tsr, X
+
+
+@pytest.mark.parametrize("qn", [1, 4, 16, 512])
+@pytest.mark.parametrize("l0s", [0.25, 1, 8])
+def test_routes_match_rii_tpu(monkeypatch, qn, l0s):
+    """Over a grid of (Q, L, |S|), Rii and ShardedRii take rii_tpu's
+    routes: the auto method's linear-or-IVF choice and, on the IVF path,
+    the fallback of a union that covers half the index to the linear
+    scan."""
+    je, te, jsr, tsr, X = _route_engines()
+    for name in ("ivf_union_scan_topk", "ivf_union_scan_topk_i8",
+                 "ivf_union_scan_topk_pq"):
+        monkeypatch.setattr(jax_rii, name, _raise("ivf"))
+    monkeypatch.setattr(jsr, "_ivf_fn", lambda *a: _raise("ivf"))
+    monkeypatch.setattr(WindowStore, "scan_topk", _raise("ivf"))
+    q = np.ascontiguousarray(X[:qn])
+    L = int(l0s * te.L0)
+    for s in (None, 2000, 3900):
+        tids = None if s is None else np.arange(0, 4 * s, 4, dtype=np.int64)
+        n_s = te.N if s is None else s
+        assert te._use_linear(n_s, L, qn=qn) == je._use_linear(n_s, L, qn=qn)
+        assert (tsr._use_linear(q, 10, L, tids)
+                == jsr._use_linear(q, 10, L, tids))
+        routes = [_route(lambda e=e: e._query_ivf_batch(q, 10, tids, L), e,
+                         "_query_linear_batch") for e in (te, je)]
+        assert routes[0] == routes[1], (s, routes)
+        routes = [_route(lambda e=e: e.query_ivf_batch(q, topk=10, L=L,
+                                                        target_ids=tids),
+                         e, "_query_linear_impl") for e in (tsr, jsr)]
+        assert routes[0] == routes[1], (s, routes)
 
 
 def test_stage_statistics_have_rii_tpu_keys():
