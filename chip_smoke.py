@@ -22,7 +22,10 @@ Phases, each of which must pass (no exception is caught):
    GIST-shaped D=960 (``*_d960``; not a gate). A, B, C, D, G, H, F, I and
    J are one tensor-core kernel, on bf16 or int8 operands (C's, D's and
    J's decoded from their codes); F and I must be bit-equal to their twins.
-   Kernel E builds its ADC table in its one launch. The records of B, D, E
+   Kernel E builds its ADC table in its one launch. Kernel D's record also
+   holds its times in a probe build without its decoding (``*_no_decode``)
+   and its decodes of each tile (``tile_decodes``, 2 at Q=512: its four
+   query blocks run as two pairs). The records of B, D, E
    and G carry the CUDA kernels one wrapper call launches
    (``kernels_a_call``, torch.profiler over 5 calls), counted once every
    phase has run, so that no profiler session slows a timed launch. The
@@ -359,9 +362,12 @@ def phase_build():
     from rii_tpu_torch.ops import _build
     names = ("replica_tc", "ivf_pq_window", "select_k", "texmex_native")
     # one compiler per source (nvcc for the kernels, g++ for the TexMex
-    # reader), all started together
-    with ThreadPoolExecutor(len(names)) as pool:
+    # reader), and the probe build without kernel D's decoding
+    # (window_topk_figures), all started together
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        probe = pool.submit(_build.load_library, "replica_tc", defines=NO_DECODE)
         list(pool.map(lambda nm: _build.load_library(nm, verbose=True), names))
+        probe.result()
     for name in names:
         log(f"build {name}: {_build.build_seconds[name]:.2f} s")
 
@@ -622,14 +628,24 @@ def phase_kernels_pq(dev, g):
     return records
 
 
+NO_DECODE = ("RII_TC_DECODE=0",)  # kernel D's probe build without its decoding
+
+
 def window_topk_figures(q, codes_g, cw, flat, dup, vl, cap_v, pen, k=20):
     """Kernel D selecting each query's k best tile minima in its epilogue
     (the entry's ``k``, the union's call at topk 10) against its full
     output and the selection the union made of it before (the selection
     kernel and a gather): equal bit for bit, with and without the pen
-    stream; both timed (CUDA events)."""
+    stream; both timed (CUDA events), and both again in the probe build
+    without D's decoding (what the products, the epilogue and the cluster's
+    copies take). The call notes the decodes of each tile the cluster rule
+    gives (2 at Q=512: two pairs of query blocks)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rii_tpu_torch.ops import _build
     from rii_tpu_torch.ops import hopper_pq as HP
     from rii_tpu_torch.ops.ivf import _select_tiles
+    from rii_tpu_torch.utils import profiling as prof
     fn = HP.ivf_pq_window_tile_minima
     for p in (None, pen):
         got = fn(q, codes_g, cw, flat, dup, vl, cap_v, pen=p, k=k)
@@ -639,11 +655,29 @@ def window_topk_figures(q, codes_g, cw, flat, dup, vl, cap_v, pen, k=20):
             raise AssertionError(f"ivf_pq_window_top2 k={k}: the epilogue's selection "
                                  "differs from the selection of the full output")
     del got, want
+    with profile(activities=[ProfilerActivity.CPU]):
+        root = prof.begin_call("chip_smoke.window_topk")
+        fn(q, codes_g, cw, flat, dup, vl, cap_v, k=k)
+        prof.end_call(root)
+    decodes = [r for r in prof.spans() if r.id == root.id][0].attrs["tile_decodes"]
+    want = -(-q.shape[0] // 128) // HP.pq_window_cluster(*q.shape)
+    if decodes != want:
+        raise AssertionError(f"ivf_pq_window_top2 Q={q.shape[0]}: {decodes} decodes a tile, "
+                             f"the cluster rule gives {want}")
     t_f = cuda_ms(lambda: fn(q, codes_g, cw, flat, dup, vl, cap_v, k=k))
     t_s = cuda_ms(lambda: _select_tiles(*fn(q, codes_g, cw, flat, dup, vl, cap_v), k))
+    plain = _build.load_library
+    probe = plain("replica_tc", defines=NO_DECODE)
+    with patched(_build, "load_library",
+                 lambda name, **kw: probe if name == "replica_tc" and not kw else plain(name, **kw)):
+        t_fn = cuda_ms(lambda: fn(q, codes_g, cw, flat, dup, vl, cap_v, k=k))
+        t_tn = cuda_ms(lambda: fn(q, codes_g, cw, flat, dup, vl, cap_v))
     log(f"  ivf_pq_window_top2 Q={q.shape[0]} U={flat.shape[0]} k={k}: selecting "
-        f"epilogue {t_f:.3f} ms, full output and the selection kernel {t_s:.3f} ms")
-    return {f"ms_topk{k}": t_f, f"ms_full_select_k{k}": t_s}
+        f"epilogue {t_f:.3f} ms, full output and the selection kernel {t_s:.3f} ms; "
+        f"without the decoding: selecting {t_fn:.3f} ms, full output {t_tn:.3f} ms; "
+        f"{decodes} decode(s) a tile")
+    return {f"ms_topk{k}": t_f, f"ms_full_select_k{k}": t_s, f"ms_topk{k}_no_decode": t_fn,
+            "ms_no_decode": t_tn, "tile_decodes": decodes}
 
 
 def phase_kernels_i8(dev, g):

@@ -18,7 +18,9 @@ shape (D=960 over cap 2^20, Q=1024), where the queries stream through the
 ring; C at the SIFT1B shape (M=8, Ks=256, Ds=16 over cap 2^26 with n_valid
 2^25 + 100k) at Q=128 and 1024; J at the ops shape (M=32, Ks=256, Ds=4
 over cap 2^20) exact at Q=128 and 1024, packed at 1024; D at the SIFT1B
-shape's IVF batch (Q=512, U=16384 windows of 256 rows, M=8, Ds=16); G at
+shape's IVF batch (Q=512, U=16384 windows of 256 rows, M=8, Ds=16), its
+full output ("D") and selecting each query's 20 best ("D topk", the
+shard's call); G at
 the 4M band's IVF batches (Q=8 and 64, U=64Q windows of 256 int8 rows,
 D=128); B at ``chip_smoke.py``'s (Q=32 and 128, U=2048 windows of 256
 bf16 rows, D=128, 15% sentinel rows); E at the SIFT1B shape's (Q=8, 64
@@ -38,13 +40,15 @@ beside this one's. Every kernel and shape of the split (H exact too) that
 both builds hold (a parent from before kernels C, J and D moved there has
 none of them) runs
 on the same inputs in both, in ``rounds`` rounds of parent, change,
-change, parent. Kernel B runs in a parent from before it moved there too:
+change, parent; D's outputs are compared bit for bit
+(``outputs_equal``). Kernel B runs in a parent from before it moved there too:
 through the entry of the parent's ``csrc/ivf_window.cu``. First it prints, for each bf16 and int8 instantiation of
 the kernel, its count of SASS instructions in both builds (``cuobjdump
 -sass``) and the opcodes whose counts differ.
 
-Prints the card's name and power limit, then one JSON line per kernel and
-shape (and per instantiation).
+``--kernels`` keeps some of the kernels (names as printed, e.g. ``D,D
+topk``). Prints the card's name and power limit, then one JSON line per
+kernel and shape (and per instantiation).
 """
 
 import argparse
@@ -61,6 +65,7 @@ import torch
 
 from rii_tpu_torch.ops import _build
 from rii_tpu_torch.ops import hopper_i8 as HI
+from rii_tpu_torch.ops import hopper_pq as HP
 from rii_tpu_torch.ops import hopper_scan as H
 
 VARIANTS = {"full": (), "no_epilogue": ("RII_TC_EPILOGUE=0",),
@@ -71,9 +76,12 @@ VARIANTS = {"full": (), "no_epilogue": ("RII_TC_EPILOGUE=0",),
 # them serves), which are the kernels that decode codes or load window rows
 _ENTRY = {"C": ("rii_tc_pq_tile_keys",), "J": ("rii_tc_pq_rows_tile_minima",),
           "J packed": ("rii_tc_pq_rows_tile_minima",), "D": ("rii_tc_pq_window_top2",),
-          "G": ("rii_tc_i8_window_top2",),
+          "D topk": ("rii_tc_pq_window_topk",), "G": ("rii_tc_i8_window_top2",),
           "B": ("rii_tc_bf16_window_top2", "rii_ivf_window_top2")}
 _P = ctypes.c_void_p
+# D's entries, which report their cluster size through a last pointer
+# (replica_tc.cu's window_cluster; a parent from before it has none)
+_CLUSTER_OUT = ("rii_tc_pq_window_top2", "rii_tc_pq_window_topk")
 
 
 def _ptr(t):
@@ -96,8 +104,9 @@ def _cuda_ms(fn, reps):
     return float(np.median(times))
 
 
-def _entries(lib):
-    """The kernels' C entries that ``lib`` holds, with their argument types."""
+def _entries(lib, cluster_out=True):
+    """The kernels' C entries that ``lib`` holds, with their argument types;
+    where ``cluster_out``, D's take the cluster pointer, passed as null."""
     i, ll = ctypes.c_int, ctypes.c_longlong
     spec = {"rii_tc_i8_tile_keys": [_P, i, _P, _P, _P, _P, i, i, ll, ll, _P],
             "rii_tc_i8_tile_minima": [_P, i, _P, _P, _P, _P, _P, i, i, ll, _P],
@@ -106,6 +115,7 @@ def _entries(lib):
             "rii_tc_pq_tile_keys": [_P, i, _P, _P, _P, _P, i, i, i, i, ll, ll, _P],
             "rii_tc_pq_rows_tile_minima": [_P, i, _P, _P, _P, _P, _P, i, i, i, i, ll, i, _P],
             "rii_tc_pq_window_top2": [_P, i] + [_P] * 8 + [i] * 6 + [_P],
+            "rii_tc_pq_window_topk": [_P, i] + [_P] * 7 + [ll] + [_P] * 2 + [i] * 7 + [_P],
             "rii_tc_i8_window_top2": [_P, i] + [_P] * 9 + [i] * 4 + [_P],
             "rii_tc_bf16_window_top2": [_P, i] + [_P] * 6 + [i] * 4 + [_P],
             "rii_ivf_window_top2": [_P] * 7 + [i] * 4 + [_P]}  # B before replica_tc.cu
@@ -113,9 +123,10 @@ def _entries(lib):
     for name, argtypes in spec.items():
         if hasattr(lib, name):
             fn = getattr(lib, name)
-            fn.argtypes = argtypes
+            last = cluster_out and name in _CLUSTER_OUT
+            fn.argtypes = argtypes + [_P] * last
             fn.restype = ctypes.c_int
-            out[name] = fn
+            out[name] = (lambda *a, f=fn: f(*a, None)) if last else fn
     return out
 
 
@@ -143,9 +154,15 @@ def _bf16_cases(dev, g, d, cap, cases):
                 int(kernel == "H"), st)
 
 
-def _cases(dev, g, d=128):
-    """(kernel, Q, D, cap, call(entries) -> rc) for each measured shape; the
-    inputs are made on the card from ``g``."""
+def _cases(dev, g, d=128, kernels=None):
+    """(kernel, Q, D, cap, call(entries) -> rc) for each measured shape (of
+    ``kernels`` only, where given); the inputs are made on the card from
+    ``g``. A call whose outputs are compared carries them as ``call.outs``."""
+    if kernels is not None:
+        for case in _cases(dev, g, d):
+            if case[0] in kernels:
+                yield case
+        return
     st = _P(torch.cuda.current_stream(dev).cuda_stream)
     plain = _build.load_library("replica_tc")
     scales = torch.rand(d, generator=g, device=dev) * (0.1 / 127) + 1e-5
@@ -333,10 +350,12 @@ def _rows_cases(dev, g, m=32, ks=256, ds=4, cap=1 << 20):
                 ks, ds, cap, p, st)
 
 
-def _window_cases(dev, g, m=8, ks=256, ds=16, qn=512, u=16384, cap_v=256, nwin=191_000):
+def _window_cases(dev, g, m=8, ks=256, ds=16, qn=512, u=16384, cap_v=256, nwin=191_000,
+                  k=20):
     """Kernel D at the SIFT1B shape's IVF batch: the union of Q * 32 windows
     (with duplicates, drawn as chip_smoke.py draws them), vlen from cap_v/2
-    to cap_v, no pen: (kernel, Q, D, U * cap_v, call(entries))."""
+    to cap_v, no pen: (kernel, Q, D, U * cap_v, call(entries)), its full
+    output ("D") and each query's k best ("D topk")."""
     st = _P(torch.cuda.current_stream(dev).cuda_stream)
     d = m * ds
     codes_g = torch.randint(0, ks, (nwin * cap_v, m), generator=g, device=dev,
@@ -349,14 +368,34 @@ def _window_cases(dev, g, m=8, ks=256, ds=16, qn=512, u=16384, cap_v=256, nwin=1
     ncol = u * 2 * (cap_v // 8)
     v = torch.empty((qn, ncol), device=dev)
     a = torch.empty((qn, ncol), dtype=torch.int32, device=dev)
-    yield "D", qn, d, u * cap_v, lambda e: e["rii_tc_pq_window_top2"](
-        _ptr(q16), ldq, _ptr(codes_g), _ptr(cw), _ptr(flat), _ptr(dup), _ptr(vlen), _P(None),
-        _ptr(v), _ptr(a), qn, m, ks, ds, u, cap_v, st)
+
+    def full(e):
+        return e["rii_tc_pq_window_top2"](
+            _ptr(q16), ldq, _ptr(codes_g), _ptr(cw), _ptr(flat), _ptr(dup), _ptr(vlen),
+            _P(None), _ptr(v), _ptr(a), qn, m, ks, ds, u, cap_v, st)
+
+    full.outs = (v, a)
+    yield "D", qn, d, u * cap_v, full
+    del v, a, full
+    n_keys = HP._list_keys(qn, u, cap_v, dev)
+    cand = torch.empty(n_keys, dtype=torch.int64, device=dev)
+    vals = torch.empty((qn, k), device=dev)
+    slots = torch.empty((qn, k), dtype=torch.int32, device=dev)
+
+    def topk(e):
+        return e["rii_tc_pq_window_topk"](
+            _ptr(q16), ldq, _ptr(codes_g), _ptr(cw), _ptr(flat), _ptr(dup), _ptr(vlen),
+            _P(None), _ptr(cand), n_keys, _ptr(vals), _ptr(slots), qn, m, ks, ds, u, cap_v, k,
+            st)
+
+    topk.outs = (vals, slots)
+    yield "D topk", qn, d, u * cap_v, topk
 
 
-def run(reps=7, seed=0):
+def run(reps=7, seed=0, kernels=None):
     """One record per kernel and Q: ``{variant}_ms`` (the two timings of
-    each variant, in the palindrome order) and the card's name."""
+    each variant, in the palindrome order) and the card's name; ``kernels``
+    (names, "E" for kernel E's split) keeps some."""
     dev = torch.device("cuda", 0)
     with ThreadPoolExecutor(len(VARIANTS)) as pool:  # one nvcc per variant
         libs = pool.map(lambda f: _build.load_library("replica_tc", defines=f),
@@ -365,20 +404,21 @@ def run(reps=7, seed=0):
     order = list(VARIANTS) + list(reversed(VARIANTS))
     g = torch.Generator(device=dev).manual_seed(seed)
     records = []
-    for kernel, qn, d, cap, call in _cases(dev, g):
+    for kernel, qn, d, cap, call in _cases(dev, g, kernels=kernels):
         rec = {"kernel": kernel, "Q": qn, "cap": cap, "D": d,
                "device": torch.cuda.get_device_name(dev)}
         for v in order if kernel in _ENTRY else [v for v in order if v != "no_decode"]:
             _build.check(call(entries[v]), f"{kernel} {v}")
             rec.setdefault(f"{v}_ms", []).append(_cuda_ms(lambda: call(entries[v]), reps))
         records.append(rec)
-    return records + dt_split(reps)
+    return records + (dt_split(reps) if kernels is None or "E" in kernels else [])
 
 
 _SASS_FN = re.compile(r"Function : (\S+)")
 _SASS_INSTR = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(.*?);")
-# the template arguments of tc_scan_kernel: layout, out, kMT, kQS[, operand]
-_INSTANCE = re.compile(r"tc_scan_kernelILi(\d)ELi(\d)ELi(\d)ELb(\d)E([at]?)E")
+# the template arguments of tc_scan_kernel: layout, out, kMT, kQS[, operand][,
+# cluster] (a build from before the cluster argument has none: 0)
+_INSTANCE = re.compile(r"tc_scan_kernelILi(\d)ELi(\d)ELi(\d)ELb(\d)E([at]?)(?:Lb(\d)E)?E")
 
 
 def _sass_text(lib_path):
@@ -389,8 +429,8 @@ def _sass_text(lib_path):
 
 
 def parse_sass(text, operand="t"):
-    """{(layout, out, kMT, kQS): Counter of opcodes, predicates and
-    modifiers dropped} for the instantiations of tc_scan_kernel on one
+    """{(layout, out, kMT, kQS, cluster): Counter of opcodes, predicates
+    and modifiers dropped} for the instantiations of tc_scan_kernel on one
     operand type ("t" bf16, "a" int8) in ``cuobjdump -sass`` output."""
     out, cur = {}, None
     for line in text.splitlines():
@@ -399,8 +439,8 @@ def parse_sass(text, operand="t"):
             inst = _INSTANCE.search(m.group(1))
             # the operand type is absent where the kernel had none (bf16 only)
             cur = None if inst is None or (inst.group(5) or "t") != operand else (
-                out.setdefault(tuple(int(x) for x in inst.groups()[:4]),
-                               collections.Counter()))
+                out.setdefault(tuple(int(x) for x in inst.groups()[:4])
+                               + (int(inst.group(6) or 0),), collections.Counter()))
             continue
         m = _SASS_INSTR.match(line)
         if cur is not None and m:
@@ -410,12 +450,14 @@ def parse_sass(text, operand="t"):
     return out
 
 
-def ab(parent, reps=7, rounds=2, seed=0):
+def ab(parent, reps=7, rounds=2, seed=0, kernels=None):
     """The kernels of the checkout at ``parent`` against this one's on the
-    same inputs (the split's kernels and shapes, H exact beside H packed).
-    Returns the SASS records, then one record per kernel and shape with
-    ``parent_ms`` and ``change_ms`` (each round's two timings of each, in
-    the order parent, change, change, parent)."""
+    same inputs (the split's kernels and shapes, H exact beside H packed;
+    ``kernels`` keeps some). Returns the SASS records, then one record per
+    kernel and shape with ``parent_ms`` and ``change_ms`` (each round's two
+    timings of each, in the order parent, change, change, parent) and,
+    where the call carries its outputs, whether both builds' are equal bit
+    for bit."""
     dev = torch.device("cuda", 0)
     csrc = {"parent": Path(parent) / "rii_tpu_torch" / "csrc", "change": None}
     builds = [("replica_tc", c) for c in csrc.values()]
@@ -423,7 +465,8 @@ def ab(parent, reps=7, rounds=2, seed=0):
         builds.append(("ivf_window", csrc["parent"]))
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per build
         libs = list(pool.map(lambda b: _build.load_library(b[0], csrc=b[1]), builds))
-    entries = {k: _entries(lib) for k, lib in zip(csrc, libs)}
+    entries = {k: _entries(lib, "int* cluster" in ((c or _build._CSRC) / "replica_tc.cu")
+                           .read_text()) for (k, c), lib in zip(csrc.items(), libs)}
     if len(libs) > 2:
         entries["parent"].update(_entries(libs[2]))
     records = []
@@ -433,7 +476,7 @@ def ab(parent, reps=7, rounds=2, seed=0):
         for inst in sorted(set(sass["parent"]) | set(sass["change"])):
             p, c = sass["parent"].get(inst, collections.Counter()), sass["change"].get(
                 inst, collections.Counter())
-            records.append({"sass": dict(zip(("layout", "out", "kMT", "kQS"), inst),
+            records.append({"sass": dict(zip(("layout", "out", "kMT", "kQS", "cluster"), inst),
                                          operand=kind),
                             "parent_instr": sum(p.values()), "change_instr": sum(c.values()),
                             "differ": {op: [p[op], c[op]] for op in sorted(set(p) | set(c))
@@ -441,7 +484,7 @@ def ab(parent, reps=7, rounds=2, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def cases():
-        for kernel, qn, d, cap, call in _cases(dev, g):
+        for kernel, qn, d, cap, call in _cases(dev, g, kernels=kernels):
             yield kernel, qn, d, cap, call
             if kernel == "H":  # the exact reduce on the same inputs
                 yield from _bf16_cases(dev, g, d, cap, (("H exact", qn),))
@@ -451,6 +494,14 @@ def ab(parent, reps=7, rounds=2, seed=0):
             continue
         rec = {"kernel": kernel, "Q": qn, "cap": cap, "D": d,
                "device": torch.cuda.get_device_name(dev)}
+        outs = getattr(call, "outs", None)
+        if outs is not None:
+            _build.check(call(entries["parent"]), f"{kernel} parent")
+            want = [o.clone() for o in outs]
+            _build.check(call(entries["change"]), f"{kernel} change")
+            rec["outputs_equal"] = all(torch.equal(o.view(torch.int32), w.view(torch.int32))
+                                       for o, w in zip(outs, want))
+            del want
         for _ in range(rounds):
             for k in ("parent", "change", "change", "parent"):
                 _build.check(call(entries[k]), f"{kernel} {k}")
@@ -469,14 +520,17 @@ def main(argv=None):
                                      "kernels of both instead of the split")
     ap.add_argument("--rounds", type=int, default=2, help="--parent: rounds of "
                                                           "parent, change, change, parent")
+    ap.add_argument("--kernels", help="comma-separated kernels to keep (e.g. 'D,D topk'; "
+                                      "E: kernel E's split)")
     args = ap.parse_args(argv)
+    kernels = None if args.kernels is None else set(args.kernels.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("tc_split: needs a CUDA card (the probe builds run there)")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
-    records = (ab(args.parent, reps=args.reps, rounds=args.rounds) if args.parent
-               else run(reps=args.reps))
+    records = (ab(args.parent, reps=args.reps, rounds=args.rounds, kernels=kernels)
+               if args.parent else run(reps=args.reps, kernels=kernels))
     for r in records:
         print(json.dumps(r), flush=True)
 

@@ -169,9 +169,36 @@
 //   second-best columns (64 bytes each at cap_v >= 128), not words
 //   scattered one a row. D's output (8 bytes a query and group) is its
 //   bound; one m64 tile a warpgroup keeps the staging and the codebook in
-//   shared memory beside the ring, so Q=512 decodes each tile 4 times.
+//   shared memory beside the ring, so a block holds 128 query rows and
+//   Q > 128 takes nqb blocks a slot group, each of which decodes its own
+//   copy of every tile unless they run in pairs (Clusters, below).
 //   Selecting in its epilogue (kTopK, below) D stages and writes none of
 //   that output, only each query's best candidates.
+// - Clusters (D). Where a slot group's nqb query blocks are even in number
+//   and their queries resident, they run as thread-block clusters of two
+//   (window_cluster), each pair decoding each tile once: block r of a pair
+//   decodes tiles r, r + 2, ... of the group as a lone block does, into
+//   its own stage, and each producer warp copies its 32 rows (with the
+//   tile's last chunk, their norms and grouped slots) into the other
+//   block's stage by bulk copies over distributed shared memory as soon as
+//   it has written them, counted on that block's full barrier, where its
+//   thread 0 has posted the bytes. Each consumer warp releases a stage to
+//   the block that writes it next, whose empty barrier so counts the
+//   releases of one use at a time (with releases to every block, an
+//   arrival that landed late completed the next use's phase: a race). A
+//   cluster barrier at the start and at the end keeps a block's barriers
+//   and shared memory alive while its peer may use them. The decoded
+//   values, the products' order and each slot's norm are a lone block's,
+//   so the outputs are the same bit for bit, and a lone block runs an
+//   instantiation without any of it (kCl false: the cluster's code in the
+//   kernel made lone blocks 15% slower). On the SIFT1B shard's unions
+//   (H100, Q=512: nqb = 4) pairs took D from 6.8 to 6.1 ms; a cluster of
+//   all four blocks (one decode a tile) fits on 120 of the 132 SMs and
+//   took 6.8, as D's consumers bound it once the decode is halved. Whole
+//   tiles a block keep the decode's fixed costs at a lone block's: a block
+//   that decoded a quarter of every tile's slots (four threads a slot) was
+//   no faster than decoding them all, and storing units into the peers
+//   with st.async from every thread took 1.7 times the lone kernel's time.
 // - Int8 windows (G). D's walk over the union's windows and D's epilogue,
 //   on F's s8 product: producer thread r loads slot r's 128 bytes of a
 //   chunk (16-byte loads where the row is so aligned, else narrower ones,
@@ -220,7 +247,8 @@
 //   A at D=960 slower (PERF.md); below, no measurement kept in the
 //   repository compares them.
 // - Reading the replica once. The grid is persistent: nqb query blocks x
-//   nsg slot groups, nqb * nsg <= #SMs, over the live tiles only. The
+//   nsg slot groups, nqb * nsg <= #SMs (D's pairs: as many as the card
+//   runs at once), over the live tiles only. The
 //   blocks that share a slot group have consecutive indices, start together
 //   and walk the same tiles in the same order, so a tile read from device
 //   memory by one is found in L2 by the others: device memory sees the
@@ -304,6 +332,7 @@ static_assert(kTop2Tiles * kGroups == 32, "D's write-out gives a lane one staged
 // for the next 32)
 constexpr int kListCap = 128;
 constexpr int kTopKMax = 64;
+constexpr int kPair = 2;  // D: the blocks of a thread-block cluster
 constexpr int kPubTiles = 4;  // tiles between reads of the rows' published thresholds
 static_assert(kTopKMax + 32 <= kListCap, "a cut list has room for a tile's 32 candidates");
 
@@ -432,6 +461,11 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(bytes)
@@ -464,6 +498,67 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
 
 __device__ __forceinline__ void named_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// ---- thread-block clusters (D) ---------------------------------------------------
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// Every thread of the cluster's blocks: at the start no block touches a
+// peer's barriers before they are initialized, at the end no block exits
+// while a peer may still write to its shared memory.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
+}
+
+// The address in cluster block r of this block's shared-memory address a.
+__device__ __forceinline__ uint32_t peer_addr(uint32_t a, int r) {
+  uint32_t p;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(p) : "r"(a), "r"(r));
+  return p;
+}
+
+// A bulk copy of `bytes` (a multiple of 16, 16-byte aligned) of this
+// block's shared memory at a to the same place in cluster block r, its
+// completion counted on block r's copy of the mbarrier bar.
+__device__ __forceinline__ void copy_to_peer(const void* a, uint32_t bytes, uint64_t* bar, int r) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(peer_addr(smem_u32(a), r)),
+      "r"(smem_u32(a)), "r"(bytes), "r"(peer_addr(smem_u32(bar), r))
+      : "memory");
+}
+
+// A consumer warp's release of the stage that held stream position i (tile
+// i / kc's chunk i % kc of the slot group's n_pos): D in a pair (kCl), an
+// arrival on the empty barrier of the block that writes the stage next
+// (position i + stages, none past the last), so that each barrier counts
+// the releases of one position at a time, whatever the order in which
+// arrivals from the two blocks land; else this block's. The stage's
+// products are complete (wgmma.wait_group) before it, so no copy into the
+// stage overtakes them; releases at cluster scope (a memory barrier each)
+// made a first clustered D 1.7 times as slow (H100).
+template <bool kCl>
+__device__ __forceinline__ void release_stage(uint64_t* bar, int i, int stages, int kc, int n_pos,
+                                              int crank) {
+  if constexpr (!kCl) {
+    mbar_arrive(bar);
+    return;
+  }
+  const int next = i + stages;
+  if (next >= n_pos) return;
+  const int r = next / kc % kPair;
+  if (r == crank) {
+    mbar_arrive(bar);
+  } else {
+    asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(
+                     peer_addr(smem_u32(bar), r))
+                 : "memory");
+  }
 }
 
 __device__ __forceinline__ void prefetch_l1(const void* p) {
@@ -1403,7 +1498,7 @@ __global__ void __launch_bounds__(128)
 // queries' rows are ldq elements apart; alpha (int8) their factors; cs the
 // codes (kCodes, kCodeRows, kCodeWin). The grid walks tiles [0, nt_live);
 // kKeys writes the padding key into columns [nt_live, nt).
-template <int kLayout, int kOut, int kMT, bool kQS, typename T>
+template <int kLayout, int kOut, int kMT, bool kQS, typename T, bool kCl>
 __global__ void __launch_bounds__(kThreads, 1)
 tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__ CUtensorMap qmap,
                const T* __restrict__ q, const float* __restrict__ alpha,
@@ -1469,11 +1564,19 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
   // of stages at least.
   const bool alt = kRowWin && Q <= 64 && stages >= 2 * kc;
 
+  // D in a pair (kCl): the two blocks take turns at the tiles; block crank
+  // decodes tiles tile0 + crank, + 2, ... into both blocks' stages, whose
+  // full barriers count the copies' bytes in the other block
+  static_assert(!kCl || (kWin && !kQS), "clusters are D's with resident queries");
+  constexpr int kNcl = kCl ? kPair : 1;  // blocks of the cluster
+  const int crank = kCl ? cluster_rank() : 0;
+  const int n_pos = (tile1 - tile0) * kc;  // the slot group's stream of stages
   if (t == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(&full[s], kLayout == kRowLoad ? 32 : kFill ? 128 : 1);
-      // one arrival per consumer warp (alt: of one warpgroup)
-      mbar_init(&empty[s], alt ? 4 : kConsumers * 4);
+      // one arrival per consumer warp (alt: of one warpgroup; D: of every
+      // block of the cluster)
+      mbar_init(&empty[s], (alt ? 4 : kConsumers * 4) * kNcl);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -1529,6 +1632,7 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
   }
   fence_proxy_async();
   __syncthreads();
+  if constexpr (kCl) cluster_sync();
 
   if (warp >= kConsumers * 4) {
     // ---- producer warpgroup: its first warp streams the block's tiles,
@@ -1551,11 +1655,32 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
       int s = 0;
       uint32_t ph = 0;
       // B, D, G: the next tile's window entry at this thread's slot (its
-      // window id, dup, vlen and row), loaded a tile ahead
+      // window id, dup, vlen and row), loaded a tile ahead (D: this
+      // block's next tile, `step` on)
       constexpr bool kVlen = kLayout != kBf16Win;
+      constexpr int step = kNcl;
+      uint32_t ew = 0;  // D in a cluster: the parity of each stage's next empty phase
       WinSlot nxt;
-      if constexpr (kWalk) nxt = win_slot<kVlen>(cs, tile0, pt);
+      if constexpr (kWalk) nxt = win_slot<kVlen>(cs, tile0 + crank, pt);
       for (int tile = tile0; tile < tile1; ++tile) {
+        if (kCl && (tile - tile0) % kPair != crank) {
+          // D: the other block of the pair decodes this tile into this
+          // one's stages; thread 0 counts the copies' bytes on each stage's
+          // barrier (and the 127 arrivals of the threads that did not
+          // write it) once the stage's previous phase is complete
+          for (int c = 0; c < kc; ++c) {
+            if (pt == 0) {
+              mbar_wait(&full[s], ph ^ 1);
+              mbar_arrive(&full[s], 127);
+              mbar_expect_tx(&full[s], kChunkBytes + (c == kc - 1 ? kSide : 0));
+            }
+            if (++s == stages) {
+              s = 0;
+              ph ^= 1;
+            }
+          }
+          continue;
+        }
         // C: the walk over this slot's dims (chunk_codes)
         const uint8_t* cp = cs.codes + static_cast<long long>(tile) * kTile + pt;
         int mo = 0;
@@ -1582,7 +1707,7 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
           for (int l = pt; l < cs.M && tile + 1 < tile1; l += 128) prefetch_l1(next + l * 128);
         } else if constexpr (kWalk) {
           const WinSlot cur = nxt;
-          if (tile + 1 < tile1) nxt = win_slot<kVlen>(cs, tile + 1, pt);
+          if (tile + step < tile1) nxt = win_slot<kVlen>(cs, tile + step, pt);
           if (cur.dup == 0) {
             const long long gl = static_cast<long long>(cur.w) * cs.cap_v + cur.row;
             gsl = static_cast<int>(gl);
@@ -1610,7 +1735,7 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
           if constexpr (kRowWin) {
             if (RII_TC_DECODE) {
               win_chunk_units(grow, c, D, un);
-              if (c == 0 && tile + 1 < tile1 && nxt.dup == 0 && nxt.row < nxt.vlen) {
+              if (c == 0 && tile + step < tile1 && nxt.dup == 0 && nxt.row < nxt.vlen) {
                 const T* next = rep + (static_cast<long long>(nxt.w) * cs.cap_v + nxt.row) * D;
                 for (int l = 0; l < kc; ++l) prefetch_l1(next + l * kDim);
               }
@@ -1625,11 +1750,21 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
           }
           if constexpr (kWin) {
             // the next tile's code row, into L1 while this tile is decoded
-            if (c == kc - 1 && tile + 1 < tile1 && nxt.dup == 0 && nxt.row < nxt.vlen) {
+            if (c == kc - 1 && tile + step < tile1 && nxt.dup == 0 && nxt.row < nxt.vlen) {
               prefetch_l1(cs.codes + (static_cast<long long>(nxt.w) * cs.cap_v + nxt.row) * cs.M);
             }
           }
-          mbar_wait(&empty[s], ph ^ 1);
+          if constexpr (kCl) {
+            // D in a cluster: this block's empty barrier counts the releases
+            // of the positions it writes next (release_stage), one phase a
+            // position after the stage's first
+            if ((tile - tile0) * kc + c >= stages) {
+              mbar_wait(&empty[s], (ew >> s) & 1u);
+              ew ^= 1u << s;
+            }
+          } else {
+            mbar_wait(&empty[s], ph ^ 1);
+          }
           uint8_t* dst = ring + s * kStage;
           if constexpr (kLayout == kRowLoad || kFill) {
             if constexpr (kRowWin) {
@@ -1676,6 +1811,21 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
               }
             }
             fence_proxy_async();
+            if constexpr (kCl) {
+              // D: the warp's 32 rows of the stage (with the tile's last
+              // chunk, their norms and grouped slots) into the other block
+              // of the pair, once the warp has written them
+              __syncwarp();
+              if (lane == 0) {
+                const int w = pt >> 5;
+                uint8_t* sn = side + s * kSide + 128 * w;
+                copy_to_peer(dst + 32 * kRowBytes * w, 32 * kRowBytes, &full[s], crank ^ 1);
+                if (c == kc - 1) {
+                  copy_to_peer(sn, 128, &full[s], crank ^ 1);
+                  copy_to_peer(sn + kNormBytes, 128, &full[s], crank ^ 1);
+                }
+              }
+            }
             // thread 0 arrives below, with the bytes of the copies
             if (pt != 0) mbar_arrive(&full[s]);
           }
@@ -1791,6 +1941,7 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
         }
       }
       int prev = 0;
+      const int pos = (tile - tile0) * kc;  // the tile's first stream position
       for (int c = 0; c < kc; ++c) {
         mbar_wait(&full[s], ph);
         if (kNormCopy && c == 0) {
@@ -1828,7 +1979,7 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
         wgmma_commit();
         if (c > 0) {
           wgmma_wait<1>();  // the previous chunk's products are done with its stage
-          if (lane == 0) mbar_arrive(&empty[prev]);
+          if (lane == 0) release_stage<kCl>(&empty[prev], pos + c - 1, stages, kc, n_pos, crank);
         }
         prev = s;
         if (++s == stages) {
@@ -1862,7 +2013,7 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
         // offered to the rows' lists, full lists cut
         side_norms(reinterpret_cast<const float*>(side + prev * kSide), lb, nv);
         __syncwarp();
-        if (lane == 0) mbar_arrive(&empty[prev]);
+        if (lane == 0) release_stage<kCl>(&empty[prev], pos + kc - 1, stages, kc, n_pos, crank);
 #pragma unroll
         for (int r = 0; r < 2 * kMT; ++r) {
           if (pub[r] < thr[r]) {
@@ -1899,7 +2050,7 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
           gst[tt * kGroups + (t & 127)] = reinterpret_cast<const int*>(nr + kTile)[8 * (t & 127)];
         }
         __syncwarp();  // lanes 0-15 have read gst's slots from the stage
-        if (lane == 0) mbar_arrive(&empty[prev]);
+        if (lane == 0) release_stage<kCl>(&empty[prev], pos + kc - 1, stages, kc, n_pos, crank);
         if (tt == kTop2Tiles - 1 || (alt ? tile + 2 >= tile1 : tile == tile1 - 1)) {
           named_sync(1 + wg, 128);
           // lane l writes staged group l (tile l / 16 of the staged ones):
@@ -1926,7 +2077,7 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
           named_sync(1 + wg, 128);
         }
       } else {
-        if (lane == 0) mbar_arrive(&empty[prev]);
+        if (lane == 0) release_stage<kCl>(&empty[prev], pos + kc - 1, stages, kc, n_pos, crank);
         const int slot = tile % kOutTiles;
         if constexpr (kParts) {
           if (RII_TC_EPILOGUE) {
@@ -1954,6 +2105,7 @@ tc_scan_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__
     }
     if constexpr (kOut == kTopK) finish_lists<kMT>(tl, lane, (warp & 3) * 16, Q, qw);
   }
+  if constexpr (kCl) cluster_sync();
 }
 
 // ---- host side ---------------------------------------------------------------
@@ -2012,9 +2164,56 @@ struct Args {
   long long n_valid;
   cudaStream_t stream;
   CodeSrc cs;  // the code and window sources (C, J, D, G, B)
+  int* cluster;  // D: set to the blocks of a cluster launched (where not null)
 };
 
+// D's blocks of a cluster: pairs of the nqb query blocks of a slot group,
+// each pair decoding each tile once between them, where nqb is even and
+// the queries stay resident (kQS false: a block that streams its queries
+// through the ring loads them into a stage its consumers release to the
+// stage's next writer, another block); else 1 (each block decodes its own
+// copy). Pairs keep every SM (an H100's GPCs hold even counts; clusters of
+// 4 fit on 120 of 132) and halve the decode; D, which its consumers bound
+// once the decode is halved, was no faster with all nqb = 4 blocks of a
+// slot group in one cluster (PERF.md). ops/hopper_pq.py's
+// pq_window_cluster is the same rule.
+int window_cluster(int nqb) { return nqb % kPair == 0 ? kPair : 1; }
+
+// D: how many pairs of blocks of `smem` bytes the card runs at once (one
+// block an SM at any of the launches' shared memory), read once a device;
+// -1 where none fits.
 template <int kLayout, int kOut, int kMT, bool kQS, typename T>
+int cluster_fit(int dev, size_t smem, int* fit) {
+  static std::atomic<int> known[kMaxDevices];
+  static std::atomic<bool> smem_set[kMaxDevices];
+  int f = known[dev].load(std::memory_order_acquire);
+  if (f == 0) {
+    auto kernel = tc_scan_kernel<kLayout, kOut, kMT, kQS, T, true>;
+    if (const int e = allow_max_smem(kernel, dev, smem_set)) return e;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = kPair;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kPair);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    if (const cudaError_t e = cudaOccupancyMaxActiveClusters(&f, kernel, &cfg)) {
+      return static_cast<int>(e);
+    }
+    if (f <= 0) f = -1;
+    known[dev].store(f, std::memory_order_release);
+  }
+  *fit = f;
+  return 0;
+}
+
+// kCl: D's blocks of a slot group launched as one cluster (launch<...,
+// false> hands D over where window_cluster gives 2 or more and they fit).
+template <int kLayout, int kOut, int kMT, bool kQS, typename T, bool kCl = false>
 int launch(const CUtensorMap& map, const Args& a) {
   const int kc = (a.D + kDims<T> - 1) / kDims<T>;
   const size_t qtiles = static_cast<size_t>(kConsumers) * kMT * kQTileBytes;  // a chunk's
@@ -2043,7 +2242,7 @@ int launch(const CUtensorMap& map, const Args& a) {
                           kDims<T>, 64)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = tc_scan_kernel<kLayout, kOut, kMT, kQS, T>;
+  auto kernel = tc_scan_kernel<kLayout, kOut, kMT, kQS, T, kCl>;
   // the shared-memory limit once an instantiation and device, the SM count
   // once a device
   static std::atomic<bool> smem_set[kMaxDevices];
@@ -2056,7 +2255,21 @@ int launch(const CUtensorMap& map, const Args& a) {
   const int nt_live = static_cast<int>((a.n_valid + kTile - 1) / kTile);
   const int bm = kConsumers * kMT * 64;
   const int nqb = (a.Q + bm - 1) / bm;
-  int nsg = std::max(1, std::min(nt_live, sms / nqb));
+  // D: pairs of blocks, nqb / 2 a slot group, as many as the card runs at
+  // once; where none fits, each block decodes its own tiles
+  int groups = sms / nqb;
+  if constexpr (kLayout == kCodeWin && !kQS) {
+    int fit = 0;
+    if (window_cluster(nqb) > 1) {
+      if (const int e = cluster_fit<kLayout, kOut, kMT, kQS, T>(dev, smem, &fit)) return e;
+    }
+    if constexpr (kCl) {
+      groups = fit * kPair / nqb;
+    } else if (fit * kPair >= nqb) {
+      return launch<kLayout, kOut, kMT, kQS, T, true>(map, a);
+    }
+  }
+  int nsg = std::max(1, std::min(nt_live, groups));
   if constexpr (kOut == kTopK) {
     // a list a query row and slot group: no more groups than cand holds
     nsg = static_cast<int>(std::min<long long>(
@@ -2068,10 +2281,26 @@ int launch(const CUtensorMap& map, const Args& a) {
       return static_cast<int>(e);
     }
   }
-  kernel<<<static_cast<unsigned>(nqb) * nsg, kThreads, smem, a.stream>>>(
-      map, qmap, static_cast<const T*>(a.q), a.alpha, static_cast<const T*>(a.rep),
-      static_cast<const float*>(a.norms), static_cast<float*>(a.ov), static_cast<int*>(a.oi), a.Q,
-      a.D, a.ldq, kc, stages, nt, nt_live, nqb, nsg, ~0x7F, cs);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kPair;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(nqb) * nsg);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = kCl ? 1 : 0;
+  if (const cudaError_t e = cudaLaunchKernelEx(
+          &cfg, kernel, map, qmap, static_cast<const T*>(a.q), a.alpha,
+          static_cast<const T*>(a.rep), static_cast<const float*>(a.norms),
+          static_cast<float*>(a.ov), static_cast<int*>(a.oi), a.Q, a.D, a.ldq, kc, stages, nt,
+          nt_live, nqb, nsg, ~0x7F, cs)) {
+    return static_cast<int>(e);
+  }
+  if (a.cluster != nullptr) *a.cluster = kCl ? kPair : 1;
   if constexpr (kOut == kTopK) {
     if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
     window_topk_merge<<<static_cast<unsigned>((a.Q + 3) / 4), 128, 0, a.stream>>>(
@@ -2227,10 +2456,12 @@ extern "C" int rii_tc_pq_rows_tile_minima(const void* q, int ldq, const void* co
 // [w * cap_v, (w + 1) * cap_v), decoded through cw (M, Ks, Ds); flat, dup,
 // vlen (U,) int32; pen (total,) f32 or null. One m64 tile a consumer
 // warpgroup (the staged top-2 and the codebook then fit beside the ring).
+// cluster (or null) is set to the blocks of the clusters launched
+// (window_cluster), which decode each tile once between them.
 extern "C" int rii_tc_pq_window_top2(const void* q, int ldq, const void* codes_g, const void* cw,
                                      const void* flat, const void* dup, const void* vlen,
                                      const void* pen, void* vmin, void* amin, int Q, int M, int Ks,
-                                     int Ds, int U, int cap_v, void* stream) {
+                                     int Ds, int U, int cap_v, void* stream, int* cluster) {
   const long long slots = static_cast<long long>(U) * cap_v;
   const long long cap = (slots + kTile - 1) / kTile * kTile;  // the union's tiles
   if (bad_codebook(M, Ks, Ds) || U <= 0 || cap_v <= 0 || cap_v % 8 != 0 ||
@@ -2248,7 +2479,7 @@ extern "C" int rii_tc_pq_window_top2(const void* q, int ldq, const void* codes_g
   cs.U = U;
   cs.ncol = static_cast<long long>(U) * 2 * (cap_v / 8);
   const Args a{q, ldq, nullptr, codes_g, nullptr, vmin, amin, Q, M * Ds, cap, cap,
-               static_cast<cudaStream_t>(stream), cs};
+               static_cast<cudaStream_t>(stream), cs, cluster};
   return M * Ds > kResidentChunks * kDims<uint16_t>
              ? launch<kCodeWin, kTop2, 1, true, uint16_t>(map, a)
              : launch<kCodeWin, kTop2, 1, false, uint16_t>(map, a);
@@ -2260,12 +2491,13 @@ extern "C" int rii_tc_pq_window_top2(const void* q, int ldq, const void* codes_g
 // k <= kTopKMax and k <= its U * 2 * cap_v / 8 columns). cand is scratch
 // for cand_keys 64-bit keys: kListCap a query row and slot group (the
 // grid's slot groups are cut to fit), then the Q rows' thresholds. A
-// memset and two launches: the scan, the merge.
+// memset and two launches: the scan, the merge. cluster as for
+// rii_tc_pq_window_top2.
 extern "C" int rii_tc_pq_window_topk(const void* q, int ldq, const void* codes_g, const void* cw,
                                      const void* flat, const void* dup, const void* vlen,
                                      const void* pen, void* cand, long long cand_keys, void* vals,
                                      void* slots, int Q, int M, int Ks, int Ds, int U, int cap_v,
-                                     int k, void* stream) {
+                                     int k, void* stream, int* cluster) {
   const long long slots_u = static_cast<long long>(U) * cap_v;
   const long long cap = (slots_u + kTile - 1) / kTile * kTile;  // the union's tiles
   if (bad_codebook(M, Ks, Ds) || U <= 0 || cap_v <= 0 || cap_v % 8 != 0 || k <= 0 ||
@@ -2286,7 +2518,7 @@ extern "C" int rii_tc_pq_window_topk(const void* q, int ldq, const void* codes_g
   cs.cand_keys = cand_keys;
   cs.topk = k;
   const Args a{q, ldq, nullptr, codes_g, nullptr, vals, slots, Q, M * Ds, cap, cap,
-               static_cast<cudaStream_t>(stream), cs};
+               static_cast<cudaStream_t>(stream), cs, cluster};
   // one m64 tile a consumer warpgroup, as kTop2's: two (256-row blocks,
   // each tile decoded half as often at Q=512) spilled 1.1 KB a thread and
   // took 12 ms where one takes 7 (PERF.md)

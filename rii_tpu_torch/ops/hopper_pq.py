@@ -14,7 +14,9 @@ codes on the device:
   rows decoded through the bf16 codebook (the engine's choice when
   Q >= D). With ``k`` its epilogue also selects each query's k best of
   them, so the (Q, U*2*cap_v/8) minima never reach device memory
-  (:func:`pq_window_selects` says when the union takes that).
+  (:func:`pq_window_selects` says when the union takes that). Its query
+  blocks of 128 rows that share a slot group run as thread-block clusters
+  of two, each decoding each tile once (:func:`pq_window_cluster`).
 - **Kernel E**, :func:`ivf_dt_window_tile_minima`
   (``csrc/ivf_pq_window.cu``), replaces ``_ivf_dt_window_kernel``: the
   same top-2 from the bf16 ADC table of
@@ -61,11 +63,14 @@ from rii_tpu_torch.ops.hopper_scan import (
     _top2_plain,
 )
 from rii_tpu_torch.ops.select import smallest_k_plain
+from rii_tpu_torch.utils.profiling import note, recording
 
 _DT_CHUNK = 8  # queries per table chunk of kernel E
 PQ_WINDOW_TOPK_MAX = 64  # kTopKMax in csrc/replica_tc.cu: D's selecting epilogue
 _LIST_CAP = 128  # kListCap: keys of one query row's list a slot group
 _D_ROWS = 128  # query rows of one of kernel D's blocks
+_D_PAIR = 2  # kPair: kernel D's blocks of a cluster
+_D_RESIDENT = 512  # dims whose bf16 queries stay in a block's shared memory
 
 
 def _bf16_codebook(codewords):
@@ -365,6 +370,25 @@ def pq_window_selects(k, u, cap_v):
     return k <= PQ_WINDOW_TOPK_MAX and u * 2 * (cap_v // 8) > k
 
 
+def pq_window_cluster(q, d):
+    """The blocks of kernel D's thread-block clusters at ``q`` query rows of
+    ``d`` dims (``window_cluster`` in csrc/replica_tc.cu): pairs of its
+    ceil(q / 128) query blocks, which share each slot group's tiles and
+    decode each once a pair, where they are even in number and the queries
+    stay resident (d <= 512); else 1, each block decoding its own copy."""
+    nqb = -(-q // _D_ROWS)
+    return _D_PAIR if nqb % _D_PAIR == 0 and d <= _D_RESIDENT else 1
+
+
+def _note_tile_decodes(qn, cluster):
+    """While spans are recorded: how many times kernel D (or its twin)
+    decodes each slot tile at ``qn`` query rows, its query blocks over the
+    blocks of a cluster (2 at Q=512), as the root's ``tile_decodes``
+    counter."""
+    if recording():
+        note("tile_decodes", -(-qn // _D_ROWS) // cluster)
+
+
 def _smallest_tiles_plain(vmin, amin, k):
     """The k smallest tile minima of each row and their slots, ties to the
     lower column: the twin of D's selecting epilogue."""
@@ -401,8 +425,9 @@ def _list_keys(qn, u, cap_v, device):
     """Keys of the scratch of D's selecting epilogue: its lists, kListCap a
     query row and slot group, the slot groups its grid takes (``launch`` in
     csrc/replica_tc.cu: query blocks nqb of 128 rows, slot groups
-    min(tiles, SMs // nqb); it takes fewer where the scratch holds fewer),
-    then each query row's shared threshold."""
+    min(tiles, SMs // nqb); it takes fewer where the scratch holds fewer,
+    or where fewer pairs of blocks run at once), then each query row's
+    shared threshold."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     tiles = -(-(u * cap_v) // _TILE)
     nsg = max(1, min(tiles, sms // -(-qn // _D_ROWS)))
@@ -440,6 +465,7 @@ def ivf_pq_window_tile_minima(queries, codes_g, codewords, flat, dup, vlen,
     extra = () if pen is None else (pen,)
     _require(k is None or k >= 1, lambda: f"k must be >= 1, got {k}")
     if _on_cpu(queries, codes_g, codewords, flat, dup, vlen, *extra):
+        _note_tile_decodes(queries.shape[0], pq_window_cluster(queries.shape[0], d))
         return ivf_pq_window_tile_minima_plain(queries, codes_g, codewords,
                                                flat, dup, vlen, cap_v, pen, k)
     _check_window_kernel_args(codes_g, flat, dup, vlen, cap_v, pen)
@@ -455,14 +481,16 @@ def ivf_pq_window_tile_minima(queries, codes_g, codewords, flat, dup, vlen,
                             cap_v, min(k, ncol))
     vmin = torch.empty((qn, ncol), dtype=torch.float32, device=codes_g.device)
     amin = torch.empty((qn, ncol), dtype=torch.int32, device=codes_g.device)
+    cluster = ctypes.c_int(0)
     fn = _build.load_library("replica_tc").rii_tc_pq_window_top2
     _build.configure(fn, [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8
-                         + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                         + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
     _build.check(fn(_ptr(q16), ldq, _ptr(codes_g), _ptr(cw16), _ptr(flat),
                     _ptr(dup), _ptr(vlen), pen_p, _ptr(vmin), _ptr(amin), qn,
-                    m, ks, ds, u, cap_v, _stream(codes_g.device)),
-                 "ivf_pq_window_tile_minima")
+                    m, ks, ds, u, cap_v, _stream(codes_g.device),
+                    ctypes.byref(cluster)), "ivf_pq_window_tile_minima")
     _build.count_launch(ivf_pq_window_tile_minima)
+    _note_tile_decodes(qn, cluster.value)
     return vmin, amin
 
 
@@ -479,15 +507,17 @@ def _window_topk(q16, ldq, codes_g, cw16, flat, dup, vlen, pen_p, cap_v, k):
     cand = torch.empty(n_keys, dtype=torch.int64, device=dev)
     vals = torch.empty((qn, k), dtype=torch.float32, device=dev)
     slots = torch.empty((qn, k), dtype=torch.int32, device=dev)
+    cluster = ctypes.c_int(0)
     fn = _build.load_library("replica_tc").rii_tc_pq_window_topk
     _build.configure(fn, [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
                          + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
-                         + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                         + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
     _build.check(fn(_ptr(q16), ldq, _ptr(codes_g), _ptr(cw16), _ptr(flat),
                     _ptr(dup), _ptr(vlen), pen_p, _ptr(cand), n_keys,
                     _ptr(vals), _ptr(slots), qn, m, ks, ds, u, cap_v, k,
-                    _stream(dev)), "ivf_pq_window_tile_minima")
+                    _stream(dev), ctypes.byref(cluster)), "ivf_pq_window_tile_minima")
     _build.count_launch(ivf_pq_window_tile_minima)
+    _note_tile_decodes(qn, cluster.value)
     return vals, slots
 
 

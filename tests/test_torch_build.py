@@ -48,6 +48,9 @@ _SASS = """
         /*0000*/                   I2FP.F32.S32 R1, R2 ;                       /* 0x0000000000000000 */
 \t\tFunction : _ZN46_GLOBAL__N__e61738d7_13_replica_tc_cu_7368d82214tc_scan_kernelILi2ELi2ELi1ELb1EEEv14CUtensorMap
         /*0000*/                   SYNCS.ARRIVE.TRANS64 RZ, [R2+URZ], R3 ;     /* 0x0000000000000000 */
+\t\tFunction : _ZN46_GLOBAL__N__4f72fe39_13_replica_tc_cu_7368d82214tc_scan_kernelILi5ELi4ELi1ELb0EtLb1EEEv14CUtensorMap_st
+        /*0000*/                   UBLKCP.S.S [UR4], [UR5], UR6 ;             /* 0x0000000000000000 */
+        /*0010*/                   UBLKCP.S.S [UR4], [UR5], UR6 ;             /* 0x0000000000000000 */
 \t\tFunction : rii_other_kernel
         /*0000*/                   EXIT ;                                      /* 0x0000000000000000 */
 """
@@ -56,13 +59,15 @@ _SASS = """
 def test_parse_sass_counts_the_bf16_instantiations():
     counts = tc_split.parse_sass(_SASS)
     # the int8 instantiation and other kernels are left out; the parent's
-    # mangling (no operand type) is read as bf16
-    assert set(counts) == {(0, 0, 1, 0), (2, 2, 1, 1)}
-    assert counts[0, 0, 1, 0] == {"LDC": 1, "BRA": 1, "FFMA": 2}
-    assert counts[2, 2, 1, 1] == {"SYNCS": 1}
+    # mangling (no operand type) is read as bf16, an instantiation without
+    # the cluster argument as cluster 0
+    assert set(counts) == {(0, 0, 1, 0, 0), (2, 2, 1, 1, 0), (5, 4, 1, 0, 1)}
+    assert counts[0, 0, 1, 0, 0] == {"LDC": 1, "BRA": 1, "FFMA": 2}
+    assert counts[2, 2, 1, 1, 0] == {"SYNCS": 1}
+    assert counts[5, 4, 1, 0, 1] == {"UBLKCP": 2}
 
 
 def test_parse_sass_counts_the_int8_instantiations():
     counts = tc_split.parse_sass(_SASS, operand="a")
-    assert set(counts) == {(1, 1, 2, 0)}
-    assert counts[1, 1, 2, 0] == {"I2FP": 1}
+    assert set(counts) == {(1, 1, 2, 0, 0)}
+    assert counts[1, 1, 2, 0, 0] == {"I2FP": 1}

@@ -414,6 +414,55 @@ def test_pq_window_topk_limits(cuda):
     assert not HP.pq_window_selects(HP.PQ_WINDOW_TOPK_MAX + 1, 50, 256)
 
 
+# Kernel D at a Q of each cluster size (hopper_pq.pq_window_cluster): one
+# query block (64, 128), an even number in pairs (2, 4 and 8 blocks: 129,
+# 512, 1024), an odd number, each alone (3, 5 and 9: 300, 640, 1100).
+_CLUSTER_QS = [64, 128, 129, 300, 512, 640, 1024, 1100]
+
+
+@pytest.mark.parametrize("out", ["top2", "topk"])
+@pytest.mark.parametrize("qn", _CLUSTER_QS)
+def test_pq_window_clusters_decode_each_tile_once(cuda, qn, out):
+    """Both of D's outputs at Q past one query block equal, bit for bit,
+    those of its 128-row blocks launched one by one (one block, no
+    cluster); the full output agrees with the twin, the selection is the
+    selection of the full output, and the call notes the tile decodes of
+    the cluster size the entry reports (one where its blocks form a
+    cluster)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rii_tpu_torch.ops.ivf import _select_tiles
+    from rii_tpu_torch.utils import profiling as prof
+    g = torch.Generator(device=cuda).manual_seed(qn)
+    q, codes_g, cw, flat, dup, vl, pen = _pq_union(g, cuda, qn, 200, 256, 60, True, "")
+    k = 20 if out == "topk" else None
+
+    def call(rows, kk=k):
+        return HP.ivf_pq_window_tile_minima(rows, codes_g, cw, flat, dup, vl, 256, pen=pen,
+                                            k=kk)
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        root = prof.begin_call("test.window")
+        got = call(q)
+        prof.end_call(root)
+    torch.cuda.synchronize()
+    nqb = -(-qn // 128)
+    decodes = [r for r in prof.spans() if r.id == root.id][0].attrs["tile_decodes"]
+    assert decodes == nqb // HP.pq_window_cluster(qn, q.shape[1])
+    assert decodes == (nqb // 2 if nqb % 2 == 0 else nqb)
+    for b in range(nqb):
+        alone = call(q[128 * b:128 * (b + 1)])
+        for x, y in zip(got, alone):
+            assert torch.equal(x[128 * b:128 * (b + 1)].view(torch.int32), y.view(torch.int32))
+    if out == "top2":
+        assert_keys_match(*_np(*got, *HP.ivf_pq_window_tile_minima_plain(
+            q, codes_g, cw, flat, dup, vl, 256, pen=pen)))
+    else:
+        want_v, want_s, _ = _select_tiles(*call(q, None), k)
+        assert torch.equal(got[0].view(torch.int32), want_v.view(torch.int32))
+        assert torch.equal(got[1], want_s)
+
+
 def test_pq_union_spy_sees_the_selecting_call(cuda):
     """The benchmark's spy on ops/ivf.py's name for kernel D (it counts the
     union's live rows for scan_roofline.pq) sees the call that selects in

@@ -182,6 +182,24 @@ def test_window_selection_shape_rule():
     assert HP.pq_window_selects(19, 1, 80)
 
 
+# (Q, D, blocks of kernel D's clusters): an even number of query blocks
+# (pairs), one or an odd number (each block alone); queries past 512 dims,
+# which stream through the ring (each block alone)
+_CLUSTERS = [(1, 128, 1), (64, 128, 1), (128, 128, 1), (129, 128, 2), (256, 128, 2),
+             (300, 128, 1), (512, 128, 2), (640, 128, 1), (896, 128, 1), (1024, 128, 2),
+             (1025, 128, 1), (1100, 128, 1), (4096, 128, 2), (512, 512, 2), (512, 520, 1),
+             (130, 640, 1)]
+
+
+@pytest.mark.parametrize("qn,d,cluster", _CLUSTERS)
+def test_window_cluster_rule(qn, d, cluster):
+    """Kernel D's query blocks of 128 rows that share a slot group form
+    clusters of two where they are even in number and their queries stay
+    resident, so each pair decodes each tile once; otherwise each block
+    decodes its own copy."""
+    assert HP.pq_window_cluster(qn, d) == cluster
+
+
 def _run_union(lo, qn, masked, w=4, topk=10):
     """Both packages' kernel branches in exact mode (exact probes and top-k)."""
     q = lo["q"][:qn]
@@ -283,26 +301,35 @@ def test_union_spy_sees_the_selecting_call(layout):
     assert spy.rows()[0][1:] == (64, int(vl[dup == 0].sum()))
 
 
-@pytest.mark.parametrize("qn,fused", [(8, 0), (64, 1)])
+# kernel D's (or its twin's) decodes of each tile a call, by Q: none at
+# Q < D (kernel E), one a query block alone or a pair of them (129 to 256
+# rows: one pair; 512: two)
+_DECODES = {8: None, 64: 1, 256: 1, 300: 3, 512: 2, 1100: 9}
+
+
+@pytest.mark.parametrize("qn,fused", [(8, 0), (64, 1), (256, 1), (300, 1), (512, 1),
+                                      (1100, 1)])
 def test_union_notes_whether_the_window_kernel_selected(layout, qn, fused):
     """Under a recording profiler the union's root carries ``tile_fused``
     (1 where kernel D selected its tile minima itself; kernel E, at Q < D,
     leaves them to the selection) beside ``select_kernel`` (0 on the CPU,
-    where the twins select)."""
+    where the twins select) and, where kernel D ran, ``tile_decodes``."""
     from torch.profiler import ProfilerActivity, profile
 
     from rii_tpu_torch.utils import profiling as prof
     lo = layout
     args = [_t(a) for a in (lo["codes_g"], lo["norms_g"], lo["order_g"],
                             lo["cw"], lo["centers_dec"], lo["centers_norms"])]
+    q = lo["q"][np.arange(qn) % len(lo["q"])]  # past 128 rows, the rows again
     with profile(activities=[ProfilerActivity.CPU]):
         root = prof.begin_call("rii.query_batch")
         TI.ivf_union_scan_topk_pq(
-            torch.from_numpy(lo["q"][:qn]), *args, w=4, topk=10, cap_u=CAP_V,
+            torch.from_numpy(q), *args, w=4, topk=10, cap_u=CAP_V,
             nlist_pad=lo["nlist_v_pad"], vlen=_t(lo["vlen"]), use_kernel=True)
         prof.end_call(root)
     attrs = [r for r in prof.spans() if r.id == root.id][0].attrs
     assert attrs["tile_fused"] == fused and attrs["select_kernel"] == 0
+    assert attrs.get("tile_decodes") == _DECODES[qn]
 
 
 @pytest.mark.parametrize("masked", [False, True])
