@@ -21,6 +21,10 @@ The scatters write the cache tensors in place (the JAX package's arrays are
 immutable); they run under the exclusive side of the state lock, so no
 query sees a half-written cache.
 
+A query batch reaches a card through the page-locked staging buffer that
+the engine keeps (``_QueryStaging``): padded there in place, then copied
+without blocking the host.
+
 A restored checkpoint (``utils.serialization.load_index``, format v2) hands
 the engine its saved norms and virtual layout as one-shot adoption state:
 the first cache build takes them in place of the norms pass and
@@ -86,6 +90,50 @@ def _pad_queries(queries, lo=1):
         return queries, qn
     pad = np.broadcast_to(queries[:1], (bucket - qn, queries.shape[1]))
     return np.concatenate([queries, pad], axis=0), qn
+
+
+def _fill_padded(dst, queries):
+    """Write the (Q, D) batch into the first Q rows of the (bucket, D) numpy
+    array ``dst`` and row 0 into the rest: ``_pad_queries``'s rule, in
+    place."""
+    qn = queries.shape[0]
+    dst[:qn] = queries
+    dst[qn:] = queries[0]
+
+
+class _QueryStaging:
+    """The page-locked host buffer through which an engine on a card uploads
+    its query batches.
+
+    Allocated at the first upload and grown only when a larger batch
+    arrives; never pinned per call. A batch is padded into it in place and
+    copied out with one non-blocking copy on the current stream, so the host
+    neither builds a fresh array nor waits for a pageable copy. An event
+    recorded after the copy guards the buffer: the next fill waits for it.
+    One lock around wait, fill and copy lets concurrent queries (the
+    server's dispatchers) share the one buffer."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._host = None  # flat page-locked float32
+        self._copied = None  # CUDA event after the last copy out of _host
+
+    def upload(self, queries, bucket, device):
+        """The (bucket, D) float32 tensor on ``device`` that holds
+        ``queries`` padded with copies of row 0."""
+        n = bucket * queries.shape[1]
+        with self._lock:
+            if self._copied is not None:
+                self._copied.synchronize()
+            if self._host is None or self._host.numel() < n:
+                self._host = torch.empty(n, dtype=torch.float32,
+                                         pin_memory=True)
+            rows = self._host[:n].view(bucket, queries.shape[1])
+            _fill_padded(rows.numpy(), queries)
+            out = rows.to(device, non_blocking=True)
+            self._copied = torch.cuda.Event()
+            self._copied.record(torch.cuda.current_stream(device))
+        return out
 
 
 def resolve_rescore(exact_rescore, qn):
@@ -215,6 +263,7 @@ class Rii:
         self._layout_v = None  # saved virtual layout
         self._cache_lock = threading.Lock()  # one thread builds the cache
         self._state_lock = _RWLock()  # queries shared, mutations exclusive
+        self._staging = _QueryStaging()  # the queries' way to the card
 
     # ------------------------------------------------------------------ #
     # properties
@@ -612,14 +661,28 @@ class Rii:
         stage("rii.prepare")
         lin = self._ensure_cache()[0]
         stage("rii.upload")
-        qp, qn = _pad_queries(queries)
-        qd = torch.tensor(qp, device=self.device)
+        qd, qn = self._upload_queries(queries)
         d, i = lin.scan_topk(
             qd, topk, tids=tids,
             rescore=resolve_rescore(self.exact_rescore, qd.shape[0]),
             recall_target=self.topk_recall, kernels=self._use_kernels())
         stage("rii.download")
         return i[:qn].cpu().numpy(), d[:qn].cpu().numpy()
+
+    def _upload_queries(self, queries, lo=1):
+        """The (Q, D) float32 batch on the engine's device, padded to its
+        power-of-two bucket >= lo with copies of row 0: (tensor, Q). On a
+        card through the engine's page-locked staging buffer; the root
+        counter ``upload_staged`` is 1 there, 0 on the CPU."""
+        qn = queries.shape[0]
+        bucket = _pow2_at_least(qn, lo)
+        if self.device.type == "cuda":
+            note("upload_staged", 1)
+            return self._staging.upload(queries, bucket, self.device), qn
+        note("upload_staged", 0)
+        qd = torch.empty((bucket, queries.shape[1]), dtype=torch.float32)
+        _fill_padded(qd.numpy(), queries)
+        return qd, qn
 
     def _probe_budget_virtual(self, L, s, win):
         """The reference's candidate budget in virtual buckets: L rows of
@@ -652,8 +715,7 @@ class Rii:
             note("route", "ivf_to_linear")
             return ids, dists
         stage("rii.upload")
-        qp, qn = _pad_queries(queries, lo=lo)
-        qd = torch.tensor(qp, device=self.device)
+        qd, qn = self._upload_queries(queries, lo=lo)
         tm = None
         if tids is not None:
             tm = lin.subset_mask(tids)[win.order_g.clamp(0, lin.cap - 1).long()]
@@ -761,15 +823,17 @@ class Rii:
             print(f"_use_linear({S}, L={self.L0}): {use_linear}")
 
     def __getstate__(self):
-        """The host state; the device cache and the locks are dropped, and
-        the codec keeps its device (an engine pickled on the card needs one
-        where it is unpickled, and raises at its first use without)."""
+        """The host state; the device cache, the staging buffer and the
+        locks are dropped, and the codec keeps its device (an engine pickled
+        on the card needs one where it is unpickled, and raises at its first
+        use without)."""
         self._consolidated_codes()
         self._assignments()
         state = self.__dict__.copy()
         state["_stores"] = None
         state.pop("_cache_lock", None)
         state.pop("_state_lock", None)
+        state.pop("_staging", None)
         return state
 
     def __setstate__(self, state):
@@ -777,6 +841,7 @@ class Rii:
         self._stores = None
         self._cache_lock = threading.Lock()
         self._state_lock = _RWLock()
+        self._staging = _QueryStaging()
 
     # ------------------------------------------------------------------ #
     # internal state

@@ -16,8 +16,10 @@ scan, the merge over kernel F's packed keys, the rescore and the ids) and
 ``rii.select`` also hold a CUDA event pair, resolved at read time to device
 milliseconds. The root's attributes are counters: ``route``, ``tier`` (the
 cache's linear tier: ``bf16``, ``int8`` or ``pq``), ``queries`` (before
-padding), ``union_rows`` (the live rows of the union's distinct windows)
-and ``clock_ns``. With no profiler recording a site costs one read of the flag.
+padding), ``union_rows`` (the live rows of the union's distinct windows),
+``upload_staged`` (1 where the queries reached the card through the
+engine's page-locked staging buffer, 0 on the CPU) and ``clock_ns``. With
+no profiler recording a site costs one read of the flag.
 
 Times are ``time.perf_counter_ns``. The root first opens an empty profiler
 record function, ``rii.clock``, and reads that clock inside it: the

@@ -165,6 +165,21 @@ def test_query_batch_records_its_stages_and_route(span_engine, route):
     assert ("union_rows" in root.attrs) == ivf_ran
 
 
+@pytest.mark.parametrize("route", ["linear", "linear_masked", "ivf",
+                                   "ivf_widened"])
+def test_upload_staged_is_zero_on_the_cpu(span_engine, route):
+    """The root's ``upload_staged`` counter: 0 where the queries stay in
+    host memory (the CPU device), on every route that uploads them; 1 on a
+    card, held by ``tests/test_torch_upload.py``."""
+    e, X = span_engine
+    q = X[np.asarray(e.posting_lists[5][:1])]
+    out, _ = _recorded(lambda: e.query_batch(q, topk=10,
+                                             **_route_kwargs(e, route)))
+    [(root, _)] = _calls(out)
+    assert root.attrs["route"] == route
+    assert root.attrs["upload_staged"] == 0
+
+
 def test_union_rows_counts_the_unions_live_rows(span_engine):
     """The pq union's plain branch (the CPU route): ``union_rows`` is the
     member count of the distinct probed windows, the probes recomputed here
